@@ -1,0 +1,10 @@
+"""repro_torch: the SLED serving stack ported to PyTorch and CUDA (H100).
+
+The JAX package ``repro`` stays the reference; this package mirrors its
+layout (``configs/``, ``models/``, ``kernels/``, ``core/``, ``api/``,
+``telemetry/``) and imports nothing of it. Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU.
+"""
+from repro_torch.runtime import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,110 @@
+"""Bridge between the JAX package's pytrees and the port's modules.
+
+The JAX side hands over its parameter and cache pytrees as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, tree)``); nothing here imports JAX.
+bf16 moves bit-exactly through a 16-bit integer view, as the JAX
+checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
+weight is a plain copy. The stacked ``(L, ...)`` leaves of
+``params["layers"]`` become the per-layer blocks of ``Transformer.layers``.
+
+Going back, bf16 tensors come out as their ``uint16`` bits (the checkpoint
+convention); ``arr.view(ml_dtypes.bfloat16)`` restores the dtype.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import Transformer
+from repro_torch.runtime import resolve_device
+
+# port parameter name inside a Block -> path under the JAX params["layers"]
+_LAYER_PARAMS = {
+    "ln1.scale": ("ln1", "scale"),
+    "ln2.scale": ("ln2", "scale"),
+    "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
+    "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
+    "attn.bq": ("attn", "bq"), "attn.bk": ("attn", "bk"), "attn.bv": ("attn", "bv"),
+    "mlp.wg": ("mlp", "wg"), "mlp.wu": ("mlp", "wu"), "mlp.wd": ("mlp", "wd"),
+}
+
+
+def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """numpy -> torch, bf16 (ml_dtypes or JAX bfloat16) bit-exactly."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """torch -> numpy; bf16 comes out as its uint16 bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _get(tree: Dict[str, Any], path) -> np.ndarray:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> Transformer:
+    """A ``Transformer`` on ``device`` holding the JAX params pytree's weights."""
+    device = resolve_device(device)
+    model = Transformer(cfg, device=device)
+    with torch.no_grad():
+        model.embed.copy_(to_tensor(tree["embed"], device))
+        model.final_norm.scale.copy_(to_tensor(tree["final_norm"]["scale"], device))
+        if model.lm_head_w is not None:
+            model.lm_head_w.copy_(to_tensor(tree["lm_head"], device))
+        for name, path in _LAYER_PARAMS.items():
+            if _dotted(model.layers[0], name) is None:
+                continue  # e.g. no QKV bias in this config
+            stacked = to_tensor(_get(tree["layers"], path), device)
+            if stacked.shape[0] != cfg.num_layers:
+                raise ValueError(f"layers/{'/'.join(path)} has {stacked.shape[0]} layers, "
+                                 f"config has {cfg.num_layers}")
+            for li, blk in enumerate(model.layers):
+                _dotted(blk, name).copy_(stacked[li])
+    return model
+
+
+def params_to_jax(model: Transformer) -> Dict[str, Any]:
+    """The JAX params pytree layout, as numpy arrays (bf16 as uint16 bits)."""
+    layers: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, (grp, leaf) in _LAYER_PARAMS.items():
+        if _dotted(model.layers[0], name) is None:
+            continue
+        stacked = torch.stack([_dotted(blk, name) for blk in model.layers])
+        layers.setdefault(grp, {})[leaf] = to_numpy(stacked)
+    tree: Dict[str, Any] = {
+        "embed": to_numpy(model.embed),
+        "final_norm": {"scale": to_numpy(model.final_norm.scale)},
+        "layers": layers,
+    }
+    if model.lm_head_w is not None:
+        tree["lm_head"] = to_numpy(model.lm_head_w)
+    return tree
+
+
+def cache_from_jax(tree: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
+    """A JAX cache / ``PagedKVCache.cache`` pytree as the port's cache dict."""
+    device = resolve_device(device)
+    return {name: to_tensor(a, device) for name, a in tree.items()}
+
+
+def cache_to_jax(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    return {name: to_numpy(t) for name, t in cache.items()}
+
+
+def _dotted(module, name: str):
+    obj = module
+    for part in name.split("."):
+        obj = getattr(obj, part)
+    return obj

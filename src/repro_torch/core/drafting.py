@@ -1,0 +1,87 @@
+"""Device-side dynamic drafting (SLED §III-A).
+
+The port of ``repro.core.drafting``. The edge device drafts up to ``k_max``
+tokens with its local draft model and stops early when the draft
+confidence ``c_i`` drops below ``c_th`` (paper Eq. 1): a low-confidence
+token is still included in the verification request, but nothing is drafted
+behind it. As in the JAX scan, every row runs all ``k_max`` steps and rows
+that stopped early carry padding.
+
+Rollback: the draft KV cache rolls back by setting ``length = base + 1 +
+n_accepted``; stale entries past it are masked and later overwritten.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Union
+
+import torch
+
+from repro_torch.core.speculative import sample_token
+
+
+@dataclasses.dataclass
+class DraftResult:
+    tokens: torch.Tensor       # (B, K) drafted tokens (padding past length)
+    q_sel: torch.Tensor        # (B, K) q(token)
+    lengths: torch.Tensor      # (B,) dynamic draft lengths in [1, K]
+    confidence: torch.Tensor   # (B, K)
+    cache: Any                 # cache after the drafting steps (uncommitted)
+    base_length: torch.Tensor  # (B,) cache length before the round
+
+
+def draft_round(
+    model,
+    params,
+    cache: Dict[str, torch.Tensor],
+    prev_token: torch.Tensor,  # (B,) last committed token (cache has not seen it)
+    *,
+    k_max: int,
+    c_th: Union[float, torch.Tensor] = 0.0,  # 0.0 -> fixed-length drafting
+    temperature: float = 1.0,
+    greedy: bool = True,
+    attn_chunk: int = 1024,
+) -> DraftResult:
+    """One drafting round: feed prev_token, then draft up to k_max tokens."""
+    if model.cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            "ssm/hybrid drafting (per-step cache checkpoints) is not ported yet "
+            "(ROADMAP.md Queue A, 'Other model families')"
+        )
+    B = prev_token.shape[0]
+    dev = prev_token.device
+    base_length = cache["length"]
+    tok = prev_token.to(torch.int32)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    toks, qs, emitted_all, confs = [], [], [], []
+    for _ in range(k_max):
+        h, ck = model.decode_forward(params, cache, tok[:, None], attn_chunk=attn_chunk)
+        cache = model.commit(ck, ones)  # consume exactly this one token
+        logits = model.lm_head(params, h)[:, 0]
+        nxt, q, dist = sample_token(logits, temperature, greedy)
+        conf = dist.max(dim=-1).values
+        emitted = active
+        toks.append(torch.where(emitted, nxt, torch.zeros_like(nxt)))
+        qs.append(torch.where(emitted, q, torch.zeros_like(q)))
+        emitted_all.append(emitted)
+        confs.append(torch.where(emitted, conf, torch.zeros_like(conf)))
+        tok = torch.where(emitted, nxt, tok)
+        active = active & (conf >= c_th)
+    emitted = torch.stack(emitted_all, dim=1)
+    return DraftResult(
+        tokens=torch.stack(toks, dim=1),
+        q_sel=torch.stack(qs, dim=1),
+        lengths=emitted.sum(dim=1).to(torch.int32),
+        confidence=torch.stack(confs, dim=1),
+        cache=cache,
+        base_length=base_length,
+    )
+
+
+def resume_after_verify(draft: DraftResult, n_accepted: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Roll the device cache back to the server-verified prefix: committed
+    length ``base + 1 + n_accepted`` (prev_token + accepted drafts); the next
+    round feeds the server's correction/bonus token as ``prev_token``."""
+    new_len = draft.base_length + 1 + n_accepted.to(draft.base_length.device, torch.int32)
+    return {**draft.cache, "length": new_len}

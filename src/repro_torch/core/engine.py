@@ -1,0 +1,259 @@
+"""Engine core: the pure single-replica verify stepper (no admission logic).
+
+The port of ``repro.core.engine``: a :class:`PagedKVCache` row pool plus
+the prefill / bucketed slot-indexed verify / force-extend steps that run
+against it. Policy (who is admitted, what batches together) lives one layer
+up in core/admission.py and core/server_engine.py.
+
+The step bundle (:class:`VerifySteps`) holds plain step functions: PyTorch
+runs eagerly, so there is nothing to compile. Capturing the steps in CUDA
+graphs is later work (ROADMAP.md Queue B).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import telemetry
+from repro_torch.core import verification
+from repro_torch.models.kvcache import PagedKVCache
+from repro_torch.runtime import resolve_device
+
+log = logging.getLogger(__name__)
+
+
+def _check_kv_dtype(kv_dtype: str) -> str:
+    if kv_dtype == "int8":
+        raise NotImplementedError(
+            "kv_dtype='int8' is not ported yet (ROADMAP.md Queue A, 'int8 KV pool')"
+        )
+    if kv_dtype != "bf16":
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r} (one of ['bf16', 'int8'])")
+    return kv_dtype
+
+
+@dataclasses.dataclass
+class Verdict:
+    """Per-request outcome of one engine round (device resume protocol)."""
+
+    device_id: int
+    n_accepted: int
+    tokens: np.ndarray  # committed this round: accepted drafts + extra
+    next_prev: int  # correction/bonus token the device feeds next round
+    accept_rate: float = 0.0  # this round's accepted/drafted
+    queue_depth: int = 0  # replica queue depth after this dispatch
+    queue_s: float = 0.0  # time this round waited in the admission queue
+    verify_s: float = 0.0  # wall time of its verify step
+
+
+@dataclasses.dataclass
+class RoundStats:
+    time: float
+    size: int  # batch fill (requests verified)
+    bucket: int  # padded batch size
+    queue_depth: int  # planner queue after dispatch
+    n_commit: int  # tokens committed this round
+    step_seconds: float  # wall time of the verify call
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Aggregate serving stats (field names mirror the JAX package's)."""
+
+    wstgr: float
+    per_device_rate: float
+    server_busy_frac: float
+    rounds: int
+    timeouts: int
+    fallback_tokens: int
+    mean_batch_fill: float
+    mean_round_latency: float
+    server_rounds_per_s: float
+    partial_rounds: int = 0
+    streams_served: int = 0
+    acceptance_rate: float = 0.0
+    mean_queue_depth: float = 0.0
+    fallback_rounds: int = 0
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _pad_to(a: np.ndarray, n: int, fill=0) -> np.ndarray:
+    if a.shape[0] == n:
+        return a
+    pad = np.full((n - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+class VerifySteps:
+    """The step bundle for one (model, serving config): prefill, bucketed
+    slot-indexed verify, force-extend."""
+
+    def __init__(
+        self,
+        model: Any,
+        *,
+        scratch_slot: int,
+        greedy: bool = True,
+        attn_chunk: int = 32,
+        kv_dtype: str = "bf16",
+    ):
+        self.model = model
+        self.greedy = greedy
+        self.scratch_slot = scratch_slot
+        self.attn_chunk = attn_chunk
+        self.kv_dtype = _check_kv_dtype(kv_dtype)
+        self.verify = verification.make_paged_verify_step(
+            model, scratch_slot=scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
+        )
+        self.prefill = verification.make_prefill_step(model, attn_chunk=attn_chunk)
+        self.extend = verification.make_force_extend_step(model, attn_chunk=attn_chunk)
+
+
+class EngineCore:
+    """Pure single-replica verify stepper: row pool + bucketed verification.
+
+    Owns the :class:`PagedKVCache` pool on ``device`` (the card unless the
+    caller asks for the CPU) and runs padded verify batches against
+    arbitrary slot subsets.
+    """
+
+    def __init__(
+        self,
+        model: Any,
+        params: Any,
+        *,
+        n_slots: int,
+        max_len: int,
+        k_max: int,
+        greedy: bool = True,
+        attn_chunk: int = 32,
+        buckets: Optional[Sequence[int]] = None,
+        batch_cap: Optional[int] = None,
+        kv_dtype: str = "bf16",
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if params.device != self.device:
+            raise ValueError(f"target weights are on {params.device}, the engine on {self.device}")
+        self.model = model
+        self.params = params
+        self.k_max = k_max
+        self.greedy = greedy
+        self.kv_dtype = _check_kv_dtype(kv_dtype)
+        self.pool = PagedKVCache(model, n_slots, max_len, device=self.device,
+                                 attn_chunk=attn_chunk)
+        self.steps = VerifySteps(
+            model, scratch_slot=self.pool.scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
+            kv_dtype=self.kv_dtype,
+        )
+        if telemetry.enabled():
+            reg = telemetry.registry()
+            reg.gauge("engine_kv_pool_bytes").set(float(self.pool.pool_bytes()))
+            reg.gauge("engine_bytes_per_slot").set(float(self.pool.bytes_per_slot()))
+        cap = batch_cap or n_slots
+        self.batch_cap = cap
+        if buckets is None:
+            buckets, b = [], 1
+            while b < cap:
+                buckets.append(b)
+                b *= 2
+            buckets.append(cap)
+        self.buckets = sorted(set(buckets))
+        self.compile_log: Dict[int, float] = {}  # bucket -> warmup seconds
+
+    # -- slot lifecycle ------------------------------------------------------
+
+    def alloc_slot(self) -> int:
+        """Free pool row for a new stream; raises SlotExhausted when full."""
+        return self.pool.alloc()
+
+    def free_slot(self, slot: int) -> None:
+        self.pool.free(slot)
+
+    @property
+    def n_free(self) -> int:
+        return self.pool.n_free
+
+    def _tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+
+    def prefill_slot(self, slot: int, prompt) -> int:
+        """Prefill ``prompt`` into pool row ``slot``; returns the last prompt
+        token (the stream's first ``prev_token``)."""
+        with telemetry.span("engine_prefill_seconds"):
+            row = self.pool.make_row_cache()
+            _, row, prev = self.steps.prefill(self.params, row, self._tensor(prompt)[None, :])
+            self.pool.write_slot(slot, row)
+            return int(prev[0])
+
+    # -- compute -------------------------------------------------------------
+
+    def bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def warmup(self) -> Dict[int, float]:
+        """Run the verify step once per bucket on scratch-slot rows, so the
+        first real round pays no one-time set-up (kernel build and load,
+        library handles). Safe anytime: scratch contents are never read as
+        committed state. Returns ``{bucket: seconds}``."""
+        times: Dict[int, float] = {}
+        for b in self.buckets:
+            t0 = time.perf_counter()
+            zeros = self._tensor(np.zeros((b,)))
+            vb = verification.make_verify_batch(zeros, self._tensor(np.zeros((b, self.k_max))), zeros)
+            slots = self._tensor(np.full((b,), self.pool.scratch_slot))
+            _, self.pool.cache = self.steps.verify(self.params, self.pool.cache, slots, vb)
+            self.pool.cache["length"].cpu()  # wait for the step
+            times[b] = time.perf_counter() - t0
+            log.info("warmup: bucket %d verify step ready in %.2fs", b, times[b])
+        self.compile_log.update(times)
+        return times
+
+    def verify(self, slots: np.ndarray, prev: np.ndarray, toks: np.ndarray,
+               lens: np.ndarray) -> Tuple[Any, int, float]:
+        """One bucketed verify pass over pool rows ``slots``.
+
+        Inputs are the un-padded per-request arrays; the core pads them to
+        the enclosing bucket (scratch-slot rows for the fill) and commits
+        the accepted prefixes into the pool. Returns ``(VerifyResult with
+        host numpy fields, bucket, step_seconds)``.
+        """
+        t_wall = time.perf_counter()
+        bucket = self.bucket_for(slots.shape[0])
+        slots_p = _pad_to(np.asarray(slots, np.int32), bucket, fill=self.pool.scratch_slot)
+        vb = verification.make_verify_batch(
+            self._tensor(_pad_to(prev, bucket)),
+            self._tensor(_pad_to(toks, bucket)),
+            self._tensor(_pad_to(lens, bucket)),
+        )
+        res, self.pool.cache = self.steps.verify(self.params, self.pool.cache,
+                                                 self._tensor(slots_p), vb)
+        res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu().numpy()
+                                          for f in dataclasses.fields(res)})
+        step_seconds = time.perf_counter() - t_wall
+        if telemetry.enabled():
+            telemetry.observe("engine_verify_seconds", step_seconds)
+            telemetry.observe("engine_verify_fill", slots.shape[0], buckets=telemetry.K_BUCKETS)
+        return res, bucket, step_seconds
+
+    def force_extend(self, slot: int, feed: np.ndarray) -> None:
+        """Append ``feed`` (already shifted to satisfy the KV invariant) to
+        pool row ``slot`` without verification (§III-A fallback resync)."""
+        with telemetry.span("engine_commit_seconds"):
+            padded = np.zeros((self.k_max + 1,), np.int32)
+            padded[: feed.size] = feed
+            self.pool.cache = self.steps.extend(
+                self.params, self.pool.cache, self._tensor([slot]),
+                self._tensor(padded[None, :]), self._tensor([feed.size]),
+            )

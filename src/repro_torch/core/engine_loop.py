@@ -1,0 +1,162 @@
+"""Synchronous single-host SLED reference loop (draft + verify, real models).
+
+The port of ``repro.core.engine_loop``: the algorithmic ground truth that
+the ``reference`` backend runs. A draft model and a target model run the
+SLED drafting/verification protocol in lock-step over a batch of prompts;
+greedy SLED output must equal greedy target-only output.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import drafting, verification
+from repro_torch.core.speculative import PAD_TOKEN
+
+
+@dataclasses.dataclass
+class SledStats:
+    rounds: int = 0
+    drafted: int = 0
+    accepted: int = 0
+    committed: int = 0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return self.accepted / max(self.drafted, 1)
+
+
+def make_sled_steps(draft_model, target_model, *, k_max: int = 4, c_th: float = 0.0,
+                    greedy: bool = True, attn_chunk: int = 256) -> dict:
+    """The lock-step loop's step bundle (prefill both models, draft, verify)."""
+    return {
+        "d_prefill": verification.make_prefill_step(draft_model, attn_chunk=attn_chunk),
+        "t_prefill": verification.make_prefill_step(target_model, attn_chunk=attn_chunk),
+        "verify": verification.make_verify_step(target_model, greedy=greedy,
+                                                attn_chunk=attn_chunk),
+        "draft": lambda params, cache, prev: drafting.draft_round(
+            draft_model, params, cache, prev, k_max=k_max, c_th=c_th, greedy=greedy,
+            attn_chunk=attn_chunk,
+        ),
+    }
+
+
+@dataclasses.dataclass
+class SledRound:
+    """One lock-step round's per-row outcome (host numpy)."""
+
+    tokens: np.ndarray  # (B, k_max+1) committed candidates per row
+    n_commit: np.ndarray  # (B,) tokens actually committed this round
+    lengths: np.ndarray  # (B,) draft tokens proposed
+    n_accepted: np.ndarray  # (B,) draft tokens accepted
+
+
+def _as_prompts(prompts, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(device)
+
+
+def sled_rounds(
+    draft_model, draft_params,
+    target_model, target_params,
+    prompts,  # (B, P) int
+    *,
+    max_new: int,
+    k_max: int = 4,
+    c_th: float = 0.0,
+    greedy: bool = True,
+    attn_chunk: int = 256,
+    steps: Optional[dict] = None,
+    kv_dtype: str = "bf16",
+) -> Iterator[SledRound]:
+    """THE lock-step SLED loop, as a per-round generator: yields a
+    :class:`SledRound` per draft+verify round until every row has committed
+    ``max_new`` tokens. Runs on the device the target's weights live on."""
+    dev = target_params.device
+    prompts = _as_prompts(prompts, dev)
+    B, P = prompts.shape
+    max_len = P + max_new + k_max + 8
+    steps = steps or make_sled_steps(draft_model, target_model, k_max=k_max, c_th=c_th,
+                                     greedy=greedy, attn_chunk=attn_chunk)
+    d_cache = draft_model.make_cache(B, max_len, device=dev, attn_chunk=attn_chunk)
+    t_cache = target_model.make_cache(B, max_len, device=dev, attn_chunk=attn_chunk,
+                                      kv_dtype=kv_dtype)
+    _, d_cache, prev = steps["d_prefill"](draft_params, d_cache, prompts)
+    _, t_cache, _ = steps["t_prefill"](target_params, t_cache, prompts)
+    counts = np.zeros((B,), np.int64)
+    while counts.min() < max_new:
+        dres = steps["draft"](draft_params, d_cache, prev)
+        batch = verification.make_verify_batch(prev, dres.tokens, dres.lengths)
+        res, t_cache = steps["verify"](target_params, t_cache, batch)
+        d_cache = drafting.resume_after_verify(dres, res.n_accepted)
+        prev = res.extra_token
+        n_commit = res.n_commit.cpu().numpy()
+        counts += n_commit
+        yield SledRound(
+            tokens=res.out_tokens.cpu().numpy(),
+            n_commit=n_commit,
+            lengths=dres.lengths.cpu().numpy(),
+            n_accepted=res.n_accepted.cpu().numpy(),
+        )
+
+
+def sled_generate(
+    draft_model, draft_params,
+    target_model, target_params,
+    prompts,  # (B, P) int
+    *,
+    max_new: int,
+    k_max: int = 4,
+    c_th: float = 0.0,
+    greedy: bool = True,
+    attn_chunk: int = 256,
+    steps: Optional[dict] = None,
+    kv_dtype: str = "bf16",
+) -> Tuple[np.ndarray, SledStats]:
+    """Run SLED end-to-end. Returns (tokens (B, max_new), stats)."""
+    B = np.asarray(prompts).shape[0]
+    # rows commit at different rates; a fast row may overshoot max_new by
+    # (k_max+1) per round until the slowest row finishes
+    out = np.full((B, max_new + 16 * (k_max + 1)), PAD_TOKEN, np.int64)
+    counts = np.zeros((B,), np.int64)
+    stats = SledStats()
+    for rnd in sled_rounds(
+        draft_model, draft_params, target_model, target_params, prompts,
+        max_new=max_new, k_max=k_max, c_th=c_th, greedy=greedy, attn_chunk=attn_chunk,
+        steps=steps, kv_dtype=kv_dtype,
+    ):
+        for b in range(B):
+            n = min(int(rnd.n_commit[b]), out.shape[1] - int(counts[b]))
+            out[b, counts[b]: counts[b] + n] = rnd.tokens[b, :n]
+            counts[b] += n
+        stats.rounds += 1
+        stats.drafted += int(rnd.lengths.sum())
+        stats.accepted += int(rnd.n_accepted.sum())
+        stats.committed += int(rnd.n_commit.sum())
+    return out[:, :max_new], stats
+
+
+def autoregressive_generate(model, params, prompts, *, max_new: int, greedy: bool = True,
+                            attn_chunk: int = 256) -> np.ndarray:
+    """Plain target-only greedy decoding: the centralized-serving baseline."""
+    if not greedy:
+        raise NotImplementedError(
+            "greedy=False is not ported yet (ROADMAP.md Queue A, 'Sampling')"
+        )
+    dev = params.device
+    prompts = _as_prompts(prompts, dev)
+    B, P = prompts.shape
+    cache = model.make_cache(B, P + max_new + 8, device=dev, attn_chunk=attn_chunk)
+    _, cache, prev = verification.make_prefill_step(model, attn_chunk=attn_chunk)(
+        params, cache, prompts
+    )
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    out = np.zeros((B, max_new), np.int64)
+    for t in range(max_new):
+        h, ck = model.decode_forward(params, cache, prev[:, None], attn_chunk=attn_chunk)
+        cache = model.commit(ck, ones)
+        prev = torch.argmax(model.lm_head(params, h)[:, 0], dim=-1).to(torch.int32)
+        out[:, t] = prev.cpu().numpy()
+    return out

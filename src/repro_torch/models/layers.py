@@ -1,0 +1,243 @@
+"""Dense-transformer layers: norms, RoPE, verification attention, MLP.
+
+The port of ``repro.models.layers`` for the dense family. The modules hold
+their weights in the JAX package's ``(in, out)`` layout and run them as
+``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
+where the JAX serving path does (f32 inside the norms and RoPE; bf16 after
+each projection), so the CPU path follows the XLA path to within summation
+order.
+
+Attention runs against a cache whose buffer index is the absolute position.
+Every attention call on the serving path has the verification kernels'
+semantics: query i of S fresh tokens sits at ``kv_valid - S + i`` with
+``kv_valid = cache_len + S``. ``flash_attention`` dispatches on the device:
+CUDA tensors run the Hopper kernels (``kernels/csrc/verify_attn.cu``), CPU
+tensors their plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
+def apply_norm(x: torch.Tensor, norm: "RMSNorm", kind: str) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+        )
+    return rmsnorm(x, norm.scale)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return embed[tokens]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) rotated at ``positions`` (..., S); angles in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32, device=x.device) / half))
+    angles = positions[..., None].float() * freqs  # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,         # (B, Sq, Hq, D)
+    k: torch.Tensor,         # stacked cache (L, rows, Skv, Hkv, D)
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,) int32, incl. the Sq fresh rows
+    *,
+    layer: int,
+    chunk: int,
+    slots: Optional[torch.Tensor] = None,  # (B,) pool rows; None: row b
+) -> torch.Tensor:
+    """Verification attention over layer ``layer`` of the stacked cache.
+
+    ``chunk`` is the model's ``attn_chunk``: the plain (CPU) version walks the
+    cache in chunks of that size, as the JAX package's XLA path does, so the
+    two agree to within summation order."""
+    if slots is not None:
+        return ops.verify_attention_paged(q, k, v, slots, kv_valid, layer=layer, block_k=chunk)
+    return ops.verify_attention(q, k, v, kv_valid, layer=layer, block_k=chunk)
+
+
+@dataclasses.dataclass
+class CacheWrite:
+    """Where a forward's fresh K/V rows land in the stacked cache.
+
+    Computed once per forward and reused by every layer: entry n of the
+    flattened (B * S) fresh rows (or fresh row ``src[n]``) goes to cache row
+    ``rows[n]``, position ``pos[n]``.
+    """
+
+    rows: torch.Tensor
+    pos: torch.Tensor
+    src: Optional[torch.Tensor] = None
+
+    @classmethod
+    def dense(cls, cache_len: torch.Tensor, S: int, s_max: int) -> "CacheWrite":
+        """Row b appends at ``cache_len[b] + arange(S)``. Positions past the
+        buffer are dropped, as the JAX path's ``mode="drop"`` scatter does
+        (only a row that already finished its budget gets there, in the
+        lock-step loop); finding them costs one device sync per forward."""
+        B = cache_len.shape[0]
+        dev = cache_len.device
+        rows = torch.arange(B, device=dev).repeat_interleave(S)
+        pos = (cache_len.long()[:, None] + torch.arange(S, device=dev)[None]).reshape(-1)
+        keep = pos < s_max
+        if bool(keep.all()):
+            return cls(rows, pos)
+        src = keep.nonzero().squeeze(1)
+        return cls(rows[src], pos[src], src)
+
+    @classmethod
+    def slots(cls, cache_len: torch.Tensor, slots: torch.Tensor, S: int, s_max: int) -> "CacheWrite":
+        """Batch row b appends its S rows into pool row ``slots[b]``. The
+        start is clamped to ``s_max - S`` as JAX's ``dynamic_update_slice``
+        clamps it; the engine keeps ``max_len >= committed + S`` so the clamp
+        never fires there.
+
+        Padding rows all point at the scratch slot, so their writes collide
+        and no winner is defined on CUDA. That cannot reach a committed
+        token: a padding row's outputs are discarded, the scratch row's
+        length is reset to 0 after every step, and a later padding row reads
+        only the positions its own step wrote. Real rows own distinct slots.
+        """
+        dev = cache_len.device
+        start = torch.clamp(cache_len.long(), 0, s_max - S)
+        rows = slots.long().repeat_interleave(S)
+        pos = (start[:, None] + torch.arange(S, device=dev)[None]).reshape(-1)
+        return cls(rows, pos)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device),
+                                  requires_grad=False)
+
+
+def _weight(*shape, device=None, dtype=torch.bfloat16) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape, dtype=dtype, device=device), requires_grad=False)
+
+
+class Attention(nn.Module):
+    """QKV -> RoPE -> cache append -> verification attention -> out proj."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        self.cfg = cfg
+        self.wq = _weight(d, hq * hd, device=device)
+        self.wk = _weight(d, hkv * hd, device=device)
+        self.wv = _weight(d, hkv * hd, device=device)
+        self.wo = _weight(hq * hd, d, device=device)
+        if cfg.qkv_bias:
+            self.bq = _weight(hq * hd, device=device)
+            self.bk = _weight(hkv * hd, device=device)
+            self.bv = _weight(hkv * hd, device=device)
+        else:
+            self.bq = self.bk = self.bv = None
+
+    def forward(
+        self,
+        x: torch.Tensor,          # (B, S, d)
+        positions: torch.Tensor,  # (B, S)
+        cache_k: torch.Tensor,    # stacked (L, rows, S_max, Hkv, D), written in place
+        cache_v: torch.Tensor,
+        kv_valid: torch.Tensor,   # (B,) cache_len + S
+        write: CacheWrite,
+        *,
+        layer: int,
+        chunk: int,
+        slots: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = x @ self.wq
+        k = x @ self.wk
+        v = x @ self.wv
+        if self.bq is not None:
+            q = q + self.bq
+            k = k + self.bk
+            v = v + self.bv
+        q = q.reshape(B, S, hq, hd)
+        k = k.reshape(B, S, hkv, hd)
+        v = v.reshape(B, S, hkv, hd)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        # the cache is updated in place (JAX returned a new buffer): only the
+        # B * S fresh rows are written, and stale rows past a row's committed
+        # length are masked by kv_valid, so rollback stays a length change
+        kf = k.reshape(B * S, hkv, hd)
+        vf = v.reshape(B * S, hkv, hd)
+        if write.src is not None:
+            kf, vf = kf[write.src], vf[write.src]
+        cache_k[layer].index_put_((write.rows, write.pos), kf)
+        cache_v[layer].index_put_((write.rows, write.pos), vf)
+        out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots)
+        return out.reshape(B, S, hq * hd) @ self.wo
+
+
+class MLP(nn.Module):
+    """SwiGLU MLP (the dense family's ``act="swiglu"``)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        if cfg.act != "swiglu":
+            raise NotImplementedError(
+                f"act {cfg.act!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+            )
+        d, f = cfg.d_model, cfg.d_ff
+        self.wg = _weight(d, f, device=device)
+        self.wu = _weight(d, f, device=device)
+        self.wd = _weight(f, d, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_block(x, self)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) as the JAX path evaluates it, one rounding per op
+    (exp, +1, reciprocal, product), rather than one fused rounding."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def mlp_block(x: torch.Tensor, p: MLP) -> torch.Tensor:
+    return (silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+
+
+def init_attention_(attn: Attention, cfg, gen: torch.Generator) -> None:
+    """Seeded init with the JAX package's distributions: N(0, 0.02) for the
+    projections, N(0, 0.02 / sqrt(2 L)) for the output, zero biases."""
+    std = 0.02
+    out_std = std / math.sqrt(2 * max(cfg.num_layers, 1))
+    for w, s in ((attn.wq, std), (attn.wk, std), (attn.wv, std), (attn.wo, out_std)):
+        w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)
+
+
+def init_mlp_(mlp: MLP, cfg, gen: torch.Generator) -> None:
+    std = 0.02
+    out_std = std / math.sqrt(2 * max(cfg.num_layers, 1))
+    for w, s in ((mlp.wg, std), (mlp.wu, std), (mlp.wd, out_std)):
+        w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)

@@ -1,0 +1,76 @@
+"""Dispatch: one functional interface over the model families.
+
+``build_model(cfg)`` returns a ``Model`` whose functions take the weights
+(``params``, a ``transformer.Transformer`` module) as their first argument,
+as the JAX package's ``Model`` takes its parameter pytree:
+
+  init_params(generator)                 -> params on the generator's device
+  lm_head(params, hidden)                -> logits f32
+  make_cache(batch, max_len, device=...) -> cache dict
+  prefill(params, tokens, cache)         -> (last logits, cache)
+  decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
+  commit(cache, n_commit)                -> cache  [speculative rollback]
+
+Only the dense family is ported so far.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: Any
+    init_params: Callable
+    lm_head: Callable
+    make_cache: Callable
+    prefill: Callable
+    decode_forward: Callable
+    commit: Callable
+
+
+def _attn_commit(cache, n_commit: torch.Tensor):
+    return {k: v for k, v in cache.items() if not k.endswith("_ckpt")} | {
+        "length": cache["length"] + n_commit.to(torch.int32)
+    }
+
+
+def build_model(cfg) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet "
+            "(ROADMAP.md Queue A, 'Other model families')"
+        )
+    return Model(
+        cfg=cfg,
+        init_params=lambda generator: T.init_params(cfg, generator),
+        lm_head=T.lm_head,
+        make_cache=lambda batch, max_len, **kw: T.make_cache(cfg, batch, max_len, **kw),
+        prefill=lambda params, tokens, cache, **kw: T.prefill(cfg, params, tokens, cache, **kw),
+        decode_forward=lambda params, cache, tokens, **kw: T.decode_forward(
+            cfg, params, cache, tokens, **kw
+        ),
+        commit=_attn_commit,
+    )
+
+
+def perturb_params(params: T.Transformer, scale: float, generator: torch.Generator) -> T.Transformer:
+    """Gaussian-perturb the matrix weights (norm scales and biases untouched)
+    of a copy of ``params``. Two random-init models tend to agree on greedy
+    argmax; perturbing the draft dials in partial acceptance."""
+    if scale <= 0:
+        return params
+    noisy = copy.deepcopy(params)
+    noisy._head_f32 = (-1, None)
+    with torch.no_grad():
+        for p in noisy.parameters():
+            if p.dim() >= 2:
+                noise = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+                p.copy_(p + (scale * noise).to(p.dtype))
+    return noisy

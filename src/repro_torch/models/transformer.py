@@ -1,0 +1,157 @@
+"""Decoder-only dense transformer: init, cache, prefill and SLED verify forward.
+
+The port of ``repro.models.transformer`` for the dense family. The same
+``decode_forward`` serves prefill (S = prompt length, cache_len = 0), the
+draft's one-token steps and SLED verification (S = K draft tokens + 1,
+cache_len = committed length), on a dense cache or, with ``slots``, straight
+against a PagedKVCache pool.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.kvcache import init_kv_cache
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln1 = L.RMSNorm(cfg.d_model, device=device)
+        self.attn = L.Attention(cfg, device=device)
+        self.ln2 = L.RMSNorm(cfg.d_model, device=device)
+        self.mlp = L.MLP(cfg, device=device)
+
+
+class Transformer(nn.Module):
+    """Weights of one dense model, in the JAX package's layout: ``embed``
+    (V, d), per-layer blocks (the JAX stack's leading L axis unrolled into a
+    ModuleList), ``final_norm``, and ``lm_head`` (d, V) unless tied."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+            )
+        self.cfg = cfg
+        self.embed = L._weight(cfg.vocab_size, cfg.d_model, device=device)
+        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.num_layers))
+        self.lm_head_w = None if cfg.tie_embeddings else L._weight(cfg.d_model, cfg.vocab_size, device=device)
+        self._head_f32: Tuple[int, Optional[torch.Tensor]] = (-1, None)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head_f32(self) -> torch.Tensor:
+        """The output projection (d, V) widened to f32, kept until the
+        weight changes. Widening bf16 is exact; keeping it saves a full
+        convert of the (V, d) table on every step."""
+        w = self.embed if self.cfg.tie_embeddings else self.lm_head_w
+        version, cached = self._head_f32
+        if cached is None or version != w._version:
+            cached = (w.t() if self.cfg.tie_embeddings else w).float().contiguous()
+            self._head_f32 = (w._version, cached)
+        return cached
+
+
+def init_params(cfg, generator: torch.Generator) -> Transformer:
+    """Seeded random weights with the JAX package's distributions (the draws
+    differ from ``jax.random``'s; tests bridge JAX weights in instead). The
+    model lives on the generator's device."""
+    dev = generator.device
+    model = Transformer(cfg, device=dev)
+    with torch.no_grad():
+        model.embed.copy_(torch.randn(model.embed.shape, generator=generator, device=dev) * 0.02)
+        for blk in model.layers:
+            L.init_attention_(blk.attn, cfg, generator)
+            L.init_mlp_(blk.mlp, cfg, generator)
+        if model.lm_head_w is not None:
+            model.lm_head_w.copy_(
+                torch.randn(model.lm_head_w.shape, generator=generator, device=dev) * 0.02
+            )
+    return model
+
+
+def lm_head(params: Transformer, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of bf16 hidden states, as the JAX path's einsum with
+    ``preferred_element_type=f32``: both operands are widened exactly and the
+    products sum in f32. At vocab 151936 a bf16 output (8-bit mantissa)
+    would round neighbouring logits together and decide greedy ties by
+    rounding, so nothing here is kept in bf16."""
+    return h.float() @ params.head_f32()
+
+
+def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
+               kv_dtype: str = "bf16") -> Dict[str, torch.Tensor]:
+    """Cache buffer rounded up to a multiple of the attention chunk."""
+    if kv_dtype != "bf16":
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r} is not ported yet (ROADMAP.md Queue A, 'int8 KV pool')"
+        )
+    max_len = -(-max_len // attn_chunk) * attn_chunk
+    return init_kv_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                         device=device)
+
+
+def decode_forward(
+    cfg,
+    params: Transformer,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,  # (B, S_new) int
+    *,
+    attn_chunk: int = 1024,
+    slots: Optional[torch.Tensor] = None,  # (B,) cache is a PagedKVCache pool
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Run S_new tokens against the cache starting at ``cache['length']``.
+
+    Returns (hidden (B, S_new, d), cache). The fresh K/V rows are written
+    into the cache's buffers in place; ``length`` is unchanged, and callers
+    commit through ``model.commit`` once the acceptance count is known.
+
+    With ``slots``, the cache is a pool ``(L, n_pool, S, H, D)``: per-row
+    lengths come from ``length[slots]``, the fresh rows go straight into
+    pool rows ``slots``, and attention reads those rows out of the pool; no
+    gathered sub-cache exists.
+    """
+    x = L.embed_lookup(params.embed, tokens)
+    B, S, _ = x.shape
+    ck, cv = cache["k"], cache["v"]
+    s_max = ck.shape[2]
+    if slots is None:
+        cache_len = cache["length"]
+        write = L.CacheWrite.dense(cache_len, S, s_max)
+    else:
+        cache_len = cache["length"][slots.long()]
+        write = L.CacheWrite.slots(cache_len, slots, S, s_max)
+    positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    kv_valid = cache_len + S
+    for li, blk in enumerate(params.layers):
+        h = L.apply_norm(x, blk.ln1, cfg.norm)
+        a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=li, chunk=attn_chunk, slots=slots)
+        # the JAX path's compiled block keeps x + a in f32 for the second
+        # norm and rounds it to bf16 only for the MLP residual; mirroring
+        # that keeps the CPU path bit-exact with it
+        x_mid = x.float() + a.float()
+        h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
+        x = x_mid.to(x.dtype) + blk.mlp(h)
+    return L.apply_norm(x, params.final_norm, cfg.norm), cache
+
+
+def prefill(
+    cfg,
+    params: Transformer,
+    tokens: torch.Tensor,  # (B, S_prompt)
+    cache: Dict[str, torch.Tensor],
+    *,
+    attn_chunk: int = 1024,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Fill the cache from a prompt; returns (last-position logits, cache)."""
+    h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk)
+    cache = {**cache, "length": cache["length"] + h.shape[1]}
+    return lm_head(params, h[:, -1:, :])[:, 0], cache

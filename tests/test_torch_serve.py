@@ -1,0 +1,252 @@
+"""End-to-end parity of the port's serving slice with the JAX package.
+
+Weights come from the JAX side (``build_models``) through the bridge, so
+both packages serve the same model; prompts are passed explicitly (the JAX
+``System.prompts()`` draws from ``jax.random``). Greedy decoding makes the
+committed tokens the comparison: they must be identical, except at a near
+tie, where the JAX reference's top-2 logit gap is below ``TIE_TOL`` (the
+two packages round the same bf16 steps but sum f32 products in different
+orders, ~1e-7 on the logits). The test prints any such gap.
+"""
+import ast
+import dataclasses
+import functools
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api.spec import ModelSpec as JModelSpec
+from repro.api.spec import ServeSpec as JServeSpec
+from repro.api.system import System as JSystem
+from repro.api.system import build_models as _jax_build_models
+from repro.core import engine_loop as jax_loop
+from repro_torch import bridge
+from repro_torch.api import ModelBundle, ModelSpec, ServeSpec, System, build_models
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import engine_loop
+from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
+from repro_torch.models.model_zoo import build_model
+
+ROOT = Path(__file__).resolve().parents[1]
+TIE_TOL = 1e-3
+SPEC_JSON = (ROOT / "examples" / "specs" / "engine.json").read_text()
+# model builds shared across this module's tests (the JAX init compiles)
+jax_build_models = functools.lru_cache(maxsize=None)(_jax_build_models)
+
+
+def _port_bundle(mb) -> ModelBundle:
+    tcfg = ModelConfig(**dataclasses.asdict(mb.target_cfg))
+    dcfg = ModelConfig(**dataclasses.asdict(mb.draft_cfg))
+    return ModelBundle(
+        tcfg, dcfg, build_model(tcfg), build_model(dcfg),
+        bridge.params_from_jax(tcfg, jax.tree.map(np.asarray, mb.target_params), device="cpu"),
+        bridge.params_from_jax(dcfg, jax.tree.map(np.asarray, mb.draft_params), device="cpu"),
+    )
+
+
+def _top2_gap(mb, prompt, prefix) -> float:
+    toks = jnp.asarray(np.concatenate([prompt, np.asarray(prefix, np.int32)])[None], jnp.int32)
+    cache = mb.target.make_cache(1, toks.shape[1] + 8, attn_chunk=32)
+    logits, _ = mb.target.prefill(mb.target_params, toks, cache, attn_chunk=32)
+    top = jax.lax.top_k(logits[0], 2)[0]
+    return float(top[0] - top[1])
+
+
+def _assert_same_tokens(got, want, mb, prompts) -> None:
+    """Identical streams, or a first divergence at a printed near tie."""
+    for i in range(len(want)):
+        g, w = list(got[i]), list(want[i])
+        if g == w:
+            continue
+        p = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
+        gap = _top2_gap(mb, prompts[i], w[:p])
+        print(f"stream {i}: first divergence at token {p}, reference top-2 gap {gap:.3g}")
+        assert gap < TIE_TOL, f"stream {i} diverges at token {p} with top-2 gap {gap}"
+
+
+@pytest.mark.parametrize("noise", [0.0, 0.1])
+def test_sled_generate_matches_jax(noise):
+    """Greedy lock-step SLED on the reduced default spec: tokens and
+    SledStats equal the JAX loop's (0.1 noise forces rejections)."""
+    mb = jax_build_models(JModelSpec(draft_noise=noise))
+    pb = _port_bundle(mb)
+    prompts = np.random.default_rng(3).integers(0, 256, size=(4, 12)).astype(np.int32)
+    kw = dict(max_new=16, k_max=4, c_th=0.3)
+    jt, js, _ = jax_loop.sled_generate(mb.draft, mb.draft_params, mb.target, mb.target_params,
+                                       jnp.asarray(prompts), **kw)
+    pt, ps = engine_loop.sled_generate(pb.draft, pb.draft_params, pb.target, pb.target_params,
+                                       prompts, **kw)
+    _assert_same_tokens(pt, jt, mb, prompts)
+    if np.array_equal(pt, jt):
+        assert dataclasses.asdict(ps) == dataclasses.asdict(js)
+
+
+@pytest.mark.parametrize("noise", [None, 0.08])
+def test_system_engine_equals_reference_equals_jax_reference(noise):
+    """examples/specs/engine.json (and a noisier draft that forces partial
+    acceptance): port engine == port reference == JAX reference."""
+    jspec, pspec = JServeSpec.from_json(SPEC_JSON), ServeSpec.from_json(SPEC_JSON)
+    if noise is not None:
+        jspec = dataclasses.replace(jspec, model=dataclasses.replace(jspec.model, draft_noise=noise))
+        pspec = dataclasses.replace(pspec, model=dataclasses.replace(pspec.model, draft_noise=noise))
+    mb = jax_build_models(jspec.model)
+    pb = _port_bundle(mb)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, jspec.model.vocab_size,
+                           size=(jspec.devices, jspec.prompt_len)).astype(np.int32)
+    want = JSystem.build(jspec.with_backend("reference"), models=mb).serve(prompts).outputs
+    ref = System.build(pspec.with_backend("reference"), models=pb, device="cpu").serve(prompts)
+    eng = System.build(pspec, models=pb, device="cpu").serve(prompts)
+    _assert_same_tokens([ref.outputs[i] for i in range(len(want))],
+                        [want[i] for i in range(len(want))], mb, prompts)
+    _assert_same_tokens([eng.outputs[i] for i in range(len(want))],
+                        [ref.outputs[i] for i in range(len(want))], mb, prompts)
+    assert eng.engine.rounds > 0 and all(len(t) == jspec.max_new for t in eng.outputs.values())
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{f}: imports {mod}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
+        "import repro_torch.api, repro_torch.bridge, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.build, repro_torch.kernels.verify_attn\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("entry", ["System.build", "build_models", "ServerEngine", "EdgeDeviceKit",
+                                   "bridge.params_from_jax"])
+def test_entry_points_default_to_the_card(entry):
+    """With no card and no explicit device="cpu", every entry point raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    spec = ServeSpec.from_json(SPEC_JSON)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "System.build":
+            System.build(spec)
+        elif entry == "build_models":
+            build_models(spec.model)
+        elif entry == "bridge.params_from_jax":
+            mb = jax_build_models(JServeSpec.from_json(SPEC_JSON).model)
+            bridge.params_from_jax(ModelConfig(**dataclasses.asdict(mb.target_cfg)),
+                                   jax.tree.map(np.asarray, mb.target_params))
+        else:
+            pb = build_models(spec.model, device="cpu")
+            if entry == "ServerEngine":
+                ServerEngine(pb.target, pb.target_params, n_slots=2, max_len=64, k_max=4)
+            else:
+                EdgeDeviceKit(pb.draft, pb.draft_params, k_max=4)
+
+
+@pytest.mark.parametrize("change", [
+    {"backend": "cluster"},
+    {"backend": "transport"},
+    {"kv_dtype": "int8"},
+    {"greedy": False},
+    {"paged_attention": False},
+    {"model": ModelSpec(vocab_size=128, bits=8)},
+])
+def test_unported_specs_raise_not_implemented(change):
+    spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System.build(spec, device="cpu")
+
+
+def _protocol_script(engine, spawn, prompts, max_new=8):
+    """Two staggered devices through admission, verification, pipelined
+    draft-ahead (device 0) and a §III-A fallback release + server resync
+    (device 1, third tick). Returns each device's committed stream."""
+    devices, done, now = {}, {}, 0.0
+    for tick in range(1, 200):
+        now = float(tick)
+        for i in range(len(prompts)):
+            if i not in devices and i not in done and i * 2 < now:
+                assert engine.admit(i, prompts[i], now) is not None
+                devices[i] = spawn(i, prompts[i])
+        for i, dev in devices.items():
+            if dev.awaiting:
+                continue
+            toks = dev.draft()
+            if i == 1 and tick == 3:
+                engine.force_extend(i, dev.fallback_release())
+                continue
+            engine.submit(i, toks, now)
+            if i == 0:
+                dev.draft_ahead()
+        for v in engine.step(now) or []:
+            dev = devices[v.device_id]
+            nxt = dev.on_verdict(v)
+            if len(dev.committed) >= max_new:
+                done[v.device_id] = dev.committed[:max_new]
+                engine.retire(v.device_id)
+                del devices[v.device_id]
+            elif nxt is not None:
+                engine.submit(v.device_id, nxt, now)
+                dev.draft_ahead()
+        if len(done) == len(prompts):
+            return done
+    raise AssertionError("protocol script did not finish")
+
+
+def test_engine_protocol_matches_jax():
+    """ServerEngine + EdgeDevice driven through the same script in both
+    packages (a draft noise with partial acceptance, so draft-ahead both
+    hits and misses; one fallback resync): identical committed streams and
+    engine counters."""
+    from repro.core.server_engine import EdgeDeviceKit as JKit
+    from repro.core.server_engine import ServerEngine as JEngine
+
+    jspec = JServeSpec.from_json(SPEC_JSON)
+    mb = jax_build_models(dataclasses.replace(jspec.model, draft_noise=0.08))
+    pb = _port_bundle(mb)
+    prompts = np.random.default_rng(9).integers(0, 128, size=(2, 10)).astype(np.int32)
+    kw = dict(n_slots=2, max_len=64, k_max=4, attn_chunk=32)
+    jeng = JEngine(mb.target, mb.target_params, **kw)
+    jkit = JKit(mb.draft, mb.draft_params, k_max=4, c_th=0.3, attn_chunk=32)
+    want = _protocol_script(jeng, lambda i, p: jkit.spawn(i, jnp.asarray(p), max_len=64, seed=i),
+                            prompts)
+    peng = ServerEngine(pb.target, pb.target_params, device="cpu", **kw)
+    pkit = EdgeDeviceKit(pb.draft, pb.draft_params, k_max=4, c_th=0.3, attn_chunk=32, device="cpu")
+    got = _protocol_script(peng, lambda i, p: pkit.spawn(i, p, max_len=64), prompts)
+    _assert_same_tokens([got[0], got[1]], [want[0], want[1]], mb, prompts)
+    js, ps = jeng.stats(), peng.stats()
+    assert (ps.rounds, ps.fallback_tokens, ps.acceptance_rate) == (
+        js.rounds, js.fallback_tokens, js.acceptance_rate)
+
+
+def test_greedy_sled_equals_target_only_decoding():
+    pb = build_models(ModelSpec(draft_noise=0.1), device="cpu")
+    prompts = np.random.default_rng(4).integers(0, 256, size=(3, 12)).astype(np.int32)
+    sled, stats = engine_loop.sled_generate(pb.draft, pb.draft_params, pb.target, pb.target_params,
+                                            prompts, max_new=16, k_max=4, c_th=0.3)
+    plain = engine_loop.autoregressive_generate(pb.target, pb.target_params, prompts, max_new=16)
+    np.testing.assert_array_equal(sled, plain)
+    assert stats.rounds > 0
