@@ -3,28 +3,45 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass for the script to exit 0:
-  1. build   - compile the CUDA kernels from src/repro_torch/kernels/csrc;
+  1. build   - compile the CUDA kernels from src/repro_torch/kernels/csrc,
+               one nvcc per source, all started together;
   2. kernels - hold each kernel against its plain PyTorch version on the
-               card at the main path's shapes (bf16, max abs error <= 2e-3,
-               inside the 2e-2 bf16 ceiling) and time it beside its bound
-               and a library yardstick;
-  3. serve   - serve full-width qwen2-1.5b (28-layer target, 1-layer draft,
-               seeded random weights) through repro_torch.api.System's
-               engine backend; both kernels' launch counters must move and
-               some drafted tokens must be accepted;
-  4. check   - the port's reference backend on the same bundle and prompts
-               must commit the same tokens, or diverge only at a near tie.
-The line before the last is a JSON object with one record per kernel; the
-last line is {"ok": true, "device": {...}}. The script imports nothing of
+               card at the paths' shapes and time it beside its bound and a
+               library yardstick: attention (bf16 and int8 caches) within a
+               max abs error of 2e-3, inside the 2e-2 bf16 ceiling; the SSD
+               scan within the JAX package's SSD tolerances (y in bf16
+               4e-2, the f32 state 3e-3, relative and absolute);
+  3. serve   - three fleets of 6 devices through repro_torch.api.System's
+               engine backend, each checked against the port's reference
+               backend on the same bundle and prompts (the same tokens, or a
+               divergence only at a near tie):
+               bf16  - full-width qwen2-1.5b (28-layer target, 1-layer draft)
+                       on a bf16 pool, the paged and dense bf16 kernels;
+               int8  - the same model on an int8 pool (the int8 kernels),
+                       with the pool's bytes per slot against bf16's;
+               ssm   - full-width mamba2-370m (48-layer target, 1-layer
+                       draft): prefill through the SSD scan kernel, verify
+                       by gather/scatter with state checkpoints;
+               every kernel of a path must be launched in its run (counters
+               reset just before, read just after), some drafts accepted
+               (for mamba2 some rejected too, so rollback runs). A
+               divergence from the reference passes only at a near tie; for
+               mamba2 also where a target-only replay on each stream's own
+               commit boundaries and batch shapes gives back both streams
+               (see check()).
+The line before the last is a JSON object with one record per kernel entry;
+the last line is {"ok": true, "device": {...}}. The script imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -34,26 +51,46 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 KERNEL_TOL = 2e-2          # the bf16 bound of tests/test_kernels.py
 # and a tighter one for these shapes: 4x the largest error the kernels have
 # shown here (4.9e-4); a causal limit off by one position moves outputs by
 # up to ~1e-2 at kv ~230, which the 2e-2 bound alone would let through
 KERNEL_TIGHT = 2e-3
-# a greedy divergence between the engine and the reference is allowed only
+# a greedy divergence between the engine and the reference is a near tie
 # where the reference's top-2 logit gap is below this: the two backends batch
 # rows differently, so bf16 matmul rounding may differ in the last bit of the
-# hidden state, which moves f32 logits by up to ~1e-2 at these widths
+# hidden state, which moves f32 logits by up to ~1e-2 at these widths (see
+# check() for mamba2)
 LOGIT_TOL = 5e-2
-# scale of every layer's output projections in the served bundle, chosen so
+# the SSD scan's limits, those of the JAX package's SSD tests
+# (tests/test_kernels.py): |kernel - plain| <= tol * (1 + |plain|). y is
+# bf16 (one ulp is 2^-8 relative, and a sum taken in another order can land
+# on the other side of a rounding point); the state is f32, where the scan's
+# sums over up to 256 steps and 128 state dims in another order (and the
+# card's expf) move it by far less. No TF32 anywhere: all f32 FMA.
+SSD_TOL = {"y": 4e-2, "state": 3e-3}
+# scale of every layer's output projections in the served bundles, chosen so
 # that drafts are partly accepted (see full_width_bundle)
 RESID_SCALE = 0.5
 
-# where each kernel replaces a TPU kernel (file:line of its pallas_call)
+# each kernel entry: the TPU kernel it replaces (file:line of its
+# pallas_call) and its source. The dense int8 entry is the dense kernel's
+# int8 load path: the JAX package has no Pallas kernel for a dense int8
+# cache, its XLA mirror dequantizes in the chunk loop (layers.py:317).
 REPLACES = {
     "verify_attention_packed": "src/repro/kernels/verify_attn.py:184",
     "verify_attention_paged": "src/repro/kernels/verify_attn.py:291",
+    "verify_attention_paged_int8": "src/repro/kernels/verify_attn.py:265",
+    "verify_attention_packed_int8": "src/repro/kernels/verify_attn.py:184",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:98",
 }
-SOURCE = "src/repro_torch/kernels/csrc/verify_attn.cu"
+SOURCES = {
+    "verify_attn": "src/repro_torch/kernels/csrc/verify_attn.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+}
+SOURCE_OF = {name: SOURCES["ssd_scan" if name == "ssd_scan" else "verify_attn"]
+             for name in REPLACES}
 
 
 def _time_ms(fn, iters: int = 50) -> float:
@@ -69,18 +106,22 @@ def _time_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(q, kv_valid_host, slots_host, skv, hkv, group) -> tuple:
-    """Least time for one call: the bytes it must move once at the HBM rate,
-    or the two products' flops at the bf16 peak, whichever is larger. K/V
-    bytes count each distinct cache row once, as far as the largest kv_valid
-    any entry gives it (duplicate scratch slots read one row); q is read and
-    out written once; kv_valid (and slots, for a paged call) read once."""
+def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2) -> tuple:
+    """Least time for one attention call: the bytes it must move once at the
+    HBM rate, or the two products' flops at the bf16 peak, whichever is
+    larger. K/V bytes count each distinct cache row once, as far as the
+    largest kv_valid any entry gives it (duplicate scratch slots read one
+    row), at the cache's element size, plus an int8 row's two f32 scales per
+    head; q is read and out written once; kv_valid (and slots, for a paged
+    call) read once."""
     B, Sq, Hq, D = q.shape
     rows = slots_host if slots_host is not None else range(B)
     seen_row: dict = {}
     for row, n in zip(rows, kv_valid_host):
         seen_row[row] = max(seen_row.get(row, 0), min(skv, int(n)))
-    kv_bytes = sum(seen_row.values()) * hkv * D * 2 * 2
+    kv_bytes = sum(seen_row.values()) * hkv * D * kv_elem_bytes * 2
+    if kv_elem_bytes == 1:
+        kv_bytes += len(seen_row) * hkv * 4 * 2
     io_bytes = 2 * q.numel() * 2 + B * 4 * (1 if slots_host is None else 2)
     flops = 0
     for n in kv_valid_host:
@@ -90,6 +131,30 @@ def _bound(q, kv_valid_host, slots_host, skv, hkv, group) -> tuple:
             flops += 2 * 2 * vis * D * hkv * group
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ssd_bound(B, S, H, P, N, chunk) -> tuple:
+    """Least time for one SSD scan: its inputs read and outputs written once
+    (x, dt, A, B, C, h0; y, state) at the HBM rate, or the scan's f32
+    operations at the f32 peak (no tensor cores in this kernel), whichever
+    is larger. Per (b, chunk of q rows): C.B over the causal triangle
+    q(q+1)/2*N multiply-adds, once, since B and C are shared by every head.
+    Per (b, h, chunk): carry-in q*P*N multiply-adds, W's two products per
+    (i, j<=i), W.x q(q+1)/2*P, the state update q*P*N plus q*N for
+    B * decay."""
+    nbytes = (B * S * H * P * 2 * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
+              + 2 * B * H * P * N * 4)
+    Q = min(chunk, S)
+    flops = 0
+    for t0 in range(0, S, Q):
+        q = min(Q, S - t0)
+        tri = q * (q + 1) // 2
+        per_head = (2 * q * P * N + q * P + 2 * tri + 2 * tri * P + q * P
+                    + 2 * q * P * N + q * N + 2 * P * N)
+        flops += B * (2 * tri * N + H * per_head)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -107,8 +172,25 @@ def _sdpa_inputs(q, k, v, kv_valid):
     return q.transpose(1, 2).contiguous(), kh, vh, mask[:, None]
 
 
-def check_kernels(records: dict) -> None:
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+def _quantize(x):
+    """An int8 stacked cache (L, rows, S, Hkv, D) with per-(layer, row,
+    head) symmetric scales, as the model's append makes them."""
+    scale = x.float().abs().amax(dim=(2, 4)) / 127.0 + 1e-6
+    q = torch.clamp(torch.round(x.float() / scale[:, :, None, :, None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _record(records, name, idx, main_idx, line) -> None:
+    rec = records[name]
+    rec["max_abs_err"] = max(rec["max_abs_err"], line["max_abs_err"])
+    if idx == main_idx:
+        rec.update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        rec["shape"] = line["shape"]
+    print("kernel", json.dumps(line), flush=True)
+
+
+def check_attention(records: dict) -> None:
+    """Every attention entry against its plain version at the paths' shapes."""
     from repro_torch.kernels import ref, verify_attn
 
     dev = torch.device("cuda")
@@ -117,178 +199,372 @@ def check_kernels(records: dict) -> None:
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    # (name, B, Sq, Hq, Hkv, D, Skv, kv_valid, slots, layers) - slots None: dense
+    # (kv, B, Sq, Hq, Hkv, D, Skv, kv_valid, slots, layers) - slots None: dense
     cases = [
-        ("verify_attention_packed", 1, 1, 12, 2, 128, 512, [230], None, 2),      # draft decode
-        ("verify_attention_packed", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # reference verify
-        ("verify_attention_packed", 1, 199, 12, 2, 128, 512, [199], None, 2),    # slot prefill
-        ("verify_attention_packed", 3, 5, 12, 2, 128, 200, [200, 120, 77], None, 1),  # ragged Skv
-        ("verify_attention_packed", 2, 5, 2, 2, 128, 96, [96, 40], None, 1),     # G = 1
-        ("verify_attention_packed", 2, 4, 8, 2, 64, 100, [100, 9], None, 1),     # D = 64
-        ("verify_attention_paged", 6, 5, 12, 2, 128, 512, [205, 233, 240, 5, 5, 5], [3, 0, 5, 6, 6, 6], 28),  # verify, scratch dups
-        ("verify_attention_paged", 4, 5, 12, 2, 128, 200, [200, 120, 6, 17], [1, 2, 4, 4], 1),  # ragged Skv, dups
-        ("verify_attention_paged", 3, 5, 2, 2, 128, 96, [96, 40, 5], [0, 2, 2], 1),   # G = 1
+        ("bf16", 1, 1, 12, 2, 128, 512, [230], None, 2),      # draft decode
+        ("bf16", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # reference verify
+        ("bf16", 1, 199, 12, 2, 128, 512, [199], None, 2),    # slot prefill
+        ("bf16", 3, 5, 12, 2, 128, 200, [200, 120, 77], None, 1),  # ragged Skv
+        ("bf16", 2, 5, 2, 2, 128, 96, [96, 40], None, 1),     # G = 1
+        ("bf16", 2, 4, 8, 2, 64, 100, [100, 9], None, 1),     # D = 64
+        ("bf16", 6, 5, 12, 2, 128, 512, [205, 233, 240, 5, 5, 5], [3, 0, 5, 6, 6, 6], 28),  # verify, scratch dups
+        ("bf16", 4, 5, 12, 2, 128, 200, [200, 120, 6, 17], [1, 2, 4, 4], 1),  # ragged Skv, dups
+        ("bf16", 3, 5, 2, 2, 128, 96, [96, 40, 5], [0, 2, 2], 1),   # G = 1
+        ("int8", 6, 5, 12, 2, 128, 512, [205, 233, 240, 5, 5, 5], [3, 0, 5, 6, 6, 6], 28),  # int8 verify
+        ("int8", 1, 199, 12, 2, 128, 512, [199], None, 28),   # int8 slot prefill
+        ("int8", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # int8 reference verify
+        ("int8", 4, 5, 12, 2, 128, 200, [200, 120, 6, 17], [1, 2, 4, 4], 1),  # ragged Skv, dups
+        ("int8", 2, 4, 8, 2, 64, 100, [100, 9], None, 1),     # D = 64
     ]
-    # the shape each kernel is timed at for the record: the draft's one-token
-    # decode (most launches of the dense kernel) and the engine's verify
-    main_case = {"verify_attention_packed": 0, "verify_attention_paged": 6}
+    # the shape each entry is timed at for the record: the draft's one-token
+    # decode (most launches of the dense kernel), the engine's verify, the
+    # int8 slot prefill
+    main_case = {"verify_attention_packed": 0, "verify_attention_paged": 6,
+                 "verify_attention_paged_int8": 9, "verify_attention_packed_int8": 10}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for idx, (name, B, Sq, Hq, Hkv, D, Skv, kvv, slots, L) in enumerate(cases):
+    for idx, (kv, B, Sq, Hq, Hkv, D, Skv, kvv, slots, L) in enumerate(cases):
         n_rows = (max(slots) + 1) if slots is not None else B
         k = rnd(L, n_rows, Skv, Hkv, D)
         v = rnd(L, n_rows, Skv, Hkv, D)
+        ks = vs = None
+        if kv == "int8":
+            (k, ks), (v, vs) = _quantize(k), _quantize(v)
         q = rnd(B, Sq, Hq, D)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
         layer = L - 1
+        sel = lambda t: None if t is None else t[layer]  # noqa: E731
         if slots is None:
-            kern = lambda: verify_attn.verify_attention_packed(q, k, v, kv_valid, layer=layer)
-            plain = lambda: ref.verify_attention_ref(q, k[layer], v[layer], kv_valid)
-            lib_args = _sdpa_inputs(q, k[layer], v[layer], kv_valid)
+            name = "verify_attention_packed"
+            rows = torch.arange(B, device=dev)
+            kern = lambda: verify_attn.verify_attention_packed(  # noqa: E731
+                q, k, v, kv_valid, layer=layer, k_scale=ks, v_scale=vs)
+            plain = lambda: ref.verify_attention_ref(  # noqa: E731
+                q, k[layer], v[layer], kv_valid, k_scale=sel(ks), v_scale=sel(vs))
         else:
+            name = "verify_attention_paged"
             sl = torch.tensor(slots, dtype=torch.int32, device=dev)
-            kern = lambda: verify_attn.verify_attention_paged(q, k, v, sl, kv_valid, layer=layer)
-            plain = lambda: ref.verify_attention_paged_ref(q, k[layer], v[layer], sl, kv_valid)
-            # the library call gets the scheduled rows already gathered
-            lib_args = _sdpa_inputs(q, k[layer][sl.long()], v[layer][sl.long()], kv_valid)
+            rows = sl.long()
+            kern = lambda: verify_attn.verify_attention_paged(  # noqa: E731
+                q, k, v, sl, kv_valid, layer=layer, k_scale=ks, v_scale=vs)
+            plain = lambda: ref.verify_attention_paged_ref(  # noqa: E731
+                q, k[layer], v[layer], sl, kv_valid, k_scale=sel(ks), v_scale=sel(vs))
+        if kv == "int8":
+            name += "_int8"
+        # the library call gets the scheduled rows already gathered (and
+        # an int8 cache already dequantized)
+        kl, vl = k[layer][rows], v[layer][rows]
+        if kv == "int8":
+            kl, vl = ref.dequant(kl, ks[layer][rows]), ref.dequant(vl, vs[layer][rows])
+        lib_args = _sdpa_inputs(q, kl, vl, kv_valid)
         out = kern()
         torch.cuda.synchronize()
         err = (out.float() - plain().float()).abs().max().item()
         if not math.isfinite(err) or err > KERNEL_TIGHT:
             raise AssertionError(f"{name} case {idx}: max abs err {err} > {KERNEL_TIGHT} "
                                  f"(ceiling {KERNEL_TOL})")
-        bound_ms, bound_by = _bound(q, kvv, slots, Skv, Hkv, Hq // Hkv)
-        line = {"case": idx, "name": name, "B": B, "Sq": Sq, "Hq": Hq, "Hkv": Hkv, "D": D,
-                "Skv": Skv, "kv_valid": kvv, "slots": slots, "max_abs_err": err,
+        bound_ms, bound_by = _bound(q, kvv, slots, Skv, Hkv, Hq // Hkv, k.element_size())
+        line = {"case": idx, "name": name, "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+                f"Skv={Skv} kv_valid={kvv} slots={slots} {kv}", "max_abs_err": err,
                 "ms": _time_ms(kern), "plain_ms": _time_ms(plain), "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": _time_ms(lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3]))}
-        rec = records[name]
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if idx == main_case[name]:
-            rec.update({k_: line[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-            rec["shape"] = f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} Skv={Skv} kv_valid={kvv}"
-        print("kernel", json.dumps(line), flush=True)
+                "bound_by": bound_by,
+                "library_ms": _time_ms(lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3]))}
+        _record(records, name, idx, main_case[name], line)
 
 
-def full_width_bundle(resid_scale: float = RESID_SCALE):
-    """qwen2-1.5b at its published widths: the 28-layer target and a 1-layer
+def check_ssd(records: dict) -> None:
+    """The SSD scan against its plain version at the mamba2-370m widths."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    # (B, S, H, P, N, chunk)
+    cases = [
+        (1, 199, 32, 64, 128, 256),  # mamba2-370m prefill of a 200-token prompt: one ragged chunk
+        (1, 512, 32, 64, 128, 256),  # two full chunks
+        (2, 300, 32, 64, 128, 256),  # a full and a ragged chunk, B = 2
+        (2, 64, 4, 16, 32, 16),      # reduced widths, four chunks
+    ]
+    for idx, (B, S, H, P, N, chunk) in enumerate(cases):
+        # x, B and C as the model hands them over: views of one conv output
+        xbc = rnd(B, S, H * P + 2 * N).to(torch.bfloat16)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = torch.nn.functional.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H) * 0.5)
+        h0 = rnd(B, H, P, N)
+        kern = lambda: ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)  # noqa: E731
+        plain = lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)  # noqa: E731
+        (y, h), (y_p, h_p) = kern(), plain()
+        torch.cuda.synchronize()
+        err = 0.0
+        for what, got, want in (("y", y, y_p), ("state", h, h_p)):
+            diff = (got.float() - want.float()).abs()
+            err = max(err, diff.max().item())
+            rel = (diff / (1 + want.float().abs())).max().item()
+            if not math.isfinite(rel) or rel > SSD_TOL[what]:
+                raise AssertionError(f"ssd_scan case {idx}: {what} off by {rel} relative "
+                                     f"> {SSD_TOL[what]}")
+        bound_ms, bound_by = _ssd_bound(B, S, H, P, N, chunk)
+        line = {"case": idx, "name": "ssd_scan",
+                "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk}", "max_abs_err": err,
+                "ms": _time_ms(kern), "plain_ms": _time_ms(plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None}  # no single PyTorch call computes it
+        _record(records, "ssd_scan", idx, 0, line)
+
+
+def check_kernels(records: dict) -> None:
+    """Phase 2: every kernel against its plain version at the paths' shapes."""
+    check_attention(records)
+    check_ssd(records)
+
+
+def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE):
+    """``arch`` at its published widths: the full-depth target and a 1-layer
     draft of the same architecture (ModelSpec.draft_layers=1), with the
     port's seeded random init on the card.
 
-    Every layer's output projections (attention ``wo``, MLP ``wd``) are
-    scaled by ``resid_scale``, and the draft is the target's tied
-    embedding, layer 0 and final norm. With the init's own scale the layers
-    swamp the embedding: both models' logits are flat over 151936 tokens,
-    the draft stops at one token (confidence < c_th) and never agrees with
-    the target. With smaller layer outputs the draft is confident and the
-    target agrees with it where its 27 further layers do not move the
-    argmax; at RESID_SCALE about half the drafted tokens are accepted, so
-    rounds commit several tokens and also roll back."""
-    import dataclasses
-
+    Every layer's output projections (qwen2: attention ``wo`` and MLP
+    ``wd``; mamba2: ``out_proj``) are scaled by ``resid_scale``, and the
+    draft is the target's tied embedding, layer 0 and final norm. With the
+    init's own scale the qwen2 layers swamp the embedding: both models'
+    logits are flat over 151936 tokens, the draft stops at one token
+    (confidence < c_th) and never agrees with the target. With smaller
+    layer outputs the draft is confident and the target agrees with it
+    where its further layers do not move the argmax; at RESID_SCALE some of
+    the drafted tokens are accepted and some rejected, so rounds commit
+    several tokens and also roll back."""
     from repro_torch.api import ModelBundle
     from repro_torch.configs import get_config
     from repro_torch.models.model_zoo import build_model
 
-    tcfg = get_config("qwen2-1.5b")
+    tcfg = get_config(arch)
     dcfg = dataclasses.replace(tcfg, name="edge-draft", num_layers=1)
     target, draft = build_model(tcfg), build_model(dcfg)
-    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
     tp, dp = target.init_params(gen(0)), draft.init_params(gen(1))
     with torch.no_grad():
         for blk in tp.layers:
-            blk.attn.wo.mul_(resid_scale)
-            blk.mlp.wd.mul_(resid_scale)
+            if tcfg.family == "ssm":
+                blk.out_proj.mul_(resid_scale)
+            else:
+                blk.attn.wo.mul_(resid_scale)
+                blk.mlp.wd.mul_(resid_scale)
     dp.load_state_dict({k: w for k, w in tp.state_dict().items()
                         if not k.startswith("layers.") or k.startswith("layers.0.")})
     return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
 
 
-def serve_spec(backend: str):
+def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16"):
     from repro_torch.api import ModelSpec, ServeSpec
+    from repro_torch.configs import get_config
 
+    cfg = get_config(arch)
     return ServeSpec(
         backend=backend,
-        model=ModelSpec(arch="qwen2-1.5b", draft_arch="qwen2-1.5b", vocab_size=151936,
-                        target_layers=28, draft_layers=1),
+        model=ModelSpec(arch=arch, draft_arch=arch, vocab_size=cfg.vocab_size,
+                        target_layers=cfg.num_layers, draft_layers=1),
         devices=6, prompt_len=200, max_len=512, max_new=32, k_max=4, c_th=0.3,
-        greedy=True, paged_attention=True, kv_dtype="bf16",
+        greedy=True, paged_attention=True, kv_dtype=kv_dtype,
     )
 
 
-def serve(records: dict, bundle, prompts):
-    """Phase 3: the engine backend serves the fleet; returns its outputs."""
-    from repro_torch.api import System
-    from repro_torch.kernels import verify_attn
+def _reset_launches() -> None:
+    from repro_torch.kernels import ssd_scan, verify_attn
 
-    system = System.build(serve_spec("engine"), models=bundle)
+    verify_attn.reset_launches()
+    ssd_scan.reset_launches()
+
+
+def _launches() -> dict:
+    from repro_torch.kernels import ssd_scan, verify_attn
+
+    return {**verify_attn.LAUNCHES, **ssd_scan.LAUNCHES}
+
+
+def _round_sink(rounds: dict):
+    """An on_event sink keeping each device's committed tokens per round."""
+    from repro_torch.api.events import RoundEvent
+
+    def sink(ev):
+        if isinstance(ev, RoundEvent):
+            rounds[ev.device_id].append(list(ev.tokens))
+    return sink
+
+
+def serve(label: str, records: dict, bundle, prompts, *, arch: str, kv_dtype: str,
+          path: dict) -> dict:
+    """The engine backend serves the fleet. ``path`` maps each kernel entry
+    of this path to the launches it must show (None: at least one). Returns
+    the streams (``outputs``), each device's committed tokens per round
+    (``rounds``) and the padded batch each of those rounds ran in
+    (``rows``), and the pool's bytes per slot (``per_slot``)."""
+    from repro_torch.api import System
+
+    system = System.build(serve_spec("engine", arch, kv_dtype), models=bundle)
     t0 = time.perf_counter()
     system.warmup()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    verify_attn.reset_launches()
+    rounds = {d: [] for d in range(len(prompts))}
+    rows = {d: [] for d in range(len(prompts))}
+    core, verify = system.engine.core, system.engine.core.verify
+
+    def recorded_verify(slots, *args):
+        out = verify(slots, *args)  # (result, bucket, seconds)
+        device_of = {st.slot: d for d, st in system.engine.streams.items()}
+        for slot in slots:
+            rows[device_of[int(slot)]].append(out[1])
+        return out
+
+    core.verify = recorded_verify
+    _reset_launches()
     t0 = time.perf_counter()
-    res = system.serve(prompts)
+    res = system.serve(prompts, on_event=_round_sink(rounds))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(verify_attn.LAUNCHES)
+    launches = _launches()
     st = res.engine
-    print(f"serve: engine backend, 6 devices, {res.total_tokens} tokens in {wall:.3f} s "
+    per_slot = system.engine.pool.bytes_per_slot()
+    print(f"serve {label}: engine backend, 6 devices, {res.total_tokens} tokens in {wall:.3f} s "
           f"({res.total_tokens / wall:.1f} tokens/s), warmup {warm_s:.2f} s, "
           f"rounds {st.rounds}, mean fill {st.mean_batch_fill:.2f}, "
-          f"acceptance {st.acceptance_rate:.3f}, launches {launches}", flush=True)
-    print(f"serve: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"acceptance {st.acceptance_rate:.3f}, bytes_per_slot {per_slot}, "
+          f"launches {launches}", flush=True)
+    print(f"serve {label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     if st.acceptance_rate <= 0:
-        raise AssertionError("no draft token was accepted: multi-token commits went untested")
-    for name, n in launches.items():
+        raise AssertionError(f"{label}: no draft token was accepted: multi-token commits "
+                             "went untested")
+    if arch.startswith("mamba2") and st.acceptance_rate >= 1:
+        raise AssertionError(f"{label}: every draft was accepted: state rollback went untested")
+    for name, want in path.items():
+        n = launches[name]
         records[name]["launches"] = n
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+        if n <= 0 or (want is not None and n != want):
+            raise AssertionError(f"{label}: {name} launched {n} times on the path "
+                                 f"(expected {want if want is not None else '> 0'})")
+    vocab = bundle.target_cfg.vocab_size
     for s in res.sessions:
-        if len(s.tokens) != 32 or not all(0 <= t < 151936 for t in s.tokens):
-            raise AssertionError(f"device {s.device_id}: bad output {s.tokens}")
-    return res.outputs
+        if len(s.tokens) != 32 or not all(0 <= t < vocab for t in s.tokens):
+            raise AssertionError(f"{label}: device {s.device_id}: bad output {s.tokens}")
+        if len(rounds[s.device_id]) != len(rows[s.device_id]):
+            raise AssertionError(f"{label}: device {s.device_id}: {len(rounds[s.device_id])} "
+                                 f"rounds but {len(rows[s.device_id])} verify batches")
+    return {"outputs": res.outputs, "rounds": rounds, "rows": rows, "per_slot": per_slot}
 
 
-def check(bundle, prompts, outputs) -> None:
-    """Phase 4: the port's reference backend on the same bundle and prompts."""
+def _first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _replay(bundle, spec, prompt, tokens, rounds, rows, prefill_rows, what: str) -> bool:
+    """The target alone, replayed on one served stream's commit boundaries
+    (``rounds``) with every product at the row count the stream ran at
+    (``prefill_rows``; ``rows`` per round): True when each of the stream's
+    tokens is the target's argmax there, or within LOGIT_TOL of it."""
+    from repro_torch.core.engine_loop import replay_stream
+
+    greedy, margin = replay_stream(
+        bundle.target, bundle.target_params, prompt, rounds, k_max=spec.k_max,
+        max_len=spec.max_len, prefill_rows=prefill_rows, rows=rows, attn_chunk=spec.attn_chunk)
+    n = len(tokens)
+    exact = int(np.sum(greedy[:n] == np.asarray(tokens)))
+    worst = float(margin[:n].max())
+    print(f"  replay of the {what}: {exact}/{n} tokens are the target's argmax "
+          f"(largest logit shortfall {worst:.4g})", flush=True)
+    return greedy.shape[0] >= n and worst < LOGIT_TOL
+
+
+def check(label: str, bundle, prompts, served: dict, *, arch: str, kv_dtype: str) -> None:
+    """The port's reference backend on the same bundle and prompts: the
+    engine's tokens must equal the reference's, or diverge first where the
+    reference's top-2 gap is below ``LOGIT_TOL`` (a near tie).
+
+    mamba2 rounds its whole recurrent state to bf16 at every commit, so its
+    stream also depends on where the commits fall (the drafts' acceptance)
+    and on the row counts the products ran at, which differ between the
+    backends: the reference prefills and verifies the 6 devices in one
+    batch, the engine prefills each slot alone and verifies the rows ready
+    in a round. A last-bit difference becomes thousands of one-ulp
+    differences in the state (experiments/torch_batch_noise.py measures how
+    far this moves the reference's own tokens). So for mamba2 every engine
+    stream is also held to a witness that runs the served numerics: the
+    target alone, replayed on the stream's own commit boundaries and batch
+    shapes (engine_loop.replay_stream), must choose each of its tokens. At
+    a divergence past a near tie the engine passes only if the same replay
+    of the reference stream, on its boundaries and shapes, gives back the
+    reference's tokens too: both streams are then the target's greedy
+    streams of their own schedules. A wrong rollback or commit fails the
+    engine's replay (tests/test_torch_serve.py rehearses one on the CPU)."""
     from repro_torch.api import System
 
+    spec = serve_spec("reference", arch, kv_dtype)
+    ref_rounds = {d: [] for d in range(len(prompts))}
     t0 = time.perf_counter()
-    ref_out = System.build(serve_spec("reference"), models=bundle).serve(prompts).outputs
-    print(f"check: reference backend {time.perf_counter() - t0:.3f} s", flush=True)
+    ref_out = System.build(spec, models=bundle).serve(
+        prompts, on_event=_round_sink(ref_rounds)).outputs
+    print(f"check {label}: reference backend {time.perf_counter() - t0:.3f} s", flush=True)
+    ssm = bundle.target_cfg.family == "ssm"
+    outputs = served["outputs"]
     for dev_id, want in ref_out.items():
         got = outputs[dev_id]
-        if got == want:
+        if ssm:
+            print(f"check {label}: device {dev_id}", flush=True)
+            if not _replay(bundle, spec, prompts[dev_id], got, served["rounds"][dev_id],
+                           served["rows"][dev_id], 1, "engine stream"):
+                raise AssertionError(f"{label}: device {dev_id}: the engine committed a token "
+                                     "the target does not choose on its own schedule")
+        p = _first_difference(got, want)
+        if p is None:
             continue
-        p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-        gap = _top2_gap(bundle, prompts[dev_id], want[:p])
-        print(f"check: device {dev_id} diverges at token {p} (engine {got[p]}, reference "
-              f"{want[p]}); reference top-2 logit gap {gap:.4g}", flush=True)
-        if gap >= LOGIT_TOL:
-            raise AssertionError(f"device {dev_id}: divergence with top-2 gap {gap} >= {LOGIT_TOL}")
-    print(f"check: engine tokens == reference tokens on {len(ref_out)} devices "
-          "(up to any near tie printed above)", flush=True)
+        gap = _top2_gap(bundle, prompts[dev_id], want[:p], kv_dtype)
+        print(f"check {label}: device {dev_id} diverges at token {p} (engine {got[p]}, "
+              f"reference {want[p]}); reference top-2 logit gap {gap:.4g}", flush=True)
+        if gap < LOGIT_TOL:
+            continue
+        n = len(prompts)
+        if not ssm or not _replay(bundle, spec, prompts[dev_id], want, ref_rounds[dev_id],
+                                  [n] * len(ref_rounds[dev_id]), n, "reference stream"):
+            raise AssertionError(f"{label}: device {dev_id}: divergence at token {p} with top-2 "
+                                 f"gap {gap} >= {LOGIT_TOL}")
+    print(f"check {label}: engine tokens == reference tokens on {len(ref_out)} devices "
+          "(up to the divergences printed above)", flush=True)
 
 
-def _top2_gap(bundle, prompt, prefix) -> float:
+def _top2_gap(bundle, prompt, prefix, kv_dtype) -> float:
     """Top-2 logit gap of the target at the first divergent position."""
     toks = torch.tensor(np.concatenate([prompt, np.asarray(prefix, np.int64)]),
                         dtype=torch.int32, device="cuda")[None]
-    cache = bundle.target.make_cache(1, toks.shape[1] + 8, device="cuda", attn_chunk=32)
+    cache = bundle.target.make_cache(1, toks.shape[1] + 8, device="cuda", attn_chunk=32,
+                                     kv_dtype=kv_dtype)
     logits, _ = bundle.target.prefill(bundle.target_params, toks, cache, attn_chunk=32)
     top = torch.topk(logits[0], 2).values
     return float(top[0] - top[1])
 
 
 def build_kernels() -> None:
-    """Phase 1: build every kernel of the path from the checkout's sources."""
+    """Phase 1: build every kernel of the paths from the checkout's sources,
+    one nvcc per source, all started together."""
     from repro_torch.kernels import build
 
-    res = build.build("verify_attn")
-    print(f"build: verify_attn {res.seconds:.2f} s -> {res.path}", flush=True)
-    for ln in res.log.splitlines():
-        if "registers" in ln or "smem" in ln or "error" in ln.lower():
-            print("  ptxas:", ln.strip())
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        results = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
+    for name, res in results.items():
+        print(f"build: {name} {res.seconds:.2f} s -> {res.path}", flush=True)
+        for ln in res.log.splitlines():
+            if "registers" in ln or "smem" in ln or "error" in ln.lower() or "spill" in ln:
+                print("  ptxas:", ln.strip())
+
+
+def _phase(name: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    print(f"phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -303,26 +579,47 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 lm_head stays f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
     records = {
-        name: {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+        name: {"name": name, "route": "cuda", "source": SOURCE_OF[name], "replaces": REPLACES[name],
                "launches": 0, "max_abs_err": 0.0}
         for name in REPLACES
     }
-    for phase, fn in (("build", build_kernels), ("kernels", lambda: check_kernels(records))):
-        t0 = time.perf_counter()
-        fn()
-        print(f"phase {phase}: {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    bundle = full_width_bundle()
+    _phase("build", build_kernels)
+    _phase("kernels", lambda: check_kernels(records))
     prompts = np.random.default_rng(2).integers(0, 151936, size=(6, 200)).astype(np.int32)
-    print(f"phase init: {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    outputs = serve(records, bundle, prompts)
-    print(f"phase serve: {time.perf_counter() - t0:.2f} s", flush=True)
-    t0 = time.perf_counter()
-    check(bundle, prompts, outputs)
-    print(f"phase check: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    qwen = _phase("init qwen2-1.5b", lambda: full_width_bundle("qwen2-1.5b"))
+    per_slot = {}
+    # each path: (label, kv_dtype, kernel entries it must launch)
+    for label, kv_dtype, path in (
+        ("bf16", "bf16", {"verify_attention_packed": None, "verify_attention_paged": None}),
+        ("int8", "int8", {"verify_attention_packed_int8": None,
+                          "verify_attention_paged_int8": None}),
+    ):
+        kw = dict(arch="qwen2-1.5b", kv_dtype=kv_dtype)
+        served = _phase(f"serve {label}", lambda: serve(
+            label, records, qwen, prompts, path=path, **kw))
+        per_slot[label] = served["per_slot"]
+        _phase(f"check {label}", lambda: check(label, qwen, prompts, served, **kw))
+    ratio = per_slot["int8"] / per_slot["bf16"]
+    print(f"pool: bytes_per_slot int8 {per_slot['int8']} bf16 {per_slot['bf16']} "
+          f"ratio {ratio:.4f}", flush=True)
+    if ratio > 0.51:
+        raise AssertionError(f"int8 pool holds {ratio:.4f} of bf16's bytes per slot (> 0.51)")
+    del qwen
+    torch.cuda.empty_cache()
+
+    m2 = _phase("init mamba2-370m", lambda: full_width_bundle("mamba2-370m"))
+    m2_prompts = prompts % m2.target_cfg.vocab_size
+    kw = dict(arch="mamba2-370m", kv_dtype="bf16")
+    # one scan per layer per prefill: 6 target prefills of 48 layers, 6 draft
+    # prefills of 1 layer
+    path = {"ssd_scan": 6 * m2.target_cfg.num_layers + 6 * m2.draft_cfg.num_layers}
+    served = _phase("serve ssm", lambda: serve("ssm", records, m2, m2_prompts, path=path, **kw))
+    _phase("check ssm", lambda: check("ssm", m2, m2_prompts, served, **kw))
+
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                       "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,8 @@ The port of ``repro.api.system`` for the ``reference`` (lock-step loop) and
 CPU) and an optional prebuilt ``ModelBundle``, which is how a caller serves
 a model at full width: build the bundle from the full config and pass it
 in. Specs that need a later slice (cluster, transport, fleets, quantized
-weights or pool, sampling, other families) raise ``NotImplementedError``
-naming the ROADMAP.md item.
+weights, sampling, the families other than dense and ssm) raise
+``NotImplementedError`` naming the ROADMAP.md item.
 
 Sessions on the engine backend interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
@@ -36,6 +36,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import engine_loop
 from repro_torch.core.engine import EngineStats
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
+from repro_torch.models.kvcache import supports_paged_attention
 from repro_torch.models.model_zoo import build_model, perturb_params
 from repro_torch.runtime import resolve_device
 
@@ -191,8 +192,6 @@ class System:
             raise _not_ported(f"backend {spec.backend!r}", "Cluster and transport")
         if spec.fleet.active:
             raise _not_ported("a heterogeneous fleet", "Faults, telemetry traces, fleets, tuner")
-        if spec.kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype={spec.kv_dtype!r}", "int8 KV pool")
         if not spec.greedy:
             raise _not_ported("greedy=False", "Sampling")
         if not spec.paged_attention:
@@ -200,6 +199,17 @@ class System:
         if spec.telemetry:
             telemetry.enable(True)  # enable-only, as in the JAX package
         models = models or build_models(spec.model, device=dev)
+        if spec.kv_dtype == "int8" and not supports_paged_attention(models.target_cfg):
+            # loud: a silently-bf16 pool would report double the capacity
+            # the deployment has
+            raise ValueError(
+                f"kv_dtype='int8' is not supported for model family "
+                f"{models.target_cfg.family!r} "
+                f"({spec.model.arch}): its caches ride the gather/scatter "
+                "fallback (models/kvcache.py) whose recurrent state leaves "
+                "have no quantized layout — serve this family with "
+                "kv_dtype='bf16'"
+            )
         for name in ("target_params", "draft_params"):
             if getattr(models, name).device != dev:
                 raise ValueError(f"models.{name} live on {getattr(models, name).device}, "

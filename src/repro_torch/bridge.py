@@ -5,7 +5,10 @@ numpy arrays (``jax.tree.map(np.asarray, tree)``); nothing here imports JAX.
 bf16 moves bit-exactly through a 16-bit integer view, as the JAX
 checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
 weight is a plain copy. The stacked ``(L, ...)`` leaves of
-``params["layers"]`` become the per-layer blocks of ``Transformer.layers``.
+``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
+(dense family) or ``Mamba2.layers`` (ssm family). Caches move leaf by leaf
+in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves, or the
+ssm family's ``ssm``/``conv`` state.
 
 Going back, bf16 tensors come out as their ``uint16`` bits (the checkpoint
 convention); ``arr.view(ml_dtypes.bfloat16)`` restores the dtype.
@@ -17,18 +20,28 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import Transformer
+from repro_torch.models.mamba2 import Mamba2
+from repro_torch.models.transformer import CausalLM, Transformer
 from repro_torch.runtime import resolve_device
 
-# port parameter name inside a Block -> path under the JAX params["layers"]
+# per family: port parameter name inside a layer -> path under the JAX
+# params["layers"]
 _LAYER_PARAMS = {
-    "ln1.scale": ("ln1", "scale"),
-    "ln2.scale": ("ln2", "scale"),
-    "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
-    "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
-    "attn.bq": ("attn", "bq"), "attn.bk": ("attn", "bk"), "attn.bv": ("attn", "bv"),
-    "mlp.wg": ("mlp", "wg"), "mlp.wu": ("mlp", "wu"), "mlp.wd": ("mlp", "wd"),
+    "dense": {
+        "ln1.scale": ("ln1", "scale"),
+        "ln2.scale": ("ln2", "scale"),
+        "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
+        "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
+        "attn.bq": ("attn", "bq"), "attn.bk": ("attn", "bk"), "attn.bv": ("attn", "bv"),
+        "mlp.wg": ("mlp", "wg"), "mlp.wu": ("mlp", "wu"), "mlp.wd": ("mlp", "wd"),
+    },
+    "ssm": {
+        "norm.scale": ("norm", "scale"),
+        **{name: (name,) for name in ("in_proj", "conv_w", "conv_b", "A_log", "D", "dt_bias",
+                                       "gnorm", "out_proj")},
+    },
 }
+_MODELS = {"dense": Transformer, "ssm": Mamba2}
 
 
 def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
@@ -54,16 +67,26 @@ def _get(tree: Dict[str, Any], path) -> np.ndarray:
     return tree
 
 
-def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> Transformer:
-    """A ``Transformer`` on ``device`` holding the JAX params pytree's weights."""
+def _family(cfg) -> str:
+    if cfg.family not in _MODELS:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+        )
+    return cfg.family
+
+
+def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
+    """The family's module (``Transformer`` or ``Mamba2``) on ``device``
+    holding the JAX params pytree's weights."""
     device = resolve_device(device)
-    model = Transformer(cfg, device=device)
+    family = _family(cfg)
+    model = _MODELS[family](cfg, device=device)
     with torch.no_grad():
         model.embed.copy_(to_tensor(tree["embed"], device))
         model.final_norm.scale.copy_(to_tensor(tree["final_norm"]["scale"], device))
         if model.lm_head_w is not None:
             model.lm_head_w.copy_(to_tensor(tree["lm_head"], device))
-        for name, path in _LAYER_PARAMS.items():
+        for name, path in _LAYER_PARAMS[family].items():
             if _dotted(model.layers[0], name) is None:
                 continue  # e.g. no QKV bias in this config
             stacked = to_tensor(_get(tree["layers"], path), device)
@@ -75,14 +98,17 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> Transformer:
     return model
 
 
-def params_to_jax(model: Transformer) -> Dict[str, Any]:
+def params_to_jax(model: CausalLM) -> Dict[str, Any]:
     """The JAX params pytree layout, as numpy arrays (bf16 as uint16 bits)."""
-    layers: Dict[str, Dict[str, np.ndarray]] = {}
-    for name, (grp, leaf) in _LAYER_PARAMS.items():
+    layers: Dict[str, Any] = {}
+    for name, path in _LAYER_PARAMS[_family(model.cfg)].items():
         if _dotted(model.layers[0], name) is None:
             continue
         stacked = torch.stack([_dotted(blk, name) for blk in model.layers])
-        layers.setdefault(grp, {})[leaf] = to_numpy(stacked)
+        node = layers
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = to_numpy(stacked)
     tree: Dict[str, Any] = {
         "embed": to_numpy(model.embed),
         "final_norm": {"scale": to_numpy(model.final_norm.scale)},

@@ -8,12 +8,15 @@ behind it. As in the JAX scan, every row runs all ``k_max`` steps and rows
 that stopped early carry padding.
 
 Rollback: the draft KV cache rolls back by setting ``length = base + 1 +
-n_accepted``; stale entries past it are masked and later overwritten.
+n_accepted``; stale entries past it are masked and later overwritten. An
+ssm draft's recurrent state cannot roll back by length, so the round keeps
+the committed cache after every step (a checkpoint) and the rollback
+selects the one at the acceptance boundary.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -28,6 +31,8 @@ class DraftResult:
     confidence: torch.Tensor   # (B, K)
     cache: Any                 # cache after the drafting steps (uncommitted)
     base_length: torch.Tensor  # (B,) cache length before the round
+    # ssm: the cache after each step, leaves stacked on a leading K axis
+    cache_ckpts: Optional[Dict[str, torch.Tensor]] = None
 
 
 def draft_round(
@@ -43,21 +48,23 @@ def draft_round(
     attn_chunk: int = 1024,
 ) -> DraftResult:
     """One drafting round: feed prev_token, then draft up to k_max tokens."""
-    if model.cfg.family in ("ssm", "hybrid"):
+    if model.cfg.family == "hybrid":
         raise NotImplementedError(
-            "ssm/hybrid drafting (per-step cache checkpoints) is not ported yet "
-            "(ROADMAP.md Queue A, 'Other model families')"
+            "hybrid drafting is not ported yet (ROADMAP.md Queue A, 'Other model families')"
         )
+    is_ssm = model.cfg.family == "ssm"
     B = prev_token.shape[0]
     dev = prev_token.device
     base_length = cache["length"]
     tok = prev_token.to(torch.int32)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     ones = torch.ones((B,), dtype=torch.int32, device=dev)
-    toks, qs, emitted_all, confs = [], [], [], []
+    toks, qs, emitted_all, confs, ckpts = [], [], [], [], []
     for _ in range(k_max):
         h, ck = model.decode_forward(params, cache, tok[:, None], attn_chunk=attn_chunk)
         cache = model.commit(ck, ones)  # consume exactly this one token
+        if is_ssm:
+            ckpts.append(cache)
         logits = model.lm_head(params, h)[:, 0]
         nxt, q, dist = sample_token(logits, temperature, greedy)
         conf = dist.max(dim=-1).values
@@ -76,12 +83,24 @@ def draft_round(
         confidence=torch.stack(confs, dim=1),
         cache=cache,
         base_length=base_length,
+        cache_ckpts={k: torch.stack([c[k] for c in ckpts]) for k in cache} if is_ssm else None,
     )
 
 
 def resume_after_verify(draft: DraftResult, n_accepted: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Roll the device cache back to the server-verified prefix: committed
     length ``base + 1 + n_accepted`` (prev_token + accepted drafts); the next
-    round feeds the server's correction/bonus token as ``prev_token``."""
-    new_len = draft.base_length + 1 + n_accepted.to(draft.base_length.device, torch.int32)
-    return {**draft.cache, "length": new_len}
+    round feeds the server's correction/bonus token as ``prev_token``.
+
+    An ssm draft takes checkpoint ``n_accepted`` per row, the state after
+    prev_token and n_accepted drafts; with every draft accepted the index is
+    clamped to the last checkpoint, as the JAX package's gather clamps it."""
+    n_accepted = n_accepted.to(draft.base_length.device, torch.int32)
+    new_len = draft.base_length + 1 + n_accepted
+    if draft.cache_ckpts is None:
+        return {**draft.cache, "length": new_len}
+    K = draft.cache_ckpts["length"].shape[0]
+    i = torch.clamp(n_accepted.long(), 0, K - 1)
+    b = torch.arange(i.shape[0], device=i.device)
+    cache = {k: a[i, :, b].movedim(0, 1) for k, a in draft.cache_ckpts.items() if k != "length"}
+    return {**cache, "length": new_len}

@@ -22,19 +22,23 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core import verification
-from repro_torch.models.kvcache import PagedKVCache
+from repro_torch.models.kvcache import PagedKVCache, supports_paged_attention
+from repro_torch.models.transformer import KV_DTYPES
 from repro_torch.runtime import resolve_device
 
 log = logging.getLogger(__name__)
 
 
-def _check_kv_dtype(kv_dtype: str) -> str:
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "kv_dtype='int8' is not ported yet (ROADMAP.md Queue A, 'int8 KV pool')"
+def _check_kv_dtype(kv_dtype: str, cfg) -> str:
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r} (one of {sorted(KV_DTYPES)})")
+    if kv_dtype == "int8" and not supports_paged_attention(cfg):
+        raise ValueError(
+            f"kv_dtype='int8' is not supported for the {cfg.family!r} family: its "
+            "recurrent-state cache leaves ride the gather/scatter fallback "
+            "(models/kvcache.py), which has no quantized layout — serve it with "
+            "kv_dtype='bf16'"
         )
-    if kv_dtype != "bf16":
-        raise ValueError(f"unknown kv_dtype {kv_dtype!r} (one of ['bf16', 'int8'])")
     return kv_dtype
 
 
@@ -94,7 +98,8 @@ def _pad_to(a: np.ndarray, n: int, fill=0) -> np.ndarray:
 
 class VerifySteps:
     """The step bundle for one (model, serving config): prefill, bucketed
-    slot-indexed verify, force-extend."""
+    pool verify, force-extend. The pool steps run slot-indexed for the
+    attention families, gather/scatter for the ssm family."""
 
     def __init__(
         self,
@@ -109,7 +114,7 @@ class VerifySteps:
         self.greedy = greedy
         self.scratch_slot = scratch_slot
         self.attn_chunk = attn_chunk
-        self.kv_dtype = _check_kv_dtype(kv_dtype)
+        self.kv_dtype = _check_kv_dtype(kv_dtype, model.cfg)
         self.verify = verification.make_paged_verify_step(
             model, scratch_slot=scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
         )
@@ -121,8 +126,9 @@ class EngineCore:
     """Pure single-replica verify stepper: row pool + bucketed verification.
 
     Owns the :class:`PagedKVCache` pool on ``device`` (the card unless the
-    caller asks for the CPU) and runs padded verify batches against
-    arbitrary slot subsets.
+    caller asks for the CPU), in ``kv_dtype`` (bf16, or int8 with its scale
+    leaves; the ssm family's state has no int8 layout and raises), and runs
+    padded verify batches against arbitrary slot subsets.
     """
 
     def __init__(
@@ -147,9 +153,11 @@ class EngineCore:
         self.params = params
         self.k_max = k_max
         self.greedy = greedy
-        self.kv_dtype = _check_kv_dtype(kv_dtype)
-        self.pool = PagedKVCache(model, n_slots, max_len, device=self.device,
-                                 attn_chunk=attn_chunk)
+        self.kv_dtype = _check_kv_dtype(kv_dtype, model.cfg)
+        cache_kw = {"attn_chunk": attn_chunk}
+        if self.kv_dtype == "int8":
+            cache_kw["kv_dtype"] = "int8"
+        self.pool = PagedKVCache(model, n_slots, max_len, device=self.device, **cache_kw)
         self.steps = VerifySteps(
             model, scratch_slot=self.pool.scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
             kv_dtype=self.kv_dtype,

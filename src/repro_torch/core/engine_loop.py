@@ -8,13 +8,14 @@ greedy SLED output must equal greedy target-only output.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import drafting, verification
 from repro_torch.core.speculative import PAD_TOKEN
+from repro_torch.models.kvcache import gather_slots
 
 
 @dataclasses.dataclass
@@ -80,6 +81,8 @@ def sled_rounds(
     max_len = P + max_new + k_max + 8
     steps = steps or make_sled_steps(draft_model, target_model, k_max=k_max, c_th=c_th,
                                      greedy=greedy, attn_chunk=attn_chunk)
+    # the target cache honours kv_dtype (it stands in for the server pool the
+    # engine must match token for token); the device-side draft cache is bf16
     d_cache = draft_model.make_cache(B, max_len, device=dev, attn_chunk=attn_chunk)
     t_cache = target_model.make_cache(B, max_len, device=dev, attn_chunk=attn_chunk,
                                       kv_dtype=kv_dtype)
@@ -160,3 +163,58 @@ def autoregressive_generate(model, params, prompts, *, max_new: int, greedy: boo
         prev = torch.argmax(model.lm_head(params, h)[:, 0], dim=-1).to(torch.int32)
         out[:, t] = prev.cpu().numpy()
     return out
+
+
+def replay_stream(
+    model, params, prompt, rounds: Sequence[Sequence[int]], *,
+    k_max: int,
+    max_len: int,
+    prefill_rows: int = 1,
+    rows: Optional[Sequence[int]] = None,
+    attn_chunk: int = 256,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Target-only greedy replay of one served stream on its own commit
+    boundaries: what the target computes for the stream, without the
+    drafts, the scheduler or the pool.
+
+    ``rounds[r]`` holds the tokens the stream committed in verify round
+    ``r``, in order. The replay prefills ``prompt``; then each round feeds
+    ``[prev, the round's tokens but the last]``, padded to ``k_max + 1`` as
+    a verify step pads it, reads the target's logits at the round's
+    positions and commits the round's length (the ssm family: the bf16
+    state checkpoint at that boundary, as the verify step commits it).
+
+    The stream's row is repeated to ``prefill_rows`` rows for the prefill
+    and to ``rows[r]`` rows in round ``r`` (default 1), so that every
+    product can run at the row count the server ran it at: a bf16
+    product's last bit may depend on it. Returns ``(greedy, margin)`` per
+    committed position: the target's argmax, and how far the committed
+    token's logit lies below the largest logit (0 where they agree)."""
+    dev = params.device
+    prompt = np.asarray(prompt, np.int32).reshape(-1)
+    cache = model.make_cache(prefill_rows, max_len, device=dev, attn_chunk=attn_chunk)
+    tokens = torch.as_tensor(prompt).to(dev)[None].repeat(prefill_rows, 1)
+    _, cache, _ = verification.make_prefill_step(model, attn_chunk=attn_chunk)(
+        params, cache, tokens)
+    row0 = torch.zeros((1,), dtype=torch.int64, device=dev)
+    cache = gather_slots(cache, row0)
+    prev = int(prompt[-1])
+    greedy, margin = [], []
+    for r, committed in enumerate(rounds):
+        n = len(committed)
+        m = rows[r] if rows is not None else 1
+        feed = np.zeros((k_max + 1,), np.int32)
+        feed[0] = prev
+        feed[1:n] = committed[:-1]
+        h, ck = model.decode_forward(
+            params, gather_slots(cache, row0.repeat(m)),
+            torch.as_tensor(feed).to(dev)[None].repeat(m, 1), attn_chunk=attn_chunk)
+        logits = model.lm_head(params, h)[0, :n].float()
+        n_commit = torch.full((m,), n, dtype=torch.int32, device=dev)
+        cache = gather_slots(model.commit(ck, n_commit), row0)
+        chosen = logits[torch.arange(n, device=dev),
+                        torch.as_tensor(np.asarray(committed, np.int64)).to(dev)]
+        greedy.extend(logits.argmax(dim=-1).tolist())
+        margin.extend((logits.max(dim=-1).values - chosen).tolist())
+        prev = int(committed[-1])
+    return np.asarray(greedy, np.int64), np.asarray(margin, np.float64)

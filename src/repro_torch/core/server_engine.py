@@ -266,7 +266,8 @@ class EdgeDeviceKit:
         self._attn_chunk = attn_chunk
         self._prefill = verification.make_prefill_step(draft_model, attn_chunk=attn_chunk)
         # draft-ahead replays the post-acceptance state exactly; the dense
-        # family's cache rolls back by length alone
+        # family's cache rolls back by length alone, an ssm state would need
+        # a checkpoint of the draft-ahead round too
         self.supports_pipeline = greedy and draft_model.cfg.family not in ("ssm", "hybrid")
 
     def draft(self, cache, prev: torch.Tensor) -> drafting.DraftResult:

@@ -11,6 +11,12 @@ core/drafting.py):
 The steps are plain functions (PyTorch runs eagerly; the JAX package jits
 them). They update the cache's K/V buffers in place and return the cache
 dict with a new ``length``.
+
+Two dispatch modes serve a row pool, as in the JAX package: the pool-
+resident slot-indexed forward (the attention families), and gather/scatter,
+which copies the scheduled rows into a dense sub-cache, runs the dense
+forward and commit there, and writes the rows back (the ssm family, whose
+recurrent state is not position-indexed).
 """
 from __future__ import annotations
 
@@ -19,7 +25,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.core.speculative import VerifyResult, speculative_verify
-from repro_torch.models.kvcache import supports_paged_attention
+from repro_torch.models.kvcache import gather_slots, scatter_slots, supports_paged_attention
 
 
 def make_verify_batch(prev_token: torch.Tensor, draft_tokens: torch.Tensor,
@@ -46,29 +52,23 @@ def make_verify_step(model, *, greedy: bool = True, attn_chunk: int = 1024):
     return verify_step
 
 
-def _require_paged(model) -> None:
-    if not supports_paged_attention(model.cfg):
-        raise NotImplementedError(
-            f"{model.cfg.family!r} caches need the gather/scatter verify path, which is not "
-            "ported yet (ROADMAP.md Queue A, 'Other model families')"
-        )
-
-
 def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
                            attn_chunk: int = 1024):
-    """Slot-indexed verify step for continuous batching over a row pool:
+    """Verify step for continuous batching over a row pool:
     ``verify_step(params, pool, slots, batch) -> (VerifyResult, pool)``.
 
-    The forward runs straight against the pool: the K+1 fresh K/V rows go
-    into pool rows ``slots`` and attention reads the rows out of the pool
-    (the paged kernel on CUDA); commit is a per-slot length bump.
+    Slot-indexed for the attention families: the forward runs straight
+    against the pool, the K+1 fresh K/V rows go into pool rows ``slots`` and
+    attention reads the rows out of the pool (the paged kernel on CUDA);
+    commit is a per-slot length bump. Gather/scatter for the ssm family:
+    the rows are copied out, run and committed densely (``model.commit``,
+    the state checkpoint at the acceptance boundary), and written back.
 
     Padding entries point at ``scratch_slot`` with ``lengths = 0``; the step
     resets the scratch row's length so padding never walks it off the end.
     """
-    _require_paged(model)
 
-    def verify_step(params, pool, slots, batch) -> Tuple[VerifyResult, Any]:
+    def paged_verify_step(params, pool, slots, batch) -> Tuple[VerifyResult, Any]:
         idx = slots.long()
         base_len = pool["length"][idx]
         h, new_pool = model.decode_forward(params, pool, batch["tokens_in"],
@@ -83,17 +83,27 @@ def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
         length[scratch_slot] = 0
         return res, {**new_pool, "length": length}
 
-    return verify_step
+    def gather_verify_step(params, pool, slots, batch) -> Tuple[VerifyResult, Any]:
+        sub = gather_slots(pool, slots)
+        h, ck_sub = model.decode_forward(params, sub, batch["tokens_in"], attn_chunk=attn_chunk)
+        logits = model.lm_head(params, h)
+        res = speculative_verify(batch["draft_tokens"], logits, lengths=batch["lengths"],
+                                 greedy=greedy)
+        new_pool = scatter_slots(pool, slots, model.commit(ck_sub, res.n_commit))
+        new_pool["length"][scratch_slot] = 0  # scatter_slots made a new length tensor
+        return res, new_pool
+
+    return paged_verify_step if supports_paged_attention(model.cfg) else gather_verify_step
 
 
 def make_force_extend_step(model, *, attn_chunk: int = 1024):
-    """Slot-indexed forced cache extension (no verification):
+    """Forced cache extension over a row pool (no verification):
     ``extend_step(params, pool, slots, tokens_in, n) -> pool`` appends
     ``n[i]`` tokens of ``tokens_in[i]`` to pool row ``slots[i]`` (the §III-A
-    fallback resync), against the pool like the verify step."""
-    _require_paged(model)
+    fallback resync), slot-indexed or by gather/scatter like the verify
+    step."""
 
-    def extend_step(params, pool, slots, tokens_in, n):
+    def paged_extend_step(params, pool, slots, tokens_in, n):
         idx = slots.long()
         base_len = pool["length"][idx]
         _, new_pool = model.decode_forward(params, pool, tokens_in, attn_chunk=attn_chunk,
@@ -102,7 +112,12 @@ def make_force_extend_step(model, *, attn_chunk: int = 1024):
         length[idx] = base_len + n.to(torch.int32)
         return {**new_pool, "length": length}
 
-    return extend_step
+    def gather_extend_step(params, pool, slots, tokens_in, n):
+        sub = gather_slots(pool, slots)
+        _, ck_sub = model.decode_forward(params, sub, tokens_in, attn_chunk=attn_chunk)
+        return scatter_slots(pool, slots, model.commit(ck_sub, n.to(torch.int32)))
+
+    return paged_extend_step if supports_paged_attention(model.cfg) else gather_extend_step
 
 
 def make_prefill_step(model, *, attn_chunk: int = 1024):

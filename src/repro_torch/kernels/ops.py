@@ -1,17 +1,27 @@
-"""Public verification-attention ops in the JAX package's layouts.
+"""Public kernel ops in the JAX package's layouts.
 
-A CUDA tensor goes to the Hopper kernel (``kernels/verify_attn.py``), a CPU
-tensor to its plain version (``kernels/ref.py``); there is no other route.
-``block_k`` sets the chunking of the plain version only: the CUDA kernel
-tiles the cache in its own 64-position chunks.
+A CUDA tensor goes to the Hopper kernel (``kernels/verify_attn.py``,
+``kernels/ssd_scan.py``), a CPU tensor to its plain version
+(``kernels/ref.py``); there is no other route. ``block_k`` sets the
+chunking of the plain attention only: the CUDA kernel tiles the cache in
+its own 64-position chunks.
+
+An int8 cache comes with its scale leaves in the cache's own layout,
+(rows, Hkv) or stacked (L, rows, Hkv) with ``layer``; the kernel reads
+them by the same (layer, row) addressing as the K/V rows, the plain
+version selects the rows it needs first.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref, verify_attn
+from repro_torch.kernels import ref, ssd_scan as ssd_kernel, verify_attn
+
+
+def _layer(t: Optional[torch.Tensor], layer: Optional[int]) -> Optional[torch.Tensor]:
+    return t if t is None or layer is None else t[layer]
 
 
 def verify_attention(
@@ -22,13 +32,16 @@ def verify_attention(
     *,
     layer: Optional[int] = None,
     block_k: int = 64,
+    k_scale: Optional[torch.Tensor] = None,  # int8 cache: (B, Hkv) f32, or (L, B, Hkv)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """SLED verification attention over a dense cache (see verify_attn.cu)."""
     if q.is_cuda:
-        return verify_attn.verify_attention_packed(q, k, v, kv_valid, layer=layer)
-    if layer is not None:
-        k, v = k[layer], v[layer]
-    return ref.verify_attention_ref(q, k, v, kv_valid, block_k=block_k)
+        return verify_attn.verify_attention_packed(q, k, v, kv_valid, layer=layer,
+                                                   k_scale=k_scale, v_scale=v_scale)
+    return ref.verify_attention_ref(q, _layer(k, layer), _layer(v, layer), kv_valid,
+                                    block_k=block_k, k_scale=_layer(k_scale, layer),
+                                    v_scale=_layer(v_scale, layer))
 
 
 def verify_attention_paged(
@@ -40,10 +53,31 @@ def verify_attention_paged(
     *,
     layer: Optional[int] = None,
     block_k: int = 64,
+    k_scale: Optional[torch.Tensor] = None,  # int8 pool: (n_slots+1, Hkv) f32, or stacked
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Slot-indexed verification attention straight out of the cache pool."""
     if q.is_cuda:
-        return verify_attn.verify_attention_paged(q, k_pool, v_pool, slots, kv_valid, layer=layer)
-    if layer is not None:
-        k_pool, v_pool = k_pool[layer], v_pool[layer]
-    return ref.verify_attention_paged_ref(q, k_pool, v_pool, slots, kv_valid, block_k=block_k)
+        return verify_attn.verify_attention_paged(q, k_pool, v_pool, slots, kv_valid,
+                                                  layer=layer, k_scale=k_scale, v_scale=v_scale)
+    return ref.verify_attention_paged_ref(
+        q, _layer(k_pool, layer), _layer(v_pool, layer), slots, kv_valid, block_k=block_k,
+        k_scale=_layer(k_scale, layer), v_scale=_layer(v_scale, layer),
+    )
+
+
+def ssd_scan(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H) f32, post-softplus
+    A: torch.Tensor,    # (H,) f32, negative
+    Bm: torch.Tensor,   # (B, S, N)
+    Cm: torch.Tensor,   # (B, S, N)
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N) f32
+    *,
+    chunk: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD over a whole sequence: (y in x's dtype, final f32 state)
+    (see ssd_scan.cu)."""
+    if x.is_cuda:
+        return ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    return ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)

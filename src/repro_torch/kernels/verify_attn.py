@@ -1,15 +1,18 @@
 """Launch wrappers for the Hopper verification-attention kernels.
 
 ``verify_attention_packed`` (dense KV) and ``verify_attention_paged`` (slot-
-indexed pool KV) launch ``csrc/verify_attn.cu`` on PyTorch's current stream.
+indexed pool KV) launch ``csrc/verify_attn.cu`` on PyTorch's current stream,
+over a bf16 cache or an int8 cache with its per-(row, head) f32 scales.
 They take CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to the
 plain versions in ``kernels/ref.py``. Each wrapper adds one to
-``LAUNCHES[<its name>]`` per kernel launch and nowhere else, so a run can
-show which kernels its path went through.
+``LAUNCHES[<its name>]`` per kernel launch and nowhere else (an int8 cache
+counts under ``<name>_int8``), so a run can show which kernels its path went
+through.
 
 The cache may be handed over as the model's stacked buffer
-(L, rows, Skv, Hkv, D) with a ``layer`` index: the kernel addresses the
-layer through strides, so the layer loop never copies the cache.
+(L, rows, Skv, Hkv, D) with a ``layer`` index, and an int8 cache's scales as
+the stacked (L, rows, Hkv) leaves: the kernel addresses the layer and row
+through strides, so the layer loop never copies or gathers the cache.
 """
 from __future__ import annotations
 
@@ -21,15 +24,26 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"verify_attention_packed": 0, "verify_attention_paged": 0}
+LAUNCHES = {
+    "verify_attention_packed": 0, "verify_attention_paged": 0,
+    "verify_attention_packed_int8": 0, "verify_attention_paged_int8": 0,
+}
 HEAD_DIMS = (64, 128)
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 6       # q, k, v, kv_valid, slots, out
-    + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
-    + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
-    + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
-)
+_ARGTYPES = {
+    "verify_attn_bf16": (
+        [ctypes.c_void_p] * 6       # q, k, v, kv_valid, slots, out
+        + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
+        + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
+        + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+    ),
+    "verify_attn_int8": (
+        [ctypes.c_void_p] * 8       # q, k, v, k_scale, v_scale, kv_valid, slots, out
+        + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
+        + [ctypes.c_longlong] * 7   # layer, s_layer, s_row, s_seq, s_head, sc_layer, sc_row
+        + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+    ),
+}
 
 
 def reset_launches() -> None:
@@ -37,10 +51,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _function():
-    fn = build.load("verify_attn").verify_attn_bf16
+def _function(symbol: str):
+    fn = getattr(build.load("verify_attn"), symbol)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[symbol]
         fn.restype = ctypes.c_int
     return fn
 
@@ -59,15 +73,21 @@ def _cache_view(k: torch.Tensor, layer: Optional[int]) -> Tuple[int, int]:
     return int(layer), k.stride(0)
 
 
-def _check(q, k, v, kv_valid, slots) -> None:
-    tensors = [q, k, v, kv_valid] + ([slots] if slots is not None else [])
+def _check(q, k, v, kv_valid, slots, k_scale, v_scale) -> None:
+    tensors = [t for t in (q, k, v, kv_valid, slots, k_scale, v_scale) if t is not None]
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA verify-attention kernels take CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
-        raise ValueError("q, k, v, kv_valid and slots must be on one device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{name} must be bfloat16, got {t.dtype}")
+        raise ValueError("q, k, v, kv_valid, slots and the scales must be on one device")
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"q must be bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype not in (torch.bfloat16, torch.int8) or t.dtype != k.dtype:
+            raise ValueError(f"{name} must be bfloat16 or int8 like k, got {t.dtype}")
+    if k.dtype == torch.int8:
+        _check_scales(k, k_scale, v_scale)
+    elif k_scale is not None or v_scale is not None:
+        raise ValueError("scales are for an int8 cache; this cache is bfloat16")
     if q.dim() != 4 or not q.is_contiguous():
         raise ValueError(f"q must be a contiguous (B, Sq, Hq, D) tensor, got {tuple(q.shape)}")
     B, Sq, Hq, D = q.shape
@@ -80,9 +100,11 @@ def _check(q, k, v, kv_valid, slots) -> None:
     Hkv = k.shape[-2]
     if Hq % Hkv:
         raise ValueError(f"Hq {Hq} is not a multiple of Hkv {Hkv}")
-    # the kernel reads K/V in 16-byte vectors
-    if any(s % 8 for s in k.stride()[:-1]) or k.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("q, k and v must be 16-byte aligned with strides that are multiples of 8")
+    # the kernel reads K/V in 16-byte vectors: 8 bf16 or 16 int8 elements
+    vec = 16 // k.element_size()
+    if any(s % vec for s in k.stride()[:-1]) or k.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"q, k and v must be 16-byte aligned with strides that are "
+                         f"multiples of {vec} elements")
     for name, t in (("kv_valid", kv_valid), ("slots", slots)):
         if t is not None and (t.dtype != torch.int32 or t.shape != (B,) or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous ({B},) int32 tensor")
@@ -90,22 +112,45 @@ def _check(q, k, v, kv_valid, slots) -> None:
         raise ValueError(f"empty query batch {tuple(q.shape)}")
 
 
-def _launch(name, q, k, v, kv_valid, slots, layer, scale) -> torch.Tensor:
-    _check(q, k, v, kv_valid, slots)
+def _check_scales(k, k_scale, v_scale) -> None:
+    """int8 scales: (rows, Hkv) f32, or stacked (L, rows, Hkv) with ``layer``,
+    one layout for both, the head contiguous."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("an int8 cache needs k_scale and v_scale")
+    want = tuple(k.shape[:-3]) + (k.shape[-2],)  # ([L,] rows, Hkv)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or tuple(t.shape) != want or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be a float32 {want} tensor with the head "
+                             f"contiguous, got {t.dtype} {tuple(t.shape)}")
+    if k_scale.stride() != v_scale.stride():
+        raise ValueError("k_scale and v_scale must share one layout")
+
+
+def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale) -> torch.Tensor:
+    _check(q, k, v, kv_valid, slots, k_scale, v_scale)
     li, s_layer = _cache_view(k, layer)
     B, Sq, Hq, D = q.shape
     s_row, s_seq, s_head = k.stride()[-4:-1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    common = (B, Sq, Hq, k.shape[-2], D, k.shape[-3], li, s_layer, s_row, s_seq, s_head)
+    slot_ptr = slots.data_ptr() if slots is not None else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _function()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-            slots.data_ptr() if slots is not None else None, out.data_ptr(),
-            B, Sq, Hq, k.shape[-2], D, k.shape[-3],
-            li, s_layer, s_row, s_seq, s_head, float(scale), stream,
-        )
+        if k.dtype == torch.int8:
+            name += "_int8"
+            sc_layer = k_scale.stride(0) if layer is not None else 0
+            rc = _function("verify_attn_int8")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                v_scale.data_ptr(), kv_valid.data_ptr(), slot_ptr, out.data_ptr(),
+                *common, sc_layer, k_scale.stride(-2), float(scale), stream,
+            )
+        else:
+            rc = _function("verify_attn_bf16")(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), slot_ptr,
+                out.data_ptr(), *common, float(scale), stream,
+            )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -120,11 +165,14 @@ def verify_attention_packed(
     *,
     layer: Optional[int] = None,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # int8 cache: (B, Hkv) f32, or (L, B, Hkv)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Dense verification attention: batch entry b attends cache row b."""
     if k.shape[-4] != q.shape[0]:
         raise ValueError(f"cache has {k.shape[-4]} rows for a batch of {q.shape[0]}")
-    return _launch("verify_attention_packed", q, k, v, kv_valid, None, layer, scale)
+    return _launch("verify_attention_packed", q, k, v, kv_valid, None, layer, scale,
+                   k_scale, v_scale)
 
 
 def verify_attention_paged(
@@ -136,8 +184,11 @@ def verify_attention_paged(
     *,
     layer: Optional[int] = None,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,  # int8 pool: (n_slots+1, Hkv) f32, or stacked
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Slot-indexed verification attention straight out of the cache pool.
     Slot ids are not range-checked on the device (that would cost a sync);
     callers pass rows of the pool they own."""
-    return _launch("verify_attention_paged", q, k_pool, v_pool, kv_valid, slots, layer, scale)
+    return _launch("verify_attention_paged", q, k_pool, v_pool, kv_valid, slots, layer, scale,
+                   k_scale, v_scale)

@@ -3,14 +3,16 @@
 The port of ``repro.models.kvcache``. The cache buffer index IS the absolute
 token position and a per-row ``length`` marks how many entries are
 committed; rollback after verification only changes ``length``. The layout
-is the JAX package's: ``k``/``v`` are ``(L, B, S, Hkv, D)`` and ``length``
+is the JAX package's: ``k``/``v`` are ``(L, B, S, Hkv, D)`` (bf16, or int8
+with ``k_scale``/``v_scale`` leaves of shape ``(L, B, Hkv)`` f32), the ssm
+family's ``ssm``/``conv`` state leaves are ``(L, B, ...)``, and ``length``
 is ``(B,)`` int32, so every leaf but ``length`` carries the batch on axis 1.
 
-Unlike the JAX pytrees, the ``k``/``v`` buffers are updated in place (the
-forward writes its fresh rows into them; ``write_slot`` and
-``scatter_slots`` write pool rows). ``length`` is never written in place:
-each commit makes a new tensor, so a caller holding an older cache dict
-still sees its own committed length.
+Unlike the JAX pytrees, the ``k``/``v`` buffers and the int8 scale leaves
+are updated in place (the forward writes its fresh rows into them;
+``write_slot`` and ``scatter_slots`` write pool rows). ``length`` is never
+written in place: each commit makes a new tensor, so a caller holding an
+older cache dict still sees its own committed length.
 """
 from __future__ import annotations
 
@@ -41,14 +43,20 @@ def init_kv_cache(
 
 def supports_paged_attention(cfg) -> bool:
     """True when every cache leaf the verify forward touches is attention-
-    shaped, so the slot-indexed path can run against the pool (the ssm and
-    hybrid families carry recurrent state and need a gather/scatter verify
-    path, not ported yet)."""
+    shaped, so the slot-indexed path can run against the pool. The ssm and
+    hybrid families carry recurrent state leaves that are not position-
+    indexed and ride the gather/scatter verify path."""
     return getattr(cfg, "family", None) not in ("ssm", "hybrid")
 
 
 def _batch_axis(leaf: torch.Tensor) -> int:
     return 0 if leaf.dim() == 1 else 1  # "length" vs stacked per-layer leaves
+
+
+def gather_slots(cache: Dict[str, torch.Tensor], slots: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Dense sub-cache (a copy) holding pool rows ``slots``."""
+    idx = slots.to(torch.int64)
+    return {name: a.index_select(_batch_axis(a), idx) for name, a in cache.items()}
 
 
 def scatter_slots(

@@ -13,6 +13,12 @@ semantics: query i of S fresh tokens sits at ``kv_valid - S + i`` with
 ``kv_valid = cache_len + S``. ``flash_attention`` dispatches on the device:
 CUDA tensors run the Hopper kernels (``kernels/csrc/verify_attn.cu``), CPU
 tensors their plain versions.
+
+An int8 cache (``kv_dtype="int8"``) stores K/V with a symmetric scale per
+(layer, row, KV head), fixed at the first append into an empty row: that
+append derives it from the fresh rows' absolute maximum, every later append
+reuses it, so replayed appends quantize bit-identically however they are
+grouped. Attention reads the int8 rows and dequantizes them chunk by chunk.
 """
 from __future__ import annotations
 
@@ -24,6 +30,34 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import ops
+
+KV_SCALE = 0.05  # static scale for a caller that passes none
+KV_SCALE_EPS = 1e-6  # floor for amax / 127, so an all-zero row stays invertible
+
+
+def _bc(scale: torch.Tensor) -> torch.Tensor:
+    """(B, Hkv) scales broadcast against a (B, S, Hkv, D) K/V tile."""
+    return scale[:, None, :, None]
+
+
+def kv_quant(x: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K/V -> int8: f32 divide, round half to even, clip to +-127."""
+    s = KV_SCALE if scale is None else _bc(scale)
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8)
+
+
+def kv_dequant(x: torch.Tensor, scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int8 -> bf16 as ``(x -> f32 * scale) -> bf16``; other dtypes pass through."""
+    if x.dtype != torch.int8:
+        return x
+    s = KV_SCALE if scale is None else _bc(scale)
+    return (x.float() * s).to(torch.bfloat16)
+
+
+def kv_fresh_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-(row, KV head) symmetric scale of a fresh (B, S, Hkv, D) tile."""
+    amax = x.float().abs().amax(dim=(1, 3))
+    return torch.clamp(amax / 127.0, min=KV_SCALE_EPS)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -67,15 +101,18 @@ def flash_attention(
     layer: int,
     chunk: int,
     slots: Optional[torch.Tensor] = None,  # (B,) pool rows; None: row b
+    k_scale: Optional[torch.Tensor] = None,  # int8 cache: stacked (L, rows, Hkv) f32
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Verification attention over layer ``layer`` of the stacked cache.
 
     ``chunk`` is the model's ``attn_chunk``: the plain (CPU) version walks the
     cache in chunks of that size, as the JAX package's XLA path does, so the
     two agree to within summation order."""
+    kw = dict(layer=layer, block_k=chunk, k_scale=k_scale, v_scale=v_scale)
     if slots is not None:
-        return ops.verify_attention_paged(q, k, v, slots, kv_valid, layer=layer, block_k=chunk)
-    return ops.verify_attention(q, k, v, kv_valid, layer=layer, block_k=chunk)
+        return ops.verify_attention_paged(q, k, v, slots, kv_valid, **kw)
+    return ops.verify_attention(q, k, v, kv_valid, **kw)
 
 
 @dataclasses.dataclass
@@ -169,6 +206,8 @@ class Attention(nn.Module):
         layer: int,
         chunk: int,
         slots: Optional[torch.Tensor] = None,
+        k_scale: Optional[torch.Tensor] = None,  # int8 cache: (L, rows, Hkv), in place
+        v_scale: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
@@ -189,14 +228,35 @@ class Attention(nn.Module):
         # the cache is updated in place (JAX returned a new buffer): only the
         # B * S fresh rows are written, and stale rows past a row's committed
         # length are masked by kv_valid, so rollback stays a length change
+        if cache_k.dtype == torch.int8:
+            k, v = self._quantize_append(k, v, kv_valid - S, k_scale, v_scale, layer, slots)
         kf = k.reshape(B * S, hkv, hd)
         vf = v.reshape(B * S, hkv, hd)
         if write.src is not None:
             kf, vf = kf[write.src], vf[write.src]
         cache_k[layer].index_put_((write.rows, write.pos), kf)
         cache_v[layer].index_put_((write.rows, write.pos), vf)
-        out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots)
+        out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots,
+                              k_scale=k_scale, v_scale=v_scale)
         return out.reshape(B, S, hq * hd) @ self.wo
+
+    @staticmethod
+    def _quantize_append(k, v, cache_len, k_scale, v_scale, layer, slots):
+        """int8 rows of the fresh K/V. Each row's scale is fixed at its first
+        append (``cache_len == 0``: the fresh rows' own scale) and read back
+        otherwise; the selected scales are written along the K/V rows'
+        addressing (row b, or pool row ``slots[b]``), a rewrite of the same
+        value where the scale was already fixed."""
+        if k_scale is None or v_scale is None:
+            raise ValueError("an int8 cache needs its k_scale and v_scale leaves")
+        rows = slots.long() if slots is not None else torch.arange(k.shape[0], device=k.device)
+        first = (cache_len == 0)[:, None]
+        out = []
+        for x, leaf in ((k, k_scale), (v, v_scale)):
+            scale = torch.where(first, kv_fresh_scale(x), leaf[layer][rows])
+            leaf[layer].index_put_((rows,), scale)
+            out.append(kv_quant(x, scale))
+        return out
 
 
 class MLP(nn.Module):

@@ -1,8 +1,9 @@
 """Dispatch: one functional interface over the model families.
 
 ``build_model(cfg)`` returns a ``Model`` whose functions take the weights
-(``params``, a ``transformer.Transformer`` module) as their first argument,
-as the JAX package's ``Model`` takes its parameter pytree:
+(``params``, a ``transformer.Transformer`` or ``mamba2.Mamba2`` module) as
+their first argument, as the JAX package's ``Model`` takes its parameter
+pytree:
 
   init_params(generator)                 -> params on the generator's device
   lm_head(params, hidden)                -> logits f32
@@ -11,7 +12,7 @@ as the JAX package's ``Model`` takes its parameter pytree:
   decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
   commit(cache, n_commit)                -> cache  [speculative rollback]
 
-Only the dense family is ported so far.
+The dense and ssm families are ported so far.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 
 
@@ -42,25 +44,29 @@ def _attn_commit(cache, n_commit: torch.Tensor):
 
 
 def build_model(cfg) -> Model:
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        mod, commit = T, _attn_commit
+    elif cfg.family == "ssm":
+        mod, commit = M2, M2.select_checkpoint
+    else:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet "
             "(ROADMAP.md Queue A, 'Other model families')"
         )
     return Model(
         cfg=cfg,
-        init_params=lambda generator: T.init_params(cfg, generator),
-        lm_head=T.lm_head,
-        make_cache=lambda batch, max_len, **kw: T.make_cache(cfg, batch, max_len, **kw),
-        prefill=lambda params, tokens, cache, **kw: T.prefill(cfg, params, tokens, cache, **kw),
-        decode_forward=lambda params, cache, tokens, **kw: T.decode_forward(
+        init_params=lambda generator: mod.init_params(cfg, generator),
+        lm_head=mod.lm_head,
+        make_cache=lambda batch, max_len, **kw: mod.make_cache(cfg, batch, max_len, **kw),
+        prefill=lambda params, tokens, cache, **kw: mod.prefill(cfg, params, tokens, cache, **kw),
+        decode_forward=lambda params, cache, tokens, **kw: mod.decode_forward(
             cfg, params, cache, tokens, **kw
         ),
-        commit=_attn_commit,
+        commit=commit,
     )
 
 
-def perturb_params(params: T.Transformer, scale: float, generator: torch.Generator) -> T.Transformer:
+def perturb_params(params: T.CausalLM, scale: float, generator: torch.Generator) -> T.CausalLM:
     """Gaussian-perturb the matrix weights (norm scales and biases untouched)
     of a copy of ``params``. Two random-init models tend to agree on greedy
     argmax; perturbing the draft dials in partial acceptance."""

@@ -26,21 +26,16 @@ class Block(nn.Module):
         self.mlp = L.MLP(cfg, device=device)
 
 
-class Transformer(nn.Module):
-    """Weights of one dense model, in the JAX package's layout: ``embed``
-    (V, d), per-layer blocks (the JAX stack's leading L axis unrolled into a
-    ModuleList), ``final_norm``, and ``lm_head`` (d, V) unless tied."""
+class CausalLM(nn.Module):
+    """What every family's weights share, in the JAX package's layout:
+    ``embed`` (V, d), ``final_norm``, and ``lm_head`` (d, V) unless tied,
+    with the f32 output table the logits are taken against."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
-            )
         self.cfg = cfg
         self.embed = L._weight(cfg.vocab_size, cfg.d_model, device=device)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device)
-        self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.num_layers))
         self.lm_head_w = None if cfg.tie_embeddings else L._weight(cfg.d_model, cfg.vocab_size, device=device)
         self._head_f32: Tuple[int, Optional[torch.Tensor]] = (-1, None)
 
@@ -58,6 +53,20 @@ class Transformer(nn.Module):
             cached = (w.t() if self.cfg.tie_embeddings else w).float().contiguous()
             self._head_f32 = (w._version, cached)
         return cached
+
+
+class Transformer(CausalLM):
+    """Weights of one dense model: the shared embedding, norm and head, and
+    the per-layer blocks (the JAX stack's leading L axis unrolled into a
+    ModuleList)."""
+
+    def __init__(self, cfg, device=None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+            )
+        super().__init__(cfg, device=device)
+        self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.num_layers))
 
 
 def init_params(cfg, generator: torch.Generator) -> Transformer:
@@ -78,7 +87,7 @@ def init_params(cfg, generator: torch.Generator) -> Transformer:
     return model
 
 
-def lm_head(params: Transformer, h: torch.Tensor) -> torch.Tensor:
+def lm_head(params: CausalLM, h: torch.Tensor) -> torch.Tensor:
     """f32 logits of bf16 hidden states, as the JAX path's einsum with
     ``preferred_element_type=f32``: both operands are widened exactly and the
     products sum in f32. At vocab 151936 a bf16 output (8-bit mantissa)
@@ -87,16 +96,26 @@ def lm_head(params: Transformer, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ params.head_f32()
 
 
+KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
+
+
 def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
                kv_dtype: str = "bf16") -> Dict[str, torch.Tensor]:
-    """Cache buffer rounded up to a multiple of the attention chunk."""
-    if kv_dtype != "bf16":
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r} is not ported yet (ROADMAP.md Queue A, 'int8 KV pool')"
-        )
+    """Cache buffer rounded up to a multiple of the attention chunk.
+
+    ``kv_dtype="int8"`` halves the K/V bytes and adds the per-(layer, row,
+    KV head) dequant scales ``k_scale``/``v_scale`` (L, batch, Hkv) f32,
+    fixed at prefill (``layers.kv_fresh_scale``)."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r} (one of {sorted(KV_DTYPES)})")
     max_len = -(-max_len // attn_chunk) * attn_chunk
-    return init_kv_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
-                         device=device)
+    cache = init_kv_cache(cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim,
+                          device=device, dtype=KV_DTYPES[kv_dtype])
+    if kv_dtype == "int8":
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads)
+        cache["k_scale"] = torch.ones(shape, dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.ones(shape, dtype=torch.float32, device=device)
+    return cache
 
 
 def decode_forward(
@@ -118,6 +137,9 @@ def decode_forward(
     lengths come from ``length[slots]``, the fresh rows go straight into
     pool rows ``slots``, and attention reads those rows out of the pool; no
     gathered sub-cache exists.
+
+    An int8 cache's ``k_scale``/``v_scale`` leaves are threaded to every
+    layer and written in place along the K/V rows.
     """
     x = L.embed_lookup(params.embed, tokens)
     B, S, _ = x.shape
@@ -133,7 +155,8 @@ def decode_forward(
     kv_valid = cache_len + S
     for li, blk in enumerate(params.layers):
         h = L.apply_norm(x, blk.ln1, cfg.norm)
-        a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=li, chunk=attn_chunk, slots=slots)
+        a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=li, chunk=attn_chunk, slots=slots,
+                     k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
         # the JAX path's compiled block keeps x + a in f32 for the second
         # norm and rounds it to bf16 only for the MLP residual; mirroring
         # that keeps the CPU path bit-exact with it

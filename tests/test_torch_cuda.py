@@ -1,0 +1,119 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and carries the ``cuda`` marker; on a
+machine without one each skips inside the test. The file imports nothing
+of JAX (nor ml_dtypes), so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest imports JAX.) Inputs come from a
+numpy seed; bf16 tensors are rounded from f32 by PyTorch (round to nearest
+even). Tolerances are those of tests/test_kernels.py: attention bf16 2e-2;
+the SSD scan bf16 4e-2 for y, f32 3e-3 for the state.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ref, ssd_scan, verify_attn
+
+ATTN_TOL = 2e-2
+SSD_TOL = {"bf16": 4e-2, "f32": 3e-3}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    return torch.device("cuda")
+
+
+def _bf16(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev, torch.bfloat16)
+
+
+def _quantize(kf: np.ndarray):
+    """A (rows, Skv, Hkv, D) f32 cache as int8 with per-(row, head) scales."""
+    scale = (np.abs(kf).max(axis=(1, 3)) / 127.0 + 1e-6).astype(np.float32)
+    q = np.clip(np.round(kf / scale[:, None, :, None]), -127, 127).astype(np.int8)
+    return q, scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "head_dim"])
+def test_cuda_kernel_rejects_unsupported_inputs(bad):
+    dev = _card()
+    D = 32 if bad == "head_dim" else 64
+    dt = torch.float32 if bad == "dtype" else torch.bfloat16
+    q = torch.zeros((1, 1, 4, D), dtype=dt, device=dev)
+    k = torch.zeros((1, 64, 2, D), dtype=dt, device=dev)
+    kvv = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        verify_attn.verify_attention_packed(q, k, k, kvv)
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernel_requires_scales():
+    dev = _card()
+    q = torch.zeros((1, 1, 4, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.int8, device=dev)
+    kvv = torch.ones((1,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="k_scale"):
+        verify_attn.verify_attention_packed(q, k, k, kvv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_kernels_match_plain_versions(paged, kv):
+    """Each attention entry against its plain version (bf16 bound),
+    main-path widths, ragged Skv, uneven kv_valid, duplicate scratch slots."""
+    dev = _card()
+    rng = np.random.default_rng(13)
+    B, Sq, Hq, Hkv, Skv, D, rows = 4, 5, 12, 2, 200, 128, 5
+    q = _bf16(rng.standard_normal((B, Sq, Hq, D)), dev)
+    kf = rng.standard_normal((rows, Skv, Hkv, D)).astype(np.float32)
+    vf = rng.standard_normal((rows, Skv, Hkv, D)).astype(np.float32)
+    kv_valid = torch.tensor([Skv, 120, 6, 17], dtype=torch.int32, device=dev)
+    if kv == "int8":
+        (k, ks), (v, vs) = _quantize(kf), _quantize(vf)
+        k, v, ks, vs = (torch.from_numpy(a).to(dev) for a in (k, v, ks, vs))
+    else:
+        k, v = _bf16(kf, dev), _bf16(vf, dev)
+        ks = vs = None
+    if paged:
+        slots = torch.tensor([1, 0, 4, 4], dtype=torch.int32, device=dev)
+        got = verify_attn.verify_attention_paged(q, k, v, slots, kv_valid, k_scale=ks, v_scale=vs)
+        want = ref.verify_attention_paged_ref(q, k, v, slots, kv_valid, k_scale=ks, v_scale=vs)
+    else:
+        sel = lambda t: None if t is None else t[:B]  # noqa: E731
+        got = verify_attn.verify_attention_packed(q, k[:B], v[:B], kv_valid, k_scale=sel(ks),
+                                                  v_scale=sel(vs))
+        want = ref.verify_attention_ref(q, k[:B], v[:B], kv_valid, k_scale=sel(ks),
+                                        v_scale=sel(vs))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 199, 32, 64, 128, 256), (2, 300, 4, 16, 32, 64)])
+def test_cuda_ssd_scan_matches_plain_version(shape):
+    """The SSD kernel against its plain version: bf16 x, B, C as strided
+    views of one conv output, a ragged last chunk."""
+    dev = _card()
+    B, S, H, P, N, chunk = shape
+    rng = np.random.default_rng(3)
+    xbc = _bf16(rng.standard_normal((B, S, H * P + 2 * N)), dev)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((B, S, H)))).astype(np.float32))
+    A = torch.from_numpy((-np.exp(rng.standard_normal(H) * 0.5)).astype(np.float32))
+    h0 = torch.from_numpy(rng.standard_normal((B, H, P, N)).astype(np.float32))
+    dt, A, h0 = dt.to(dev), A.to(dev), h0.to(dev)
+    y, h = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    yw, hw = ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.float().cpu().numpy(), yw.float().cpu().numpy(),
+                               rtol=SSD_TOL["bf16"], atol=SSD_TOL["bf16"])
+    np.testing.assert_allclose(h.cpu().numpy(), hw.cpu().numpy(),
+                               rtol=SSD_TOL["f32"], atol=SSD_TOL["f32"])

@@ -28,8 +28,10 @@ from repro.api.system import build_models as _jax_build_models
 from repro.core import engine_loop as jax_loop
 from repro_torch import bridge
 from repro_torch.api import ModelBundle, ModelSpec, ServeSpec, System, build_models
+from repro_torch.api.events import RoundEvent
+from repro_torch.api.spec import DeviceClassSpec, FleetSpec
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import engine_loop
+from repro_torch.core import engine_loop, verification
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
 from repro_torch.models.model_zoo import build_model
 
@@ -50,22 +52,22 @@ def _port_bundle(mb) -> ModelBundle:
     )
 
 
-def _top2_gap(mb, prompt, prefix) -> float:
+def _top2_gap(mb, prompt, prefix, kv_dtype=jnp.bfloat16) -> float:
     toks = jnp.asarray(np.concatenate([prompt, np.asarray(prefix, np.int32)])[None], jnp.int32)
-    cache = mb.target.make_cache(1, toks.shape[1] + 8, attn_chunk=32)
+    cache = mb.target.make_cache(1, toks.shape[1] + 8, attn_chunk=32, kv_dtype=kv_dtype)
     logits, _ = mb.target.prefill(mb.target_params, toks, cache, attn_chunk=32)
     top = jax.lax.top_k(logits[0], 2)[0]
     return float(top[0] - top[1])
 
 
-def _assert_same_tokens(got, want, mb, prompts) -> None:
+def _assert_same_tokens(got, want, mb, prompts, kv_dtype=jnp.bfloat16) -> None:
     """Identical streams, or a first divergence at a printed near tie."""
     for i in range(len(want)):
         g, w = list(got[i]), list(want[i])
         if g == w:
             continue
         p = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), min(len(g), len(w)))
-        gap = _top2_gap(mb, prompts[i], w[:p])
+        gap = _top2_gap(mb, prompts[i], w[:p], kv_dtype)
         print(f"stream {i}: first divergence at token {p}, reference top-2 gap {gap:.3g}")
         assert gap < TIE_TOL, f"stream {i} diverges at token {p} with top-2 gap {gap}"
 
@@ -110,6 +112,110 @@ def test_system_engine_equals_reference_equals_jax_reference(noise):
     assert eng.engine.rounds > 0 and all(len(t) == jspec.max_new for t in eng.outputs.values())
 
 
+def _serve_three_ways(jspec, pspec, kv_dtype=jnp.bfloat16):
+    """JAX reference, port reference and port engine on one bridged bundle
+    and one numpy prompt set; the port's streams must equal JAX's."""
+    mb = jax_build_models(jspec.model)
+    pb = _port_bundle(mb)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, jspec.model.vocab_size,
+                           size=(jspec.devices, jspec.prompt_len)).astype(np.int32)
+    want = JSystem.build(jspec.with_backend("reference"), models=mb).serve(prompts).outputs
+    ref = System.build(pspec.with_backend("reference"), models=pb, device="cpu").serve(prompts)
+    eng = System.build(pspec, models=pb, device="cpu").serve(prompts)
+    n = len(want)
+    _assert_same_tokens([ref.outputs[i] for i in range(n)], [want[i] for i in range(n)], mb,
+                        prompts, kv_dtype)
+    _assert_same_tokens([eng.outputs[i] for i in range(n)], [ref.outputs[i] for i in range(n)],
+                        mb, prompts, kv_dtype)
+    assert eng.engine.rounds > 0 and all(len(t) == jspec.max_new for t in eng.outputs.values())
+    return eng
+
+
+@pytest.mark.parametrize("noise", [None, 0.08])
+def test_system_int8_pool_engine_equals_reference_equals_jax_reference(noise):
+    """The default spec on an int8 pool (engine) and an int8 target cache
+    (reference), and a noisier draft: port engine == port reference == JAX
+    reference."""
+    jspec, pspec = JServeSpec.from_json(SPEC_JSON), ServeSpec.from_json(SPEC_JSON)
+    jspec, pspec = (dataclasses.replace(s, kv_dtype="int8") for s in (jspec, pspec))
+    if noise is not None:
+        jspec, pspec = (dataclasses.replace(s, model=dataclasses.replace(s.model, draft_noise=noise))
+                        for s in (jspec, pspec))
+    eng = _serve_three_ways(jspec, pspec, jnp.int8)
+    assert eng.engine.acceptance_rate > 0
+
+
+def test_system_mamba2_engine_equals_reference_equals_jax_reference():
+    """Reduced mamba2-370m target and draft, prompts of 2.5 scan chunks:
+    the engine's gather/scatter verify with state checkpoints == the port's
+    reference == the JAX reference, with drafts both accepted and rejected."""
+    eng = _serve_three_ways(*_mamba2_specs())
+    assert 0 < eng.engine.acceptance_rate < 1
+
+
+def _mamba2_specs():
+    return tuple(dataclasses.replace(
+        s, prompt_len=40, model=dataclasses.replace(
+            s.model, arch="mamba2-370m", draft_arch="mamba2-370m", draft_noise=0.0))
+        for s in (JServeSpec.from_json(SPEC_JSON), ServeSpec.from_json(SPEC_JSON)))
+
+
+class _LateCommit:
+    """A model whose commit keeps one fed token too many: for the ssm family
+    the state checkpoint after the first rejected draft (a wrong rollback)."""
+
+    def __init__(self, model):
+        self._model = model
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def commit(self, cache, n_commit):
+        return self._model.commit(cache, n_commit + 1)
+
+
+@pytest.mark.parametrize("case", ["engine", "reference", "engine_late_commit"])
+def test_replay_stream_witnesses_the_served_streams(case):
+    """engine_loop.replay_stream, the witness chip_smoke.py holds the card's
+    mamba2 serve to: replayed on a served stream's own commit boundaries,
+    the target alone gives back every committed token of the engine and of
+    the reference backend (reduced mamba2-370m, drafts accepted and
+    rejected), and exposes an engine whose rollback keeps a rejected draft."""
+    jspec, pspec = _mamba2_specs()
+    if case == "reference":
+        pspec = pspec.with_backend("reference")
+    pb = _port_bundle(jax_build_models(jspec.model))
+    prompts = np.random.default_rng(5).integers(
+        0, pspec.model.vocab_size, size=(pspec.devices, pspec.prompt_len)).astype(np.int32)
+    system = System.build(pspec, models=pb, device="cpu")
+    if case == "engine_late_commit":
+        core = system.engine.core
+        core.steps.verify = verification.make_paged_verify_step(
+            _LateCommit(pb.target), scratch_slot=core.pool.scratch_slot,
+            attn_chunk=pspec.attn_chunk)
+    rounds = {d: [] for d in range(pspec.devices)}
+    res = system.serve(prompts, on_event=lambda ev: rounds[ev.device_id].append(ev.tokens)
+                       if isinstance(ev, RoundEvent) else None)
+    # the reference verifies every round in one batch of all devices
+    n_rows = pspec.devices if case == "reference" else 1
+    off = 0
+    for d, toks in res.outputs.items():
+        greedy, margin = engine_loop.replay_stream(
+            pb.target, pb.target_params, prompts[d], rounds[d], k_max=pspec.k_max,
+            max_len=pspec.max_len, prefill_rows=n_rows, rows=[n_rows] * len(rounds[d]),
+            attn_chunk=pspec.attn_chunk)
+        n = len(toks)
+        assert greedy.shape[0] >= n
+        # a committed token the target does not choose: off by more than a near tie
+        off += int(np.sum((greedy[:n] != np.asarray(toks)) & (margin[:n] >= TIE_TOL)))
+    if case == "engine_late_commit":
+        assert off > 0
+    else:
+        assert off == 0
+        assert any(len(r) > 1 for rs in rounds.values() for r in rs)  # drafts accepted
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -134,6 +240,7 @@ def test_port_imports_with_jax_blocked():
         "for m in ('jax', 'jaxlib', 'repro'): sys.modules[m] = None\n"
         "import repro_torch.api, repro_torch.bridge, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.kernels.verify_attn\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba2\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -169,9 +276,10 @@ def test_entry_points_default_to_the_card(entry):
 @pytest.mark.parametrize("change", [
     {"backend": "cluster"},
     {"backend": "transport"},
-    {"kv_dtype": "int8"},
+    {"fleet": FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))},
     {"greedy": False},
     {"paged_attention": False},
+    {"model": ModelSpec(vocab_size=128, bits=4)},
     {"model": ModelSpec(vocab_size=128, bits=8)},
 ])
 def test_unported_specs_raise_not_implemented(change):
