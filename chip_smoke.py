@@ -8,9 +8,11 @@ Phases, each of which must pass for the script to exit 0:
   2. kernels - hold each kernel against its plain PyTorch version on the
                card at the paths' shapes and time it beside its bound and a
                library yardstick: attention (bf16 and int8 caches) within a
-               max abs error of 2e-3, inside the 2e-2 bf16 ceiling; the SSD
-               scan within the JAX package's SSD tolerances (y in bf16
-               4e-2, the f32 state 3e-3, relative and absolute);
+               max abs error of 2e-3, inside the 2e-2 bf16 ceiling, and the
+               same row bit for bit at B=1 and B=6; the SSD scan within the
+               JAX package's SSD tolerances (y in bf16 4e-2, the f32 state
+               3e-3, relative and absolute), and its refusal of a P the
+               kernel does not slice;
   3. serve   - three fleets of 6 devices through repro_torch.api.System's
                engine backend, each checked against the port's reference
                backend on the same bundle and prompts (the same tokens, or a
@@ -51,6 +53,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core peak
+TF32_FLOPS = 495e12        # H100 SXM dense tf32 tensor-core peak
 F32_FLOPS = 67e12          # H100 SXM f32 peak outside the tensor cores
 KERNEL_TOL = 2e-2          # the bf16 bound of tests/test_kernels.py
 # and a tighter one for these shapes: 4x the largest error the kernels have
@@ -68,8 +71,12 @@ LOGIT_TOL = 5e-2
 # bf16 (one ulp is 2^-8 relative, and a sum taken in another order can land
 # on the other side of a rounding point); the state is f32, where the scan's
 # sums over up to 256 steps and 128 state dims in another order (and the
-# card's expf) move it by far less. No TF32 anywhere: all f32 FMA.
+# card's expf) move it by far less. The kernel's f32-operand products run as
+# 2xTF32 (~22 significant bits of the f32 operand), C.B^T on exact bf16
+# products.
 SSD_TOL = {"y": 4e-2, "state": 3e-3}
+# calls per CUDA graph when a kernel is timed (two walks of 28 layers)
+GRAPH_CALLS = 56
 # scale of every layer's output projections in the served bundles, chosen so
 # that drafts are partly accepted (see full_width_bundle)
 RESID_SCALE = 0.5
@@ -94,7 +101,9 @@ SOURCE_OF = {name: SOURCES["ssd_scan" if name == "ssd_scan" else "verify_attn"]
 
 
 def _time_ms(fn, iters: int = 50) -> float:
-    """Mean device time of one call, by CUDA events over ``iters`` calls."""
+    """Mean time of one call over ``iters`` back-to-back calls from Python, by
+    CUDA events: the device time when the device is the slower side, else
+    the host time of the call (the plain versions; an eager caller)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -104,6 +113,31 @@ def _time_ms(fn, iters: int = 50) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(calls, reps: int = 5) -> float:
+    """Device time of one call: ``calls`` (a list of thunks) captured into one
+    CUDA graph and replayed, so the host's launch cost is not in the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(calls))
 
 
 def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2) -> tuple:
@@ -134,28 +168,35 @@ def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2) -> tu
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _ssd_bound(B, S, H, P, N, chunk) -> tuple:
+def _ssd_bound(B, S, H, P, N, chunk) -> dict:
     """Least time for one SSD scan: its inputs read and outputs written once
-    (x, dt, A, B, C, h0; y, state) at the HBM rate, or the scan's f32
-    operations at the f32 peak (no tensor cores in this kernel), whichever
-    is larger. Per (b, chunk of q rows): C.B over the causal triangle
-    q(q+1)/2*N multiply-adds, once, since B and C are shared by every head.
-    Per (b, h, chunk): carry-in q*P*N multiply-adds, W's two products per
-    (i, j<=i), W.x q(q+1)/2*P, the state update q*P*N plus q*N for
-    B * decay."""
+    (x, dt, A, B, C, h0; y, state) at the HBM rate, or its operations at the
+    peak of the precision each runs in, whichever is larger. Per (b, chunk of
+    q rows): C.B^T over the causal triangle q(q+1)/2*N multiply-adds, once,
+    since B and C are shared by every head (bf16 tensor cores). Per (b, h,
+    chunk): the carry-in C.h q*P*N, W.x q(q+1)/2*P and the state update
+    q*P*N multiply-adds (tf32 tensor cores: the kernel's 2xTF32 runs each
+    twice, which the bound does not count), and on the f32 cores the
+    carry-in's scale and add (2qP), W's two products per (i, j<=i), B * decay
+    (qN) and the state's decay (2PN). Also returns the bound with every
+    operation at the f32 peak (``f32_ms``), the count of the first kernel,
+    which ran no tensor cores."""
     nbytes = (B * S * H * P * 2 * 2 + B * S * H * 4 + H * 4 + 2 * B * S * N * 2
               + 2 * B * H * P * N * 4)
     Q = min(chunk, S)
-    flops = 0
+    cb = mm = vec = 0
     for t0 in range(0, S, Q):
         q = min(Q, S - t0)
         tri = q * (q + 1) // 2
-        per_head = (2 * q * P * N + q * P + 2 * tri + 2 * tri * P + q * P
-                    + 2 * q * P * N + q * N + 2 * P * N)
-        flops += B * (2 * tri * N + H * per_head)
+        cb += B * 2 * tri * N
+        mm += B * H * (2 * q * P * N + 2 * tri * P + 2 * q * P * N)
+        vec += B * H * (2 * q * P + 2 * tri + q * N + 2 * P * N)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_ops = (cb / BF16_FLOPS + mm / TF32_FLOPS + vec / F32_FLOPS) * 1e3
+    t_f32 = max(t_bytes, (cb + mm + vec) / F32_FLOPS * 1e3)
+    if t_bytes >= t_ops:
+        return {"bound_ms": t_bytes, "bound_by": "bytes", "f32_ms": t_f32}
+    return {"bound_ms": t_ops, "bound_by": "operations", "f32_ms": t_f32}
 
 
 def _sdpa_inputs(q, k, v, kv_valid):
@@ -184,8 +225,7 @@ def _record(records, name, idx, main_idx, line) -> None:
     rec = records[name]
     rec["max_abs_err"] = max(rec["max_abs_err"], line["max_abs_err"])
     if idx == main_idx:
-        rec.update({k: line[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
-        rec["shape"] = line["shape"]
+        rec.update({k: v for k, v in line.items() if k not in ("case", "name", "max_abs_err")})
     print("kernel", json.dumps(line), flush=True)
 
 
@@ -201,7 +241,7 @@ def check_attention(records: dict) -> None:
 
     # (kv, B, Sq, Hq, Hkv, D, Skv, kv_valid, slots, layers) - slots None: dense
     cases = [
-        ("bf16", 1, 1, 12, 2, 128, 512, [230], None, 2),      # draft decode
+        ("bf16", 1, 1, 12, 2, 128, 512, [230], None, 28),     # draft decode
         ("bf16", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # reference verify
         ("bf16", 1, 199, 12, 2, 128, 512, [199], None, 2),    # slot prefill
         ("bf16", 3, 5, 12, 2, 128, 200, [200, 120, 77], None, 1),  # ragged Skv
@@ -215,6 +255,14 @@ def check_attention(records: dict) -> None:
         ("int8", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # int8 reference verify
         ("int8", 4, 5, 12, 2, 128, 200, [200, 120, 6, 17], [1, 2, 4, 4], 1),  # ragged Skv, dups
         ("int8", 2, 4, 8, 2, 64, 100, [100, 9], None, 1),     # D = 64
+        # the kernel's 64-position splits: the last query's position at a
+        # split's last position (kv_valid 64, 128) and one past it (65, 129)
+        ("bf16", 4, 5, 12, 2, 128, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
+        ("bf16", 4, 5, 12, 2, 128, 200, [64, 65, 128, 129], None, 1),
+        ("int8", 4, 5, 12, 2, 128, 512, [64, 65, 128, 129], [3, 2, 1, 0], 1),
+        # kv_valid < Sq: the first queries see no position and give 0
+        ("bf16", 2, 5, 12, 2, 128, 64, [3, 5], None, 1),
+        ("int8", 3, 5, 12, 2, 128, 200, [2, 130, 4], [2, 0, 1], 1),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -236,16 +284,16 @@ def check_attention(records: dict) -> None:
         if slots is None:
             name = "verify_attention_packed"
             rows = torch.arange(B, device=dev)
-            kern = lambda: verify_attn.verify_attention_packed(  # noqa: E731
-                q, k, v, kv_valid, layer=layer, k_scale=ks, v_scale=vs)
+            kern = lambda li=layer: verify_attn.verify_attention_packed(  # noqa: E731
+                q, k, v, kv_valid, layer=li, k_scale=ks, v_scale=vs)
             plain = lambda: ref.verify_attention_ref(  # noqa: E731
                 q, k[layer], v[layer], kv_valid, k_scale=sel(ks), v_scale=sel(vs))
         else:
             name = "verify_attention_paged"
             sl = torch.tensor(slots, dtype=torch.int32, device=dev)
             rows = sl.long()
-            kern = lambda: verify_attn.verify_attention_paged(  # noqa: E731
-                q, k, v, sl, kv_valid, layer=layer, k_scale=ks, v_scale=vs)
+            kern = lambda li=layer: verify_attn.verify_attention_paged(  # noqa: E731
+                q, k, v, sl, kv_valid, layer=li, k_scale=ks, v_scale=vs)
             plain = lambda: ref.verify_attention_paged_ref(  # noqa: E731
                 q, k[layer], v[layer], sl, kv_valid, k_scale=sel(ks), v_scale=sel(vs))
         if kv == "int8":
@@ -265,10 +313,51 @@ def check_attention(records: dict) -> None:
         bound_ms, bound_by = _bound(q, kvv, slots, Skv, Hkv, Hq // Hkv, k.element_size())
         line = {"case": idx, "name": name, "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
                 f"Skv={Skv} kv_valid={kvv} slots={slots} {kv}", "max_abs_err": err,
-                "ms": _time_ms(kern), "plain_ms": _time_ms(plain), "bound_ms": bound_ms,
-                "bound_by": bound_by,
-                "library_ms": _time_ms(lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3]))}
+                "ms": _graph_ms([kern] * GRAPH_CALLS), "eager_ms": _time_ms(kern),
+                "plain_ms": _time_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": _graph_ms(
+                    [lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3])] * GRAPH_CALLS)}
+        if idx == main_case[name]:
+            # as the layer loop reads the stacked cache: one call per layer
+            line["walk_ms"] = _graph_ms([lambda li=li: kern(li) for li in range(L)] * 2)
         _record(records, name, idx, main_case[name], line)
+    check_batch_invariance(gen)
+
+
+def check_batch_invariance(gen) -> None:
+    """The same rows attended alone (B=1) and in a batch of 6 give the same
+    bits: the kernel's splits and merge order do not depend on the batch."""
+    from repro_torch.kernels import verify_attn
+
+    dev = torch.device("cuda")
+    kvv = [205, 233, 240, 5, 5, 5]
+    for kv in ("bf16", "int8"):
+        k = torch.randn(2, 7, 512, 2, 128, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(2, 7, 512, 2, 128, generator=gen, device=dev).to(torch.bfloat16)
+        ks = vs = None
+        if kv == "int8":
+            (k, ks), (v, vs) = _quantize(k), _quantize(v)
+        q = torch.randn(6, 5, 12, 128, generator=gen, device=dev).to(torch.bfloat16)
+        kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+        slots = torch.tensor([3, 0, 5, 6, 6, 6], dtype=torch.int32, device=dev)
+        sc = dict(layer=1, k_scale=ks, v_scale=vs)
+        paged = verify_attn.verify_attention_paged(q, k, v, slots, kv_valid, **sc)
+        dense = verify_attn.verify_attention_packed(q, k[:, :6], v[:, :6], kv_valid, **(
+            sc if ks is None else dict(layer=1, k_scale=ks[:, :6], v_scale=vs[:, :6])))
+        for b in range(6):
+            one = lambda t: t[b:b + 1].contiguous()  # noqa: E731
+            alone = verify_attn.verify_attention_paged(one(q), k, v, one(slots), one(kv_valid),
+                                                       **sc)
+            k1, v1 = k[:, b:b + 1].contiguous(), v[:, b:b + 1].contiguous()
+            s1 = {} if ks is None else dict(k_scale=ks[:, b:b + 1].contiguous(),
+                                             v_scale=vs[:, b:b + 1].contiguous())
+            alone_dense = verify_attn.verify_attention_packed(one(q), k1, v1, one(kv_valid),
+                                                              layer=1, **s1)
+            torch.cuda.synchronize()
+            if not torch.equal(alone[0], paged[b]) or not torch.equal(alone_dense[0], dense[b]):
+                raise AssertionError(f"attention {kv}: row {b} alone differs from the batch of 6")
+        print(f"kernel batch invariance {kv}: rows of a batch of 6 (paged and dense, kv_valid "
+              f"{kvv}) equal the same rows alone, bit for bit", flush=True)
 
 
 def check_ssd(records: dict) -> None:
@@ -308,12 +397,24 @@ def check_ssd(records: dict) -> None:
             if not math.isfinite(rel) or rel > SSD_TOL[what]:
                 raise AssertionError(f"ssd_scan case {idx}: {what} off by {rel} relative "
                                      f"> {SSD_TOL[what]}")
-        bound_ms, bound_by = _ssd_bound(B, S, H, P, N, chunk)
+        bound = _ssd_bound(B, S, H, P, N, chunk)
         line = {"case": idx, "name": "ssd_scan",
                 "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={chunk}", "max_abs_err": err,
-                "ms": _time_ms(kern), "plain_ms": _time_ms(plain), "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None}  # no single PyTorch call computes it
+                "ms": _graph_ms([kern] * GRAPH_CALLS), "eager_ms": _time_ms(kern),
+                "plain_ms": _time_ms(plain), "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "bound_f32_ms": bound["f32_ms"],
+                "library_ms": None}  # no single PyTorch call computes it
         _record(records, "ssd_scan", idx, 0, line)
+    # the kernel takes P in 16-column slices; any other P is refused
+    x = torch.zeros((1, 32, 2, 24), dtype=torch.bfloat16, device=dev)
+    bc = torch.zeros((1, 32, 32), dtype=torch.bfloat16, device=dev)
+    try:
+        ssd_scan.ssd_scan(x, torch.ones((1, 32, 2), device=dev), -torch.ones(2, device=dev), bc,
+                          bc, chunk=16)
+    except ValueError as e:
+        print(f"kernel ssd_scan refuses P=24: {e}", flush=True)
+    else:
+        raise AssertionError("ssd_scan took P=24, which its 16-column slices do not cover")
 
 
 def check_kernels(records: dict) -> None:

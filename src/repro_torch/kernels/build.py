@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, under
 ``build/repro_torch/`` at the repository root. The library's file name
-carries a digest of the source and the flags, so an edited source never
-loads a stale build. Nothing here runs at import time.
+carries a digest of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source or header never loads a stale build. Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def _nvcc() -> str:
 def build(name: str) -> Build:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{name}_{digest}.so"
     if out.exists():
         return Build(out, 0.0, "")

@@ -1,0 +1,88 @@
+// Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), shared
+// by verify_attn.cu (the copies, the bf16 packing) and ssd_scan.cu (the
+// tensor-core products); kernels/build.py hashes this header into each
+// library's name, so an edit rebuilds both.
+//
+// Fragment layouts of mma.sync (g = lane / 4, t = lane % 4; row-major A,
+// column-major B, i.e. B given as B[k][n]):
+//   m16n8k16 bf16: a0 (g, 2t:2t+2)  a1 (g+8, 2t:2t+2)  a2 (g, 8+2t:..)  a3 (g+8, 8+2t:..)
+//                  b0 (k 2t:2t+2, n g)  b1 (k 8+2t:8+2t+2, n g)
+//   m16n8k8 tf32:  a0 (g, t)  a1 (g+8, t)  a2 (g, t+4)  a3 (g+8, t+4)
+//                  b0 (k t, n g)  b1 (k t+4, n g)
+//   accumulator:   c0, c1 (g, 2t), (g, 2t+1)   c2, c3 (g+8, 2t), (g+8, 2t+1)
+// A pair of bf16 in one 32-bit register holds the lower column in its low half.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace mma {
+
+// d += a * b on the tensor cores: bf16 operands, products exact, f32 sums.
+__device__ __forceinline__ void bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                           uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b on the tensor cores: tf32 operands (f32 bit patterns whose low
+// 13 mantissa bits are zero), f32 sums.
+__device__ __forceinline__ void tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 -> tf32, rounded to nearest (ties away), as a bit pattern
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|): both parts tf32. A product whose other
+// operand is exact in tf32 (a bf16 value) then runs as two tf32 mma with
+// about f32's precision ("2xTF32").
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// a bf16 value widened to f32 is exact in tf32
+__device__ __forceinline__ uint32_t bf16_as_tf32(__nv_bfloat16 v) {
+  return __float_as_uint(__bfloat162float(v));
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), lo first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; live ==
+// false writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+}  // namespace mma

@@ -4,7 +4,9 @@ Attention (``kernels/csrc/verify_attn.cu``): an online softmax over
 ``block_k`` chunks of the cache with f32 running max / sum / accumulator,
 f32 scores of the bf16 inputs, and P rounded to the value dtype before the
 P.V product (the same steps as the JAX package's Pallas ``_attend_chunk``
-and its XLA ``flash_attention``). An int8 cache is dequantized chunk by
+and its XLA ``flash_attention``). A masked position weighs exactly 0, so a
+query row that sees no position (kv_valid < Sq, outside the JAX kernels'
+contract) gives 0. An int8 cache is dequantized chunk by
 chunk as ``(int8 -> f32 * scale) -> bf16``, the rounding of the JAX
 package's ``kv_dequant``. With ``block_k`` equal to the model's
 ``attn_chunk`` they follow the JAX serving path step for step.
@@ -16,6 +18,13 @@ zero-padded row changes neither the outputs nor the state).
 
 The CPU path of the port runs these; the CUDA path never calls them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
+
+Two more plain versions restate the kernels' own decompositions and serve
+the tests only (nothing on a serving path calls them):
+``verify_attention_split_ref`` cuts the cache into fixed splits, each
+rounded at its running max, and merges them in split order, and
+``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
+P-slice by P-slice.
 """
 from __future__ import annotations
 
@@ -68,7 +77,7 @@ def verify_attention_ref(
     for j0 in range(0, kv_end, block_k):
         j1 = min(j0 + block_k, Skv)
         j = torch.arange(j0, j1, device=dev)
-        visible = j[None, None, :] <= q_pos[:, :, None]  # (B, Sq, C)
+        visible = (j[None, None, :] <= q_pos[:, :, None])[:, :, None, None, :]  # (B, Sq, 1, 1, C)
         kb = dequant(k[:, j0:j1], k_scale).float()
         # rows no query may see are zeroed, so a stale value never meets a
         # zero weight (0 * NaN = NaN)
@@ -76,15 +85,76 @@ def verify_attention_ref(
         vb = dequant(v[:, j0:j1], v_scale)
         vb = torch.where(row_seen, vb, torch.zeros((), dtype=vb.dtype, device=dev))
         s = torch.einsum("bshgd,bchd->bshgc", qg, kb) * scale
-        s = torch.where(visible[:, :, None, None, :], s, torch.full_like(s, NEG_INF))
+        s = torch.where(visible, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
+        # masked positions weigh exactly 0, also while a row has seen nothing
+        # (m_new = NEG_INF), so a row with no visible position gives 0
+        p = torch.where(visible, torch.exp(s - m_new[..., None]), torch.zeros((), device=dev))
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
             "bshgc,bchd->bshgd", p.to(vb.dtype).float(), vb.float()
         )
         m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def verify_attention_split_ref(
+    q: torch.Tensor,         # (B, Sq, Hq, D)
+    k: torch.Tensor,         # (B, Skv, Hkv, D)
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,)
+    *,
+    split: int,
+    scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The CUDA kernel's decomposition (tests only): the cache in fixed
+    ``split``-position splits, each computed on its own once the splits
+    before it have published their rows' local maxima: m_s the running max
+    through split s, P_s = exp(S - m_s) rounded to the value dtype, l_s the
+    sum of the unrounded values and acc_s = P_s V; then merged in split order
+    by the online softmax's chain, acc = acc * e^{m_{s-1} - m_s} + acc_s and
+    l likewise, out = acc / max(l, 1e-30). With ``split`` equal to
+    ``verify_attention_ref``'s ``block_k`` the two compute the same values
+    in the same steps."""
+    if k.dtype == torch.int8 and (k_scale is None or v_scale is None):
+        raise ValueError("an int8 cache needs k_scale and v_scale")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    dev = q.device
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    q_pos = kv_valid.to(dev, torch.int64)[:, None] - Sq + torch.arange(Sq, device=dev)[None]
+    kv_end = min(Skv, int(kv_valid.max()))
+    splits = []  # per split: (masked S, visible, V rows), as every split computes them at once
+    for j0 in range(0, kv_end, split):
+        j = torch.arange(j0, min(j0 + split, Skv), device=dev)
+        visible = (j[None, None, :] <= q_pos[:, :, None])[:, :, None, None, :]
+        row_seen = (j[None, :] <= q_pos[:, -1:]).reshape(B, j.numel(), 1, 1)
+        vb = dequant(v[:, j0:j0 + j.numel()], v_scale)
+        vb = torch.where(row_seen, vb, torch.zeros((), dtype=vb.dtype, device=dev))
+        sc = torch.einsum("bshgd,bchd->bshgc", qg,
+                          dequant(k[:, j0:j0 + j.numel()], k_scale).float()) * scale
+        splits.append((torch.where(visible, sc, torch.full_like(sc, NEG_INF)), visible, vb))
+    if not splits:
+        return torch.zeros_like(q)
+    local_max = torch.stack([sc.amax(dim=-1) for sc, _, _ in splits])
+    running_max = torch.cummax(local_max, dim=0).values  # what each split reads of the others
+    m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
+    for (sc, visible, vb), m_s in zip(splits, running_max):
+        p = torch.where(visible, torch.exp(sc - m_s[..., None]), torch.zeros((), device=dev))
+        acc_s = torch.einsum("bshgc,bchd->bshgd", p.to(vb.dtype).float(), vb.float())
+        corr = torch.exp(m - m_s)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + acc_s
+        m = m_s
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
@@ -164,3 +234,49 @@ def ssd_scan_ref(
         h_new = torch.einsum("bqhp,bqhn->bhpn", xq, Bq[:, :, None, :] * d_end[..., None])
         h = torch.exp(cum[:, -1])[..., None, None] * h + h_new
     return torch.cat(ys, dim=1)[:, :S], h
+
+
+def ssd_scan_sliced_ref(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H) f32, post-softplus
+    A: torch.Tensor,    # (H,) f32, negative
+    Bm: torch.Tensor,   # (B, S, N)
+    Cm: torch.Tensor,   # (B, S, N)
+    h0: Optional[torch.Tensor] = None,  # (B, H, P, N) f32
+    *,
+    chunk: int,
+    slice_p: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's decomposition of ``ssd_scan_ref`` (tests only): per
+    chunk, C.B^T once for all heads, then y's columns, the carry-in and the
+    state rows P-slice by P-slice (``slice_p`` columns; the last slice may be
+    narrower), each slice alone with its own rows of the state."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    f32 = torch.float32
+    xf, Bf, Cf, dtf = x.to(f32), Bm.to(f32), Cm.to(f32), dt.to(f32)
+    h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if h0 is None
+         else h0.to(f32).clone())
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    for t0 in range(0, S, Q):
+        q = min(Q, S - t0)
+        sl = slice(t0, t0 + q)
+        xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(dtq * A.to(f32)[None, None], dim=1)  # (B, q, H)
+        tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+        cb = torch.einsum("bin,bjn->bij", Cq, Bq)  # once per (b, chunk)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]
+        decay = torch.where(tri[None, :, :, None], torch.exp(seg), torch.zeros((), device=x.device))
+        W = cb[..., None] * decay * dtq[:, None, :, :]  # (B, i, j, H)
+        d_end = torch.exp(cum[:, -1:, :] - cum) * dtq  # (B, q, H)
+        bd = Bq[:, :, None, :] * d_end[..., None]  # (B, q, H, N)
+        decay_last = torch.exp(cum[:, -1])[..., None, None]
+        for p0 in range(0, P, slice_p):
+            ps = slice(p0, min(p0 + slice_p, P))
+            hs = h[:, :, ps]
+            y_off = torch.einsum("bqn,bhpn->bqhp", Cq, hs) * torch.exp(cum)[..., None]
+            y_diag = torch.einsum("bijh,bjhp->bihp", W, xq[..., ps])
+            y[:, sl, :, ps] = (y_off + y_diag).to(x.dtype)
+            h[:, :, ps] = decay_last * hs + torch.einsum("bqhp,bqhn->bhpn", xq[..., ps], bd)
+    return y, h

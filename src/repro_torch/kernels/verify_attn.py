@@ -13,12 +13,21 @@ The cache may be handed over as the model's stacked buffer
 (L, rows, Skv, Hkv, D) with a ``layer`` index, and an int8 cache's scales as
 the stacked (L, rows, Hkv) leaves: the kernel addresses the layer and row
 through strides, so the layer loop never copies or gathers the cache.
+
+The kernel splits the cache into fixed 64-position splits and merges them
+in the same launch (see the source). Its scratch is kept here, one set per
+device and grown as a call needs: an f32 buffer for the splits' partials
+and the zeroed int32 block counter and flags the splits signal each other
+with. The kernel returns every counter and flag it raises to zero, so the
+calls on one stream share the scratch; calls on two streams at once would
+not.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -32,18 +41,24 @@ HEAD_DIMS = (64, 128)
 
 _ARGTYPES = {
     "verify_attn_bf16": (
-        [ctypes.c_void_p] * 6       # q, k, v, kv_valid, slots, out
+        [ctypes.c_void_p] * 8       # q, k, v, kv_valid, slots, out, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
         + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
         + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
     ),
     "verify_attn_int8": (
-        [ctypes.c_void_p] * 8       # q, k, v, k_scale, v_scale, kv_valid, slots, out
+        [ctypes.c_void_p] * 10      # q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
         + [ctypes.c_longlong] * 7   # layer, s_layer, s_row, s_seq, s_head, sc_layer, sc_row
         + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
     ),
+    "verify_attn_scratch": (
+        [ctypes.c_int] * 6                               # B, Sq, Hq, Hkv, D, Skv
+        + [ctypes.POINTER(ctypes.c_longlong)] * 2        # -> partial floats, sync ints
+    ),
 }
+# per device: (f32 partials, zeroed int32 counter and flags)
+_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -55,8 +70,29 @@ def _function(symbol: str):
     fn = getattr(build.load("verify_attn"), symbol)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[symbol]
-        fn.restype = ctypes.c_int
+        fn.restype = None if symbol == "verify_attn_scratch" else ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_sizes(dims: Tuple[int, ...]) -> Tuple[int, int]:
+    """(f32 partials, int32 sync ints) one call of these dimensions needs."""
+    n_part, n_sync = ctypes.c_longlong(), ctypes.c_longlong()
+    _function("verify_attn_scratch")(*dims, ctypes.byref(n_part), ctypes.byref(n_sync))
+    return n_part.value, n_sync.value
+
+
+def _scratch(device: torch.device, dims: Tuple[int, ...]) -> Tuple[int, int]:
+    """Pointers to the device's scratch, grown to what a call of these
+    dimensions needs."""
+    n_part, n_sync = _scratch_sizes(dims)
+    part, sync = _SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty((max(n_part, 1 << 20),), dtype=torch.float32, device=device)
+    if sync is None or sync.numel() < n_sync:
+        sync = torch.zeros((max(n_sync, 4096),), dtype=torch.int32, device=device)
+    _SCRATCH[device] = (part, sync)
+    return part.data_ptr(), sync.data_ptr()
 
 
 def _cache_view(k: torch.Tensor, layer: Optional[int]) -> Tuple[int, int]:
@@ -134,22 +170,24 @@ def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale) -> t
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
-    common = (B, Sq, Hq, k.shape[-2], D, k.shape[-3], li, s_layer, s_row, s_seq, s_head)
+    dims = (B, Sq, Hq, k.shape[-2], D, k.shape[-3])
+    common = (*dims, li, s_layer, s_row, s_seq, s_head)
     slot_ptr = slots.data_ptr() if slots is not None else None
     with torch.cuda.device(q.device):
+        scratch = _scratch(q.device, dims)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if k.dtype == torch.int8:
             name += "_int8"
             sc_layer = k_scale.stride(0) if layer is not None else 0
             rc = _function("verify_attn_int8")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-                v_scale.data_ptr(), kv_valid.data_ptr(), slot_ptr, out.data_ptr(),
+                v_scale.data_ptr(), kv_valid.data_ptr(), slot_ptr, out.data_ptr(), *scratch,
                 *common, sc_layer, k_scale.stride(-2), float(scale), stream,
             )
         else:
             rc = _function("verify_attn_bf16")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), slot_ptr,
-                out.data_ptr(), *common, float(scale), stream,
+                out.data_ptr(), *scratch, *common, float(scale), stream,
             )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

@@ -9,7 +9,8 @@ of JAX (nor ml_dtypes), so it also runs where only PyTorch is installed:
 (``--noconftest``: the suite's conftest imports JAX.) Inputs come from a
 numpy seed; bf16 tensors are rounded from f32 by PyTorch (round to nearest
 even). Tolerances are those of tests/test_kernels.py: attention bf16 2e-2;
-the SSD scan bf16 4e-2 for y, f32 3e-3 for the state.
+the SSD scan bf16 4e-2 for y, f32 3e-3 for the state. The attention
+kernel's batch invariance is exact (bit for bit).
 """
 import numpy as np
 import pytest
@@ -117,3 +118,75 @@ def test_cuda_ssd_scan_matches_plain_version(shape):
                                rtol=SSD_TOL["bf16"], atol=SSD_TOL["bf16"])
     np.testing.assert_allclose(h.cpu().numpy(), hw.cpu().numpy(),
                                rtol=SSD_TOL["f32"], atol=SSD_TOL["f32"])
+
+
+def _attn_case(dev, rng, kv, B, Sq, Skv, rows, kvv):
+    Hq, Hkv, D = 12, 2, 128
+    q = _bf16(rng.standard_normal((B, Sq, Hq, D)), dev)
+    kf = rng.standard_normal((rows, Skv, Hkv, D)).astype(np.float32)
+    vf = rng.standard_normal((rows, Skv, Hkv, D)).astype(np.float32)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    if kv == "int8":
+        (k, ks), (v, vs) = _quantize(kf), _quantize(vf)
+        k, v, ks, vs = (torch.from_numpy(a).to(dev) for a in (k, v, ks, vs))
+        return q, k, v, kv_valid, dict(k_scale=ks, v_scale=vs)
+    return q, _bf16(kf, dev), _bf16(vf, dev), kv_valid, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_kernels_at_split_edges(paged, kv):
+    """The kernel's 64-position splits: the last query's position at a
+    split's end (kv_valid 64, 128) and one past it (65, 129), and
+    kv_valid < Sq (rows before position 0 see nothing and give 0)."""
+    dev = _card()
+    rng = np.random.default_rng(17)
+    kvv = [64, 65, 128, 129, 3]
+    q, k, v, kv_valid, sc = _attn_case(dev, rng, kv, 5, 5, 200, 5, kvv)
+    if paged:
+        slots = torch.tensor([4, 3, 2, 1, 0], dtype=torch.int32, device=dev)
+        got = verify_attn.verify_attention_paged(q, k, v, slots, kv_valid, **sc)
+        want = ref.verify_attention_paged_ref(q, k, v, slots, kv_valid, **sc)
+    else:
+        got = verify_attn.verify_attention_packed(q, k, v, kv_valid, **sc)
+        want = ref.verify_attention_ref(q, k, v, kv_valid, **sc)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert torch.equal(got[4, :2], torch.zeros_like(got[4, :2]))  # positions -2, -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_cuda_attention_is_batch_invariant(kv):
+    """Each row of a batch of 6 (the engine's verify with scratch rows)
+    equals the same row served alone, bit for bit, paged and dense."""
+    dev = _card()
+    rng = np.random.default_rng(23)
+    kvv = [205, 233, 240, 5, 5, 5]
+    q, k, v, kv_valid, sc = _attn_case(dev, rng, kv, 6, 5, 512, 6, kvv)
+    slots = torch.tensor([3, 0, 5, 1, 1, 1], dtype=torch.int32, device=dev)
+    paged = verify_attn.verify_attention_paged(q, k, v, slots, kv_valid, **sc)
+    dense = verify_attn.verify_attention_packed(q, k, v, kv_valid, **sc)
+    for b in range(6):
+        one = lambda t: t[b:b + 1].contiguous()  # noqa: E731
+        alone = verify_attn.verify_attention_paged(one(q), k, v, one(slots), one(kv_valid), **sc)
+        dense_sc = {name: one(t) for name, t in sc.items()}
+        alone_dense = verify_attn.verify_attention_packed(one(q), one(k), one(v), one(kv_valid),
+                                                          **dense_sc)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], paged[b]), b
+        assert torch.equal(alone_dense[0], dense[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, N", [(24, 32), (16, 24)])
+def test_cuda_ssd_scan_refuses_widths_it_does_not_tile(P, N):
+    """The kernel takes P in 16-column slices and N in 16-column steps."""
+    dev = _card()
+    x = torch.zeros((1, 32, 2, P), dtype=torch.bfloat16, device=dev)
+    bc = torch.zeros((1, 32, N), dtype=torch.bfloat16, device=dev)
+    dt = torch.ones((1, 32, 2), device=dev)
+    with pytest.raises(ValueError, match="slices"):
+        ssd_scan.ssd_scan(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
