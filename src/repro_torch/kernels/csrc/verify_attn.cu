@@ -81,30 +81,6 @@
 
 #include "mma.cuh"
 
-// -DVA_PHASE_TIMES builds a profiling variant: thread 0 of each block
-// stamps the device clock (globaltimer, ns) at the phase ends marked VA_T(k)
-// into va_phase_times, which va_phase_times_copy hands to the host
-// (experiments/torch_attn_phases.py reads them). The library that
-// kernels/build.py makes has none of it.
-#ifdef VA_PHASE_TIMES
-__device__ unsigned long long va_phase_times[8192][8];
-#define VA_T(k)                                                                     \
-  do {                                                                              \
-    if (threadIdx.x == 0 && bid_s < 8192) {                                         \
-      unsigned long long now;                                                       \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));                       \
-      va_phase_times[bid_s][k] = now;                                               \
-    }                                                                               \
-  } while (0)
-extern "C" int va_phase_times_copy(void* dst) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, va_phase_times, sizeof(va_phase_times)));
-}
-#else
-#define VA_T(k) \
-  do {          \
-  } while (0)
-#endif
-
 namespace {
 
 constexpr int kThreads = 128;             // 4 warps
@@ -305,7 +281,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     bid_s = id;
   }
   __syncthreads();
-  VA_T(0);
   const int split = bid_s % n_split;
   const int tile = (bid_s / n_split) % n_tiles;
   const int bh = bid_s / (n_split * n_tiles);
@@ -361,7 +336,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   }
   mma::cp_async_wait<1>();  // K has landed (V may still be in flight)
   __syncthreads();
-  VA_T(1);
   widen(sm, 0, n_chunks, sizeof(KV) == 1 ? k_scale[row * sc_row + h] : 1.f);
   __syncthreads();
 
@@ -382,7 +356,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     case 3: qk_rows<3, D>(sm.qs.q, sm.kv, rq, cq, a); break;
     default: qk_rows<4, D>(sm.qs.q, sm.kv, rq, cq, a); break;
   }
-  VA_T(2);
   // scale and mask as the plain version does; each row's local max
   int lim[4];  // last position (split-relative) each row sees
 #pragma unroll
@@ -403,7 +376,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
       if (!last) part_lm[(part0 + split) * kTileRows + r] = mx;
     }
   }
-  VA_T(3);
   mma::cp_async_wait<0>();  // V has landed
   __syncthreads();          // every thread is done with the query rows and K
   widen(sm, 1, n_chunks, sizeof(KV) == 1 ? v_scale[row * sc_row + h] : 1.f);
@@ -418,7 +390,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();  // V in f32 and the running maxima are in shared memory
-  VA_T(4);
   // P = exp(S - m) rounded to bf16 (masked positions weigh exactly 0) into
   // shared memory; l is the sum of the unrounded values in the order the
   // plain version's sum over a 64-position chunk adds: position c with
@@ -441,7 +412,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     if (cq == 0 && r < rn) sm.row_l[r] = sum;
   }
   __syncthreads();  // P and the row sums are in shared memory
-  VA_T(5);
 
   // acc = P V, each output one f32 FMA chain over the split's positions in
   // order (the plain version's order within its chunk). Columns: cq*DC..
@@ -457,7 +427,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     case 3: pv_rows<3, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
     default: pv_rows<4, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
   }
-  VA_T(6);
 
   // Merge in split order as the plain version's online softmax does: per
   // split, acc = acc * e^{m_prev - m} + acc_s and l = l * e^{m_prev - m} + l_s
@@ -539,7 +508,6 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < DC; e += 2) dst[e / 2] = mma::pack_bf16(o[vv][e] / den, o[vv][e + 1] / den);
   }
-  VA_T(7);
 }
 
 template <int D, typename KV>

@@ -24,12 +24,13 @@ the tests only (nothing on a serving path calls them):
 ``verify_attention_split_ref`` cuts the cache into fixed splits, each
 rounded at its running max, and merges them in split order, and
 ``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
-P-slice by P-slice.
+P-slice by P-slice, optionally with the chunk's running sum in the kernel's
+order (``warp_scan_cumsum``).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -246,11 +247,14 @@ def ssd_scan_sliced_ref(
     *,
     chunk: int,
     slice_p: int = 16,
+    cumsum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's decomposition of ``ssd_scan_ref`` (tests only): per
     chunk, C.B^T once for all heads, then y's columns, the carry-in and the
     state rows P-slice by P-slice (``slice_p`` columns; the last slice may be
-    narrower), each slice alone with its own rows of the state."""
+    narrower), each slice alone with its own rows of the state. ``cumsum``
+    takes the chunk's running sum of dt * A, (B, q, H) over q (default
+    ``torch.cumsum``; ``warp_scan_cumsum`` is the kernel's order)."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, S)
@@ -263,7 +267,8 @@ def ssd_scan_sliced_ref(
         q = min(Q, S - t0)
         sl = slice(t0, t0 + q)
         xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
-        cum = torch.cumsum(dtq * A.to(f32)[None, None], dim=1)  # (B, q, H)
+        da = dtq * A.to(f32)[None, None]
+        cum = cumsum(da) if cumsum is not None else torch.cumsum(da, dim=1)  # (B, q, H)
         tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
         cb = torch.einsum("bin,bjn->bij", Cq, Bq)  # once per (b, chunk)
         seg = cum[:, :, None, :] - cum[:, None, :, :]
@@ -280,3 +285,34 @@ def ssd_scan_sliced_ref(
             y[:, sl, :, ps] = (y_off + y_diag).to(x.dtype)
             h[:, :, ps] = decay_last * hs + torch.einsum("bqhp,bqhn->bhpn", xq[..., ps], bd)
     return y, h
+
+
+def warp_scan_cumsum(v: torch.Tensor, lanes: int = 32, warps: int = 8) -> torch.Tensor:
+    """The running sum of ``v`` (B, q, H) over its steps in the SSD kernel's
+    order (tests only; ``chunk_cumsum`` in ``csrc/ssd_scan.cu``): per segment
+    of ``lanes * warps`` steps, a Hillis-Steele scan inside each warp (lane l
+    adds lane l - off, off = 1, 2, .., lanes / 2), then each warp adds the
+    carry of the earlier segments and the totals of the warps before it, one
+    by one in warp order. On the card the plain version's ``torch.cumsum``
+    (over a dimension that is not the innermost) adds step by step."""
+    B, q, H = v.shape
+    seg = lanes * warps
+    out = torch.empty_like(v)
+    carry = torch.zeros((B, H), dtype=v.dtype, device=v.device)
+    for base in range(0, q, seg):
+        n = min(seg, q - base)
+        w = torch.zeros((B, seg, H), dtype=v.dtype, device=v.device)
+        w[:, :n] = v[:, base:base + n]
+        w = w.reshape(B, warps, lanes, H)
+        off = 1
+        while off < lanes:
+            w = torch.cat([w[:, :, :off], w[:, :, off:] + w[:, :, :-off]], dim=2)
+            off *= 2
+        tot = w[:, :, -1]  # (B, warps, H)
+        before = [carry]
+        for u in range(warps - 1):
+            before.append(before[-1] + tot[:, u])
+        carry = before[-1] + tot[:, -1]
+        cum = torch.stack(before, dim=1)[:, :, None] + w  # (B, warps, lanes, H)
+        out[:, base:base + n] = cum.reshape(B, seg, H)[:, :n]
+    return out

@@ -145,3 +145,28 @@ def test_sliced_ssd_matches_plain_and_jax(case):
                                  h0=jnp.asarray(h0))
     _close(y, yw, SSD_JAX_TOL)
     _close(h, hw, SSD_JAX_TOL)
+
+
+@pytest.mark.parametrize("q", [1, 31, 199, 256, 300, 512])
+def test_warp_scan_cumsum_is_a_running_sum(q):
+    """The kernel's scan order computes the running sum: on small integers,
+    which every order adds exactly, it equals torch.cumsum bit for bit
+    (one and two 256-step segments, partial warps)."""
+    v = torch.from_numpy(np.random.default_rng(q).integers(-8, 9, (2, q, 3)).astype(np.float32))
+    assert torch.equal(ref.warp_scan_cumsum(v), torch.cumsum(v, dim=1))
+
+
+def test_kernel_cumsum_order_within_chip_tolerance():
+    """The SSD kernel's decomposition with its own cumsum order against the
+    plain scan, within chip_smoke.py's SSD_TOL (|d| <= tol * (1 + |plain|)),
+    at a chunk of 256 steps where the running sum reaches about -200 and a
+    few f32 ulps of it move exp(cum_i - cum_j) by ~1e-5 relative."""
+    x, dt, A, Bm, Cm, h0 = _ssd_inputs(7, 1, 300, 4, 16, 16)
+    args = [_torch(x, "bf16"), torch.from_numpy(dt), torch.from_numpy(A), _torch(Bm, "bf16"),
+            _torch(Cm, "bf16"), torch.from_numpy(h0)]
+    cum_end = (args[1][:, :256] * args[2]).sum(dim=1)
+    assert cum_end.min() < -100
+    y, h = ref.ssd_scan_sliced_ref(*args, chunk=256, cumsum=ref.warp_scan_cumsum)
+    yp, hp = ref.ssd_scan_ref(*args, chunk=256)
+    for got, want, tol in ((y, yp, 4e-2), (h, hp, 3e-3)):
+        assert ((got.float() - want.float()).abs() / (1 + want.float().abs())).max() <= tol
