@@ -13,24 +13,39 @@ Phases, each of which must pass for the script to exit 0:
                JAX package's SSD tolerances (y in bf16 4e-2, the f32 state
                3e-3, relative and absolute), and its refusal of a P the
                kernel does not slice;
-  3. serve   - three fleets of 6 devices through repro_torch.api.System's
-               engine backend, each checked against the port's reference
-               backend on the same bundle and prompts (the same tokens, or a
-               divergence only at a near tie):
-               bf16  - full-width qwen2-1.5b (28-layer target, 1-layer draft)
-                       on a bf16 pool, the paged and dense bf16 kernels;
-               int8  - the same model on an int8 pool (the int8 kernels),
-                       with the pool's bytes per slot against bf16's;
-               ssm   - full-width mamba2-370m (48-layer target, 1-layer
-                       draft): prefill through the SSD scan kernel, verify
-                       by gather/scatter with state checkpoints;
+  3. serve   - fleets of 6 devices through repro_torch.api.System's
+               engine backend, each greedy one checked against the port's
+               reference backend on the same bundle and prompts (the same
+               tokens, or a divergence only at a near tie):
+               bf16   - full-width qwen2-1.5b (28-layer target, 1-layer
+                        draft) on a bf16 pool, the paged and dense bf16
+                        kernels;
+               int8   - the same model on an int8 pool (the int8 kernels),
+                        with the pool's bytes per slot against bf16's;
+               sample - the same model sampled (greedy=False, temperature
+                        1), after the sampler phase: speculative_verify at
+                        B = 8192 copies of one real verify position, its
+                        acceptance within 4 sigma of the analytic count and
+                        the first committed tokens' chi-square against the
+                        target under the 0.999 quantile (check_sampler);
+                        every logit finite, every token in the vocabulary;
+               bits8  - the target weight-quantized to 8 bits and
+                        dequantized on the card (quant_error and
+                        quantized_bytes printed);
+               fleet  - two device classes of 3 (k 4 / c_th 0.3 / 1-layer
+                        draft; k 2 / c_th 0.5 / 2-layer draft), each class
+                        checked against its own reference;
+               ssm    - full-width mamba2-370m (48-layer target, 1-layer
+                        draft): prefill through the SSD scan kernel, verify
+                        by gather/scatter with state checkpoints;
                every kernel of a path must be launched in its run (counters
-               reset just before, read just after), some drafts accepted
-               (for mamba2 some rejected too, so rollback runs). A
-               divergence from the reference passes only at a near tie; for
-               mamba2 also where a target-only replay on each stream's own
-               commit boundaries and batch shapes gives back both streams
-               (see check()).
+               reset just before, read just after; "launches" is a kernel's
+               main path's count, "launches_by_path" every path's), some
+               drafts accepted (for mamba2 some rejected too, so rollback
+               runs). A divergence from the reference passes only at a near
+               tie; for mamba2 also where a target-only replay on each
+               stream's own commit boundaries and batch shapes gives back
+               both streams (see check()).
 The line before the last is a JSON object with one record per kernel entry;
 the last line is {"ok": true, "device": {...}}. A kernel's "ms" (and
 "library_ms", "plain_ms") is the mean of 50 back-to-back calls from Python,
@@ -449,10 +464,8 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
     from repro_torch.models.model_zoo import build_model
 
     tcfg = get_config(arch)
-    dcfg = dataclasses.replace(tcfg, name="edge-draft", num_layers=1)
-    target, draft = build_model(tcfg), build_model(dcfg)
-    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)  # noqa: E731
-    tp, dp = target.init_params(gen(0)), draft.init_params(gen(1))
+    target = build_model(tcfg)
+    tp = target.init_params(torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
         for blk in tp.layers:
             if tcfg.family == "ssm":
@@ -460,23 +473,40 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
             else:
                 blk.attn.wo.mul_(resid_scale)
                 blk.mlp.wd.mul_(resid_scale)
-    dp.load_state_dict({k: w for k, w in tp.state_dict().items()
-                        if not k.startswith("layers.") or k.startswith("layers.0.")})
+    dcfg, draft, dp = prefix_draft(tcfg, tp, 1)
     return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
 
 
-def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16"):
+def prefix_draft(tcfg, target_params, n_layers: int):
+    """A draft of ``n_layers`` layers: the target's tied embedding, its first
+    ``n_layers`` layers and its final norm, as ``(cfg, model, params)``."""
+    from repro_torch.models.model_zoo import build_model
+
+    dcfg = dataclasses.replace(tcfg, name="edge-draft", num_layers=n_layers)
+    draft = build_model(dcfg)
+    dp = draft.init_params(torch.Generator(device="cuda").manual_seed(1))
+    keep = tuple(f"layers.{i}." for i in range(n_layers))
+    dp.load_state_dict({k: w for k, w in target_params.state_dict().items()
+                        if not k.startswith("layers.") or k.startswith(keep)})
+    return dcfg, draft, dp
+
+
+def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *,
+               bits: int = 16, **changes):
+    """The served fleet: 6 devices, prompt 200, 32 new tokens, greedy unless
+    ``changes`` says otherwise (``greedy``, ``fleet``)."""
     from repro_torch.api import ModelSpec, ServeSpec
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    return ServeSpec(
+    kw = dict(
         backend=backend,
         model=ModelSpec(arch=arch, draft_arch=arch, vocab_size=cfg.vocab_size,
-                        target_layers=cfg.num_layers, draft_layers=1),
+                        target_layers=cfg.num_layers, draft_layers=1, bits=bits),
         devices=6, prompt_len=200, max_len=512, max_new=32, k_max=4, c_th=0.3,
         greedy=True, paged_attention=True, kv_dtype=kv_dtype,
     )
+    return ServeSpec(**{**kw, **changes})
 
 
 def _reset_launches() -> None:
@@ -502,16 +532,17 @@ def _round_sink(rounds: dict):
     return sink
 
 
-def serve(label: str, records: dict, bundle, prompts, *, arch: str, kv_dtype: str,
-          path: dict) -> dict:
-    """The engine backend serves the fleet. ``path`` maps each kernel entry
-    of this path to the launches it must show (None: at least one). Returns
-    the streams (``outputs``), each device's committed tokens per round
+def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=None) -> dict:
+    """The engine backend serves the fleet of ``spec``. ``path`` maps each
+    kernel entry of this path to the launches it must show (None: at least
+    one); a kernel record's ``launches`` is the count of the first path that
+    runs it (its main path), ``launches_by_path`` every path's. Returns the
+    streams (``outputs``), each device's committed tokens per round
     (``rounds``) and the padded batch each of those rounds ran in
     (``rows``), and the pool's bytes per slot (``per_slot``)."""
     from repro_torch.api import System
 
-    system = System.build(serve_spec("engine", arch, kv_dtype), models=bundle)
+    system = System.build(spec, models=bundle, kits=kits)
     t0 = time.perf_counter()
     system.warmup()
     torch.cuda.synchronize()
@@ -546,11 +577,14 @@ def serve(label: str, records: dict, bundle, prompts, *, arch: str, kv_dtype: st
     if st.acceptance_rate <= 0:
         raise AssertionError(f"{label}: no draft token was accepted: multi-token commits "
                              "went untested")
-    if arch.startswith("mamba2") and st.acceptance_rate >= 1:
+    if bundle.target_cfg.family == "ssm" and st.acceptance_rate >= 1:
         raise AssertionError(f"{label}: every draft was accepted: state rollback went untested")
     for name, want in path.items():
         n = launches[name]
-        records[name]["launches"] = n
+        rec = records[name]
+        rec.setdefault("launches_by_path", {})[label] = n
+        if not rec["launches"]:
+            rec["launches"] = n
         if n <= 0 or (want is not None and n != want):
             raise AssertionError(f"{label}: {name} launched {n} times on the path "
                                  f"(expected {want if want is not None else '> 0'})")
@@ -586,10 +620,11 @@ def _replay(bundle, spec, prompt, tokens, rounds, rows, prefill_rows, what: str)
     return greedy.shape[0] >= n and worst < LOGIT_TOL
 
 
-def check(label: str, bundle, prompts, served: dict, *, arch: str, kv_dtype: str) -> None:
-    """The port's reference backend on the same bundle and prompts: the
-    engine's tokens must equal the reference's, or diverge first where the
-    reference's top-2 gap is below ``LOGIT_TOL`` (a near tie).
+def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0) -> None:
+    """The port's reference backend (``spec``) on the same bundle and
+    prompts: the engine's tokens (devices ``lo`` on of the served fleet)
+    must equal the reference's, or diverge first where the reference's
+    top-2 gap is below ``LOGIT_TOL`` (a near tie).
 
     mamba2 rounds its whole recurrent state to bf16 at every commit, so its
     stream also depends on where the commits fall (the drafts' acceptance)
@@ -609,7 +644,6 @@ def check(label: str, bundle, prompts, served: dict, *, arch: str, kv_dtype: str
     engine's replay (tests/test_torch_serve.py rehearses one on the CPU)."""
     from repro_torch.api import System
 
-    spec = serve_spec("reference", arch, kv_dtype)
     ref_rounds = {d: [] for d in range(len(prompts))}
     t0 = time.perf_counter()
     ref_out = System.build(spec, models=bundle).serve(
@@ -618,26 +652,26 @@ def check(label: str, bundle, prompts, served: dict, *, arch: str, kv_dtype: str
     ssm = bundle.target_cfg.family == "ssm"
     outputs = served["outputs"]
     for dev_id, want in ref_out.items():
-        got = outputs[dev_id]
+        got = outputs[lo + dev_id]
         if ssm:
-            print(f"check {label}: device {dev_id}", flush=True)
-            if not _replay(bundle, spec, prompts[dev_id], got, served["rounds"][dev_id],
-                           served["rows"][dev_id], 1, "engine stream"):
-                raise AssertionError(f"{label}: device {dev_id}: the engine committed a token "
-                                     "the target does not choose on its own schedule")
+            print(f"check {label}: device {lo + dev_id}", flush=True)
+            if not _replay(bundle, spec, prompts[dev_id], got, served["rounds"][lo + dev_id],
+                           served["rows"][lo + dev_id], 1, "engine stream"):
+                raise AssertionError(f"{label}: device {lo + dev_id}: the engine committed a "
+                                     "token the target does not choose on its own schedule")
         p = _first_difference(got, want)
         if p is None:
             continue
-        gap = _top2_gap(bundle, prompts[dev_id], want[:p], kv_dtype)
-        print(f"check {label}: device {dev_id} diverges at token {p} (engine {got[p]}, "
+        gap = _top2_gap(bundle, prompts[dev_id], want[:p], spec.kv_dtype)
+        print(f"check {label}: device {lo + dev_id} diverges at token {p} (engine {got[p]}, "
               f"reference {want[p]}); reference top-2 logit gap {gap:.4g}", flush=True)
         if gap < LOGIT_TOL:
             continue
         n = len(prompts)
         if not ssm or not _replay(bundle, spec, prompts[dev_id], want, ref_rounds[dev_id],
                                   [n] * len(ref_rounds[dev_id]), n, "reference stream"):
-            raise AssertionError(f"{label}: device {dev_id}: divergence at token {p} with top-2 "
-                                 f"gap {gap} >= {LOGIT_TOL}")
+            raise AssertionError(f"{label}: device {lo + dev_id}: divergence at token {p} with "
+                                 f"top-2 gap {gap} >= {LOGIT_TOL}")
     print(f"check {label}: engine tokens == reference tokens on {len(ref_out)} devices "
           "(up to the divergences printed above)", flush=True)
 
@@ -651,6 +685,176 @@ def _top2_gap(bundle, prompt, prefix, kv_dtype) -> float:
     logits, _ = bundle.target.prefill(bundle.target_params, toks, cache, attn_chunk=32)
     top = torch.topk(logits[0], 2).values
     return float(top[0] - top[1])
+
+
+def _chi2_quantile_999(df: int) -> float:
+    """The chi-square distribution's 0.999 quantile (Wilson-Hilferty; 104.8
+    at df 64, where the exact value is 104.7)."""
+    z = 3.090232  # the standard normal's 0.999 quantile
+    return df * (1 - 2 / (9 * df) + z * math.sqrt(2 / (9 * df))) ** 3
+
+
+def check_sampler(bundle, prompt, B: int = 8192) -> dict:
+    """The rejection sampler on the card at one real verify position: the
+    full-width target's logits p and the draft's q right after ``prompt``
+    (where the first verify round judges the first draft), B copies, the
+    draft tokens drawn from q by a card generator, one speculative_verify
+    with the exact residual. The acceptance count must lie within 4 sigma
+    of sum_b min(1, p(d_b)/q(d_b)) (sigma from the Bernoulli variances),
+    and the first committed tokens must follow p: a chi-square over 65
+    bins under the 0.999 quantile of its degrees of freedom (104.7 at 64).
+    The bins cut p's tokens, in descending order of p, at multiples of 1/65
+    of its mass: p's top tokens first, each bin expecting about B/65
+    draws. (The random-init target's p is flat, its top token ~2e-4, so
+    bins of single top tokens would expect under 2 draws each and leave
+    the test nothing to count.) A bin expecting fewer than 5 draws is
+    pooled into the last (the test's validity condition)."""
+    from repro_torch.core.speculative import speculative_verify
+
+    dev = torch.device("cuda")
+    toks = torch.as_tensor(np.asarray(prompt, np.int32), device=dev)[None]
+    logits = []
+    for model, params in ((bundle.target, bundle.target_params),
+                          (bundle.draft, bundle.draft_params)):
+        cache = model.make_cache(1, toks.shape[1] + 8, device=dev, attn_chunk=32)
+        logits.append(model.prefill(params, toks, cache, attn_chunk=32)[0][0])
+    p_logits, q = logits[0], torch.softmax(logits[1], dim=-1)
+    V = p_logits.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = torch.multinomial(q, B, replacement=True, generator=gen)
+    # the bonus row (index 1) never decides the first committed token
+    res = speculative_verify(d[:, None].to(torch.int32), p_logits.expand(B, 2, V), gen,
+                             draft_q=q[d][:, None], draft_q_full=q.expand(B, 1, V),
+                             greedy=False)
+    p = torch.softmax(p_logits.double(), dim=-1)
+    a = torch.clamp(p[d] / q[d].double(), max=1.0)
+    mean, sigma = float(a.sum()), float((a * (1 - a)).sum().sqrt())
+    count = int(res.n_accepted.sum())
+    if sigma > 0:
+        z = (count - mean) / sigma
+    else:
+        z = 0.0 if count == round(mean) else math.inf
+    order = torch.argsort(p, descending=True)
+    before = torch.cumsum(p[order], 0) - p[order]
+    _, bin_of = torch.unique(torch.clamp((before * 65).long(), max=64), return_inverse=True)
+    n_bins = int(bin_of.max()) + 1
+    counts = torch.bincount(res.out_tokens[:, 0].long(), minlength=V)[order].double()
+    obs = torch.zeros(n_bins, dtype=torch.float64, device=dev).index_add_(0, bin_of, counts)
+    exp = torch.zeros(n_bins, dtype=torch.float64, device=dev).index_add_(0, bin_of, B * p[order])
+    keep = exp >= 5
+    obs = torch.cat([obs[keep], obs[~keep].sum()[None]])
+    exp = torch.cat([exp[keep], exp[~keep].sum()[None]])
+    if exp[-1] < 5:  # nothing (or too little) pooled: the last kept bin takes it
+        obs = torch.cat([obs[:-2], obs[-2:].sum()[None]])
+        exp = torch.cat([exp[:-2], exp[-2:].sum()[None]])
+    chi2 = float(((obs - exp) ** 2 / exp).sum())
+    df = int(obs.numel()) - 1
+    limit = _chi2_quantile_999(df) if df >= 1 else 0.0
+    out = {"B": B, "accepted": count, "analytic": mean, "sigma": sigma, "z": z,
+           "chi2": chi2, "df": df, "chi2_limit": limit, "top1_p": float(p.max()),
+           "beta": float(torch.minimum(p, q.double()).sum())}
+    print("sampler", json.dumps(out), flush=True)
+    del res
+    torch.cuda.empty_cache()
+    if not abs(z) <= 4:
+        raise AssertionError(f"sampler: acceptance count {count} is {z:.2f} sigma from {mean:.1f}")
+    if df < 1 or not chi2 < limit:
+        raise AssertionError(f"sampler: chi-square {chi2:.2f} over {df} df, limit {limit:.2f}")
+    return out
+
+
+class _FiniteWatch:
+    """Wraps a model's lm_head: each call ANDs "every logit is finite" into
+    a flag on the card (no host sync)."""
+
+    def __init__(self):
+        self.ok = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def wrap(self, model):
+        def lm_head(params, h):
+            out = model.lm_head(params, h)
+            self.ok &= torch.isfinite(out).all()
+            return out
+        return dataclasses.replace(model, lm_head=lm_head)
+
+
+def serve_sample(records: dict, bundle, prompts) -> dict:
+    """The engine backend with greedy=False (temperature 1): every draw on
+    the card, no logit of the target or the drafts (whose softmax is q) NaN
+    or infinite, every token in the vocabulary (serve() checks it)."""
+    target_watch, draft_watch = _FiniteWatch(), _FiniteWatch()
+    watched = dataclasses.replace(bundle, target=target_watch.wrap(bundle.target),
+                                  draft=draft_watch.wrap(bundle.draft))
+    served = serve("sample", records, watched, prompts, spec=serve_spec("engine", greedy=False),
+                   path={"verify_attention_packed": None, "verify_attention_paged": None})
+    if not (bool(target_watch.ok) and bool(draft_watch.ok)):
+        raise AssertionError(f"sample: a logit was not finite (target ok {bool(target_watch.ok)},"
+                             f" drafts ok {bool(draft_watch.ok)})")
+    return served
+
+
+def quantize_bundle(bundle, bits: int):
+    """The target weight-quantized to ``bits`` and dequantized on the card,
+    as ``build_models`` does for ``ModelSpec(bits=...)``; the draft as it
+    is. Prints ``quant_error`` at 8 and 4 bits and ``quantized_bytes``
+    against the 16-bit bytes."""
+    from repro_torch import quant
+
+    tp = bundle.target_params
+    stats = {"quant_error_8": quant.quant_error(tp, 8), "quant_error_4": quant.quant_error(tp, 4),
+             **{f"bytes_{b}": quant.quantized_bytes(tp, b) for b in (16, 8, 4)}}
+    stats["bytes_8_over_16"] = stats["bytes_8"] / stats["bytes_16"]
+    stats["bytes_4_over_16"] = stats["bytes_4"] / stats["bytes_16"]
+    print("quant", json.dumps(stats), flush=True)
+    q = dataclasses.replace(bundle, target_params=quant.dequantize_pytree(
+        quant.quantize_pytree(tp, bits)))
+    torch.cuda.empty_cache()
+    return q, stats
+
+
+def fleet_spec():
+    """Two classes of 3 devices: Jetson Orin Nano drafting 4 tokens at c_th
+    0.3 with a 1-layer draft, Raspberry Pi 4B drafting 2 at c_th 0.5 with a
+    2-layer draft (the rate table's entry of tests/test_fleet.py)."""
+    from repro_torch.api.spec import DeviceClassSpec, FleetSpec
+
+    common = dict(count=3, draft_model="llama-1b-draft", bits=4)
+    return serve_spec("engine", fleet=FleetSpec(classes=(
+        DeviceClassSpec(profile="jetson-orin-nano", k=4, c_th=0.3, draft_layers=1, **common),
+        DeviceClassSpec(profile="rpi4b", k=2, c_th=0.5, draft_layers=2, **common),
+    )))
+
+
+def serve_fleet(records: dict, bundle, prompts) -> None:
+    """The engine backend serves the fleet, each class drafting with its own
+    kit; class drafts are prefixes of the full-width target (random-init
+    class drafts would accept nothing), put in a KitCache. Each class's
+    streams are held to its own reference (``fleet_reference_specs()``)
+    with check(); a class drafting k tokens commits at most k + 1 a round."""
+    from repro_torch.api import KitCache
+
+    spec = fleet_spec()
+    kits, bundles = KitCache(), []
+    for rc in spec.resolved_classes():
+        if rc.draft_layers == spec.model.draft_layers:
+            bundles.append(bundle)
+            continue
+        dcfg, draft, dp = prefix_draft(bundle.target_cfg, bundle.target_params, rc.draft_layers)
+        kits.drafts[(spec.model.draft_arch, rc.draft_layers, rc.draft_noise,
+                     spec.model.vocab_size, spec.model.seed)] = (dcfg, draft, dp)
+        bundles.append(dataclasses.replace(bundle, draft_cfg=dcfg, draft=draft, draft_params=dp))
+    served = serve("fleet", records, bundle, prompts, spec=spec, kits=kits,
+                   path={"verify_attention_packed": None, "verify_attention_paged": None})
+    for rc, (lo, hi, refspec) in zip(spec.resolved_classes(), spec.fleet_reference_specs()):
+        longest = max(len(r) for d in range(lo, hi) for r in served["rounds"][d])
+        print(f"fleet class {rc.index} ({rc.spec.profile}, k {rc.k}, c_th {rc.c_th}, "
+              f"{rc.draft_layers}-layer draft): most tokens committed in a round {longest}",
+              flush=True)
+        if longest > rc.k + 1:
+            raise AssertionError(f"fleet class {rc.index}: a round committed {longest} tokens, "
+                                 f"more than k + 1 = {rc.k + 1}")
+        check(f"fleet class {rc.index}", bundles[rc.index], prompts[lo:hi], served,
+              spec=refspec, lo=lo)
 
 
 def build_kernels() -> None:
@@ -705,27 +909,40 @@ def main() -> int:
         ("int8", "int8", {"verify_attention_packed_int8": None,
                           "verify_attention_paged_int8": None}),
     ):
-        kw = dict(arch="qwen2-1.5b", kv_dtype=kv_dtype)
+        spec = serve_spec("engine", kv_dtype=kv_dtype)
         served = _phase(f"serve {label}", lambda: serve(
-            label, records, qwen, prompts, path=path, **kw))
+            label, records, qwen, prompts, spec=spec, path=path))
         per_slot[label] = served["per_slot"]
-        _phase(f"check {label}", lambda: check(label, qwen, prompts, served, **kw))
+        _phase(f"check {label}", lambda: check(label, qwen, prompts, served,
+                                               spec=serve_spec("reference", kv_dtype=kv_dtype)))
     ratio = per_slot["int8"] / per_slot["bf16"]
     print(f"pool: bytes_per_slot int8 {per_slot['int8']} bf16 {per_slot['bf16']} "
           f"ratio {ratio:.4f}", flush=True)
     if ratio > 0.51:
         raise AssertionError(f"int8 pool holds {ratio:.4f} of bf16's bytes per slot (> 0.51)")
+
+    _phase("sampler", lambda: check_sampler(qwen, prompts[0]))
+    _phase("serve sample", lambda: serve_sample(records, qwen, prompts))
+    q8, _ = _phase("quantize 8", lambda: quantize_bundle(qwen, 8))
+    served = _phase("serve bits8", lambda: serve(
+        "bits8", records, q8, prompts, spec=serve_spec("engine", bits=8),
+        path={"verify_attention_packed": None, "verify_attention_paged": None}))
+    _phase("check bits8", lambda: check("bits8", q8, prompts, served,
+                                        spec=serve_spec("reference", bits=8)))
+    del q8
+    _phase("serve fleet", lambda: serve_fleet(records, qwen, prompts))
     del qwen
     torch.cuda.empty_cache()
 
     m2 = _phase("init mamba2-370m", lambda: full_width_bundle("mamba2-370m"))
     m2_prompts = prompts % m2.target_cfg.vocab_size
-    kw = dict(arch="mamba2-370m", kv_dtype="bf16")
     # one scan per layer per prefill: 6 target prefills of 48 layers, 6 draft
     # prefills of 1 layer
     path = {"ssd_scan": 6 * m2.target_cfg.num_layers + 6 * m2.draft_cfg.num_layers}
-    served = _phase("serve ssm", lambda: serve("ssm", records, m2, m2_prompts, path=path, **kw))
-    _phase("check ssm", lambda: check("ssm", m2, m2_prompts, served, **kw))
+    served = _phase("serve ssm", lambda: serve(
+        "ssm", records, m2, m2_prompts, spec=serve_spec("engine", "mamba2-370m"), path=path))
+    _phase("check ssm", lambda: check("ssm", m2, m2_prompts, served,
+                                      spec=serve_spec("reference", "mamba2-370m")))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,18 @@
 """The port's front door: ``System`` / ``Session`` over a ``ServeSpec``."""
 from repro_torch.api.events import DoneEvent, RoundEvent, ServeResult, SessionResult, TokenEvent
 from repro_torch.api.spec import ModelSpec, ServeSpec, SpecError
-from repro_torch.api.system import ModelBundle, Session, System, build_models
+from repro_torch.api.system import (
+    KitCache,
+    ModelBundle,
+    Session,
+    System,
+    build_draft_variant,
+    build_models,
+)
 
 __all__ = [
     "DoneEvent",
+    "KitCache",
     "ModelBundle",
     "ModelSpec",
     "RoundEvent",
@@ -15,5 +23,6 @@ __all__ = [
     "SpecError",
     "System",
     "TokenEvent",
+    "build_draft_variant",
     "build_models",
 ]

@@ -9,8 +9,11 @@ The port of ``repro.api.system`` for the ``reference`` (lock-step loop) and
 ``System.build`` takes ``device`` ("cuda" unless the caller asks for the
 CPU) and an optional prebuilt ``ModelBundle``, which is how a caller serves
 a model at full width: build the bundle from the full config and pass it
-in. Specs that need a later slice (cluster, transport, fleets, quantized
-weights, sampling, the families other than dense and ssm) raise
+in. Sampling (``greedy=False``), quantized targets (``model.bits`` 8 and
+4) and heterogeneous fleets (engine backend, one drafting kit per device
+class) are served as the JAX package serves them. Specs that need a later
+slice (cluster, transport and the fleet knobs only they use,
+``paged_attention=False``, the families other than dense and ssm) raise
 ``NotImplementedError`` naming the ROADMAP.md item.
 
 Sessions on the engine backend interleave cooperatively: each
@@ -24,7 +27,7 @@ import dataclasses
 import logging
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +41,7 @@ from repro_torch.core.engine import EngineStats
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
 from repro_torch.models.kvcache import supports_paged_attention
 from repro_torch.models.model_zoo import build_model, perturb_params
+from repro_torch.quant import dequantize_pytree, quantize_pytree
 from repro_torch.runtime import resolve_device
 
 log = logging.getLogger(__name__)
@@ -66,32 +70,60 @@ class ModelBundle:
         return self.target_cfg.vocab_size
 
 
+def _gen(dev: torch.device, seed: int) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def build_models(mspec, device="cuda") -> ModelBundle:
     """Deterministically build the spec's reduced model pair with the port's
-    seeded init: target from ``seed``, draft from ``seed + 1`` (optionally
+    seeded init: target from ``seed`` (weight-quantized to ``bits`` and
+    dequantized, when ``bits < 16``), draft from ``seed + 1`` (optionally
     noise-perturbed). The draws differ from the JAX package's
     ``jax.random`` ones; to serve the JAX weights, bridge them in
     (``repro_torch.bridge``) and pass the bundle to ``System.build``."""
     dev = resolve_device(device)
-    if mspec.bits < 16:
-        raise _not_ported(f"model.bits={mspec.bits}", "Weight quantization")
     tcfg = dataclasses.replace(get_config(mspec.arch).reduced(), vocab_size=mspec.vocab_size)
     if mspec.target_layers is not None:
         tcfg = dataclasses.replace(tcfg, num_layers=mspec.target_layers)
+    target = build_model(tcfg)
+    tp = target.init_params(_gen(dev, mspec.seed))
+    if mspec.bits < 16:
+        tp = dequantize_pytree(quantize_pytree(tp, mspec.bits))
+    dcfg, draft, dp = build_draft_variant(mspec, draft_layers=mspec.draft_layers,
+                                          draft_noise=mspec.draft_noise, device=dev)
+    return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
+
+
+def build_draft_variant(mspec, *, draft_layers: Optional[int], draft_noise: float,
+                        device="cuda") -> Tuple[Any, Any, Any]:
+    """One device class's draft ``(cfg, model, params)``: the spec's draft
+    arch, vocab and seed with its own depth and noise. Deterministic: a
+    class whose overrides equal the spec model's gets ``build_models``'s
+    draft weights."""
+    dev = resolve_device(device)
     dcfg = dataclasses.replace(
         get_config(mspec.draft_arch).reduced(), name="edge-draft", vocab_size=mspec.vocab_size
     )
-    if mspec.draft_layers is not None:
-        dcfg = dataclasses.replace(dcfg, num_layers=mspec.draft_layers)
-    target, draft = build_model(tcfg), build_model(dcfg)
+    if draft_layers is not None:
+        dcfg = dataclasses.replace(dcfg, num_layers=draft_layers)
+    draft = build_model(dcfg)
+    dp = perturb_params(draft.init_params(_gen(dev, mspec.seed + 1)), draft_noise,
+                        _gen(dev, PERTURB_SEED))
+    return dcfg, draft, dp
 
-    def gen(seed: int) -> torch.Generator:
-        return torch.Generator(device=dev).manual_seed(seed)
 
-    tp = target.init_params(gen(mspec.seed))
-    dp = perturb_params(draft.init_params(gen(mspec.seed + 1)), mspec.draft_noise,
-                        gen(PERTURB_SEED))
-    return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
+class KitCache:
+    """Per-class draft bundles and drafting kits shared across Systems.
+
+    ``drafts`` maps a draft key ``(draft_arch, draft_layers, draft_noise,
+    vocab_size, seed)`` to its ``(cfg, model, params)``; ``kits`` maps the
+    draft key plus ``(k, c_th, greedy, attn_chunk)`` to its
+    :class:`EdgeDeviceKit`. A caller may fill ``drafts`` with weights of its
+    own (the tests bridge the JAX package's class drafts in)."""
+
+    def __init__(self) -> None:
+        self.drafts: Dict[tuple, tuple] = {}
+        self.kits: Dict[tuple, EdgeDeviceKit] = {}
 
 
 class Session:
@@ -163,11 +195,14 @@ class System:
     """A built SLED deployment: models + the spec's execution backend."""
 
     def __init__(self, spec: ServeSpec, models: ModelBundle, engine: Optional[ServerEngine],
-                 kit: Optional[EdgeDeviceKit], device: torch.device):
+                 kit: Optional[EdgeDeviceKit], device: torch.device,
+                 class_kits: Optional[List[EdgeDeviceKit]] = None):
         self.spec = spec
         self.models = models
         self.engine = engine  # ServerEngine | None (reference)
         self.kit = kit
+        # a fleet: one kit per resolved device class (kit_for routes)
+        self.class_kits: List[EdgeDeviceKit] = list(class_kits or [])
         self.device = device
         self._waiting: Dict[int, Session] = {}
         self._running: Dict[int, Session] = {}
@@ -182,18 +217,23 @@ class System:
         spec: ServeSpec,
         *,
         models: Optional[ModelBundle] = None,
+        kits: Optional[KitCache] = None,
         warmup: bool = False,
         device="cuda",
     ) -> "System":
-        """Construct the backend the spec names, on ``device``."""
+        """Construct the backend the spec names, on ``device``. ``kits`` (a
+        :class:`KitCache`) shares a fleet's class drafts and kits across
+        Systems."""
         dev = resolve_device(device)
         spec.validate()
         if spec.backend not in _PORTED_BACKENDS:
             raise _not_ported(f"backend {spec.backend!r}", "Cluster and transport")
-        if spec.fleet.active:
-            raise _not_ported("a heterogeneous fleet", "Faults, telemetry traces, fleets, tuner")
-        if not spec.greedy:
-            raise _not_ported("greedy=False", "Sampling")
+        # what the transport runtime does with a fleet: per-class draft rates
+        # and one home replica per class
+        if spec.fleet.emulate_rates:
+            raise _not_ported("fleet.emulate_rates", "Cluster and transport")
+        if spec.cluster.placement == "class-affinity":
+            raise _not_ported("cluster.placement='class-affinity'", "Cluster and transport")
         if not spec.paged_attention:
             raise _not_ported("paged_attention=False", "Other model families")
         if spec.telemetry:
@@ -227,10 +267,51 @@ class System:
             models.draft, models.draft_params, k_max=spec.k_max, c_th=spec.c_th,
             greedy=spec.greedy, attn_chunk=spec.attn_chunk, device=dev,
         )
-        system = cls(spec, models, engine, kit, dev)
+        class_kits = cls._build_class_kits(spec, models, kits, dev) if spec.fleet.active else None
+        system = cls(spec, models, engine, kit, dev, class_kits=class_kits)
         if warmup:
             system.warmup()
         return system
+
+    @classmethod
+    def _build_class_kits(cls, spec: ServeSpec, models: ModelBundle, cache: Optional[KitCache],
+                          dev: torch.device) -> List[EdgeDeviceKit]:
+        """One drafting kit per resolved fleet class. A class whose draft
+        config is the spec model's rides the bundle's draft; another builds
+        its own deterministic variant, unless ``cache`` holds it. Classes
+        that agree on (draft, k, c_th) share one kit."""
+        mspec = spec.model
+        cache = cache if cache is not None else KitCache()
+        out: List[EdgeDeviceKit] = []
+        for rc in spec.resolved_classes():
+            dkey = (mspec.draft_arch, rc.draft_layers, rc.draft_noise, mspec.vocab_size,
+                    mspec.seed)
+            if (rc.draft_layers, rc.draft_noise) == (mspec.draft_layers, mspec.draft_noise):
+                bundle = (models.draft_cfg, models.draft, models.draft_params)
+            else:
+                bundle = cache.drafts.get(dkey)
+                if bundle is None:
+                    bundle = build_draft_variant(mspec, draft_layers=rc.draft_layers,
+                                                 draft_noise=rc.draft_noise, device=dev)
+                    cache.drafts[dkey] = bundle
+            _, dmodel, dparams = bundle
+            kkey = dkey + (rc.k, rc.c_th, spec.greedy, spec.attn_chunk)
+            kit = cache.kits.get(kkey)
+            if kit is None:
+                kit = EdgeDeviceKit(dmodel, dparams, k_max=rc.k, c_th=rc.c_th,
+                                    greedy=spec.greedy, attn_chunk=spec.attn_chunk, device=dev)
+                cache.kits[kkey] = kit
+            out.append(kit)
+        return out
+
+    def kit_for(self, device_id: int) -> EdgeDeviceKit:
+        """The drafting kit serving ``device_id``: its device class's kit
+        under a fleet spec, else the spec's kit."""
+        if self.class_kits:
+            rc = self.spec.class_of(device_id)
+            if rc is not None:
+                return self.class_kits[rc.index]
+        return self.kit
 
     def warmup(self) -> Dict[int, float]:
         """Run the verify buckets once (engine backend only)."""
@@ -345,14 +426,19 @@ class System:
                 continue
             if self.engine.admit(dev_id, s.prompt, now) is None:
                 break  # pool full: stays waiting, admitted when a slot frees
-            s._device = self.kit.spawn(dev_id, s.prompt, max_len=self.spec.max_len)
+            s._device = self.kit_for(dev_id).spawn(dev_id, s.prompt, max_len=self.spec.max_len,
+                                                   seed=self.spec.session_seed_base + dev_id)
             self._running[dev_id] = s
             del self._waiting[dev_id]
         for s in list(self._running.values()):
             if not s._device.awaiting:
                 toks = s._device.draft()
                 s._last_drafted = len(toks)
-                self.engine.submit(s.device_id, toks, time.time() - self._t0)
+                # the JAX package's in-process pump submits no q, so its
+                # engine backend refuses greedy=False; the port submits the
+                # q row as the JAX transport client does
+                self.engine.submit(s.device_id, toks, time.time() - self._t0,
+                                   draft_q=s._device.pending_q)
         finished = []
         for v in self.engine.step(time.time() - self._t0) or []:
             s = self._running[v.device_id]
@@ -389,7 +475,7 @@ class System:
             self.models.draft, self.models.draft_params,
             self.models.target, self.models.target_params, prompts,
             max_new=max(budgets), k_max=spec.k_max, c_th=spec.c_th, greedy=spec.greedy,
-            attn_chunk=spec.attn_chunk, steps=self._ref_steps, kv_dtype=spec.kv_dtype,
+            seed=0, attn_chunk=spec.attn_chunk, steps=self._ref_steps, kv_dtype=spec.kv_dtype,
         )
         for rnd in gen:
             for b, s in enumerate(sessions):

@@ -8,7 +8,9 @@ weight is a plain copy. The stacked ``(L, ...)`` leaves of
 ``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
 (dense family) or ``Mamba2.layers`` (ssm family). Caches move leaf by leaf
 in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves, or the
-ssm family's ``ssm``/``conv`` state.
+ssm family's ``ssm``/``conv`` state. A leaf keeps its JAX dtype: a
+quantized bundle (``model.bits < 16``, dequantized at build time) carries
+bf16 norm scales and SSM parameters where a 16-bit one has f32.
 
 Going back, bf16 tensors come out as their ``uint16`` bits (the checkpoint
 convention); ``arr.view(ml_dtypes.bfloat16)`` restores the dtype.
@@ -82,10 +84,10 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
     family = _family(cfg)
     model = _MODELS[family](cfg, device=device)
     with torch.no_grad():
-        model.embed.copy_(to_tensor(tree["embed"], device))
-        model.final_norm.scale.copy_(to_tensor(tree["final_norm"]["scale"], device))
+        _assign(model, "embed", to_tensor(tree["embed"], device))
+        _assign(model, "final_norm.scale", to_tensor(tree["final_norm"]["scale"], device))
         if model.lm_head_w is not None:
-            model.lm_head_w.copy_(to_tensor(tree["lm_head"], device))
+            _assign(model, "lm_head_w", to_tensor(tree["lm_head"], device))
         for name, path in _LAYER_PARAMS[family].items():
             if _dotted(model.layers[0], name) is None:
                 continue  # e.g. no QKV bias in this config
@@ -93,9 +95,22 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(f"layers/{'/'.join(path)} has {stacked.shape[0]} layers, "
                                  f"config has {cfg.num_layers}")
-            for li, blk in enumerate(model.layers):
-                _dotted(blk, name).copy_(stacked[li])
+            for li in range(cfg.num_layers):
+                _assign(model, f"layers.{li}.{name}", stacked[li])
     return model
+
+
+def _assign(model: CausalLM, name: str, value: torch.Tensor) -> None:
+    """Copy ``value`` into parameter ``name``; a leaf whose dtype differs
+    from the module's (the bf16 norm scales and SSM parameters of a
+    quantized JAX bundle, f32 in a 16-bit one) replaces the parameter."""
+    param = _dotted(model, name)
+    if param.shape != value.shape:
+        raise ValueError(f"{name}: shape {tuple(value.shape)}, the model has {tuple(param.shape)}")
+    if param.dtype == value.dtype:
+        param.copy_(value)
+    else:
+        model.set_weight(name, value.clone())
 
 
 def params_to_jax(model: CausalLM) -> Dict[str, Any]:

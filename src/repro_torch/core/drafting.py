@@ -5,7 +5,8 @@ tokens with its local draft model and stops early when the draft
 confidence ``c_i`` drops below ``c_th`` (paper Eq. 1): a low-confidence
 token is still included in the verification request, but nothing is drafted
 behind it. As in the JAX scan, every row runs all ``k_max`` steps and rows
-that stopped early carry padding.
+that stopped early carry padding. Sampled drafting (``greedy=False``) draws
+each token from the caller's ``torch.Generator`` on the cache's device.
 
 Rollback: the draft KV cache rolls back by setting ``length = base + 1 +
 n_accepted``; stale entries past it are masked and later overwritten. An
@@ -27,6 +28,7 @@ from repro_torch.core.speculative import sample_token
 class DraftResult:
     tokens: torch.Tensor       # (B, K) drafted tokens (padding past length)
     q_sel: torch.Tensor        # (B, K) q(token)
+    q_full: Optional[torch.Tensor]  # (B, K, V) f32 full draft dists (exact residual)
     lengths: torch.Tensor      # (B,) dynamic draft lengths in [1, K]
     confidence: torch.Tensor   # (B, K)
     cache: Any                 # cache after the drafting steps (uncommitted)
@@ -45,6 +47,8 @@ def draft_round(
     c_th: Union[float, torch.Tensor] = 0.0,  # 0.0 -> fixed-length drafting
     temperature: float = 1.0,
     greedy: bool = True,
+    generator: Optional[torch.Generator] = None,
+    keep_q_full: bool = False,
     attn_chunk: int = 1024,
 ) -> DraftResult:
     """One drafting round: feed prev_token, then draft up to k_max tokens."""
@@ -59,18 +63,20 @@ def draft_round(
     tok = prev_token.to(torch.int32)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
     ones = torch.ones((B,), dtype=torch.int32, device=dev)
-    toks, qs, emitted_all, confs, ckpts = [], [], [], [], []
+    toks, qs, qf, emitted_all, confs, ckpts = [], [], [], [], [], []
     for _ in range(k_max):
         h, ck = model.decode_forward(params, cache, tok[:, None], attn_chunk=attn_chunk)
         cache = model.commit(ck, ones)  # consume exactly this one token
         if is_ssm:
             ckpts.append(cache)
         logits = model.lm_head(params, h)[:, 0]
-        nxt, q, dist = sample_token(logits, temperature, greedy)
+        nxt, q, dist = sample_token(logits, generator, temperature, greedy)
         conf = dist.max(dim=-1).values
         emitted = active
         toks.append(torch.where(emitted, nxt, torch.zeros_like(nxt)))
         qs.append(torch.where(emitted, q, torch.zeros_like(q)))
+        if keep_q_full:
+            qf.append(dist)
         emitted_all.append(emitted)
         confs.append(torch.where(emitted, conf, torch.zeros_like(conf)))
         tok = torch.where(emitted, nxt, tok)
@@ -79,6 +85,7 @@ def draft_round(
     return DraftResult(
         tokens=torch.stack(toks, dim=1),
         q_sel=torch.stack(qs, dim=1),
+        q_full=torch.stack(qf, dim=1) if keep_q_full else None,
         lengths=emitted.sum(dim=1).to(torch.int32),
         confidence=torch.stack(confs, dim=1),
         cache=cache,

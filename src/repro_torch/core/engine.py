@@ -176,6 +176,7 @@ class EngineCore:
             buckets.append(cap)
         self.buckets = sorted(set(buckets))
         self.compile_log: Dict[int, float] = {}  # bucket -> warmup seconds
+        self._seed = 0  # the verify batches' per-round seed (sampling draws)
 
     # -- slot lifecycle ------------------------------------------------------
 
@@ -192,6 +193,9 @@ class EngineCore:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32)).to(self.device)
+
+    def _q_tensor(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
 
     def prefill_slot(self, slot: int, prompt) -> int:
         """Prefill ``prompt`` into pool row ``slot``; returns the last prompt
@@ -219,7 +223,9 @@ class EngineCore:
         for b in self.buckets:
             t0 = time.perf_counter()
             zeros = self._tensor(np.zeros((b,)))
-            vb = verification.make_verify_batch(zeros, self._tensor(np.zeros((b, self.k_max))), zeros)
+            vb = verification.make_verify_batch(
+                zeros, self._tensor(np.zeros((b, self.k_max))), zeros,
+                draft_q=None if self.greedy else self._q_tensor(np.zeros((b, self.k_max))))
             slots = self._tensor(np.full((b,), self.pool.scratch_slot))
             _, self.pool.cache = self.steps.verify(self.params, self.pool.cache, slots, vb)
             self.pool.cache["length"].cpu()  # wait for the step
@@ -229,13 +235,15 @@ class EngineCore:
         return times
 
     def verify(self, slots: np.ndarray, prev: np.ndarray, toks: np.ndarray,
-               lens: np.ndarray) -> Tuple[Any, int, float]:
+               qs: Optional[np.ndarray], lens: np.ndarray) -> Tuple[Any, int, float]:
         """One bucketed verify pass over pool rows ``slots``.
 
-        Inputs are the un-padded per-request arrays; the core pads them to
-        the enclosing bucket (scratch-slot rows for the fill) and commits
-        the accepted prefixes into the pool. Returns ``(VerifyResult with
-        host numpy fields, bucket, step_seconds)``.
+        Inputs are the un-padded per-request arrays (``qs``: the drafts'
+        q(d_i), sampling mode only); the core pads them to the enclosing
+        bucket (scratch-slot rows for the fill), seeds the round's draws
+        with its round counter and commits the accepted prefixes into the
+        pool. Returns ``(VerifyResult with host numpy fields, bucket,
+        step_seconds)``.
         """
         t_wall = time.perf_counter()
         bucket = self.bucket_for(slots.shape[0])
@@ -244,9 +252,12 @@ class EngineCore:
             self._tensor(_pad_to(prev, bucket)),
             self._tensor(_pad_to(toks, bucket)),
             self._tensor(_pad_to(lens, bucket)),
+            draft_q=self._q_tensor(_pad_to(qs, bucket)) if qs is not None else None,
+            seed=self._seed,
         )
         res, self.pool.cache = self.steps.verify(self.params, self.pool.cache,
                                                  self._tensor(slots_p), vb)
+        self._seed += 1
         res = dataclasses.replace(res, **{f.name: getattr(res, f.name).cpu().numpy()
                                           for f in dataclasses.fields(res)})
         step_seconds = time.perf_counter() - t_wall

@@ -3,7 +3,10 @@
 The port of ``repro.core.engine_loop``: the algorithmic ground truth that
 the ``reference`` backend runs. A draft model and a target model run the
 SLED drafting/verification protocol in lock-step over a batch of prompts;
-greedy SLED output must equal greedy target-only output.
+greedy SLED output must equal greedy target-only output. In sampling mode
+the drafts are drawn from a generator seeded with ``seed`` and the verify
+batch carries the full draft distributions, so corrections come from the
+exact residual.
 """
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import drafting, verification
-from repro_torch.core.speculative import PAD_TOKEN
+from repro_torch.core.speculative import PAD_TOKEN, sample_token
 from repro_torch.models.kvcache import gather_slots
+from repro_torch.runtime import DRAFT_STREAM, seeded_generator
 
 
 @dataclasses.dataclass
@@ -38,9 +42,9 @@ def make_sled_steps(draft_model, target_model, *, k_max: int = 4, c_th: float = 
         "t_prefill": verification.make_prefill_step(target_model, attn_chunk=attn_chunk),
         "verify": verification.make_verify_step(target_model, greedy=greedy,
                                                 attn_chunk=attn_chunk),
-        "draft": lambda params, cache, prev: drafting.draft_round(
+        "draft": lambda params, cache, prev, generator: drafting.draft_round(
             draft_model, params, cache, prev, k_max=k_max, c_th=c_th, greedy=greedy,
-            attn_chunk=attn_chunk,
+            generator=generator, keep_q_full=not greedy, attn_chunk=attn_chunk,
         ),
     }
 
@@ -68,13 +72,19 @@ def sled_rounds(
     k_max: int = 4,
     c_th: float = 0.0,
     greedy: bool = True,
+    seed: int = 0,
     attn_chunk: int = 256,
     steps: Optional[dict] = None,
     kv_dtype: str = "bf16",
 ) -> Iterator[SledRound]:
     """THE lock-step SLED loop, as a per-round generator: yields a
     :class:`SledRound` per draft+verify round until every row has committed
-    ``max_new`` tokens. Runs on the device the target's weights live on."""
+    ``max_new`` tokens. Runs on the device the target's weights live on.
+
+    Sampling draws come from the card: the drafts from one generator seeded
+    with ``seed``, round r's acceptance and corrections from the verify
+    step's, seeded with ``seed + r`` (the JAX package's batch seed), in
+    another draw stream (``runtime.seeded_generator``)."""
     dev = target_params.device
     prompts = _as_prompts(prompts, dev)
     B, P = prompts.shape
@@ -88,11 +98,18 @@ def sled_rounds(
                                       kv_dtype=kv_dtype)
     _, d_cache, prev = steps["d_prefill"](draft_params, d_cache, prompts)
     _, t_cache, _ = steps["t_prefill"](target_params, t_cache, prompts)
+    gen = seeded_generator(dev, seed, DRAFT_STREAM)
     counts = np.zeros((B,), np.int64)
+    rounds = 0
     while counts.min() < max_new:
-        dres = steps["draft"](draft_params, d_cache, prev)
-        batch = verification.make_verify_batch(prev, dres.tokens, dres.lengths)
+        dres = steps["draft"](draft_params, d_cache, prev, gen)
+        batch = verification.make_verify_batch(
+            prev, dres.tokens, dres.lengths, draft_q=None if greedy else dres.q_sel,
+            seed=rounds + seed)
+        if not greedy and dres.q_full is not None:
+            batch["draft_q_full"] = dres.q_full
         res, t_cache = steps["verify"](target_params, t_cache, batch)
+        rounds += 1
         d_cache = drafting.resume_after_verify(dres, res.n_accepted)
         prev = res.extra_token
         n_commit = res.n_commit.cpu().numpy()
@@ -114,6 +131,7 @@ def sled_generate(
     k_max: int = 4,
     c_th: float = 0.0,
     greedy: bool = True,
+    seed: int = 0,
     attn_chunk: int = 256,
     steps: Optional[dict] = None,
     kv_dtype: str = "bf16",
@@ -127,8 +145,8 @@ def sled_generate(
     stats = SledStats()
     for rnd in sled_rounds(
         draft_model, draft_params, target_model, target_params, prompts,
-        max_new=max_new, k_max=k_max, c_th=c_th, greedy=greedy, attn_chunk=attn_chunk,
-        steps=steps, kv_dtype=kv_dtype,
+        max_new=max_new, k_max=k_max, c_th=c_th, greedy=greedy, seed=seed,
+        attn_chunk=attn_chunk, steps=steps, kv_dtype=kv_dtype,
     ):
         for b in range(B):
             n = min(int(rnd.n_commit[b]), out.shape[1] - int(counts[b]))
@@ -142,12 +160,9 @@ def sled_generate(
 
 
 def autoregressive_generate(model, params, prompts, *, max_new: int, greedy: bool = True,
-                            attn_chunk: int = 256) -> np.ndarray:
-    """Plain target-only greedy decoding: the centralized-serving baseline."""
-    if not greedy:
-        raise NotImplementedError(
-            "greedy=False is not ported yet (ROADMAP.md Queue A, 'Sampling')"
-        )
+                            seed: int = 0, attn_chunk: int = 256) -> np.ndarray:
+    """Plain target-only decoding, the centralized-serving baseline; sampled
+    tokens come from a generator on the card seeded with ``seed``."""
     dev = params.device
     prompts = _as_prompts(prompts, dev)
     B, P = prompts.shape
@@ -156,13 +171,18 @@ def autoregressive_generate(model, params, prompts, *, max_new: int, greedy: boo
         params, cache, prompts
     )
     ones = torch.ones((B,), dtype=torch.int32, device=dev)
-    out = np.zeros((B, max_new), np.int64)
+    gen = seeded_generator(dev, seed, DRAFT_STREAM)
+    out = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
     for t in range(max_new):
         h, ck = model.decode_forward(params, cache, prev[:, None], attn_chunk=attn_chunk)
         cache = model.commit(ck, ones)
-        prev = torch.argmax(model.lm_head(params, h)[:, 0], dim=-1).to(torch.int32)
-        out[:, t] = prev.cpu().numpy()
-    return out
+        logits = model.lm_head(params, h)[:, 0]
+        if greedy:
+            prev = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            prev = sample_token(logits, gen, greedy=False)[0]
+        out[:, t] = prev
+    return out.cpu().numpy().astype(np.int64)
 
 
 def replay_stream(

@@ -21,7 +21,7 @@ from repro_torch.core import drafting, verification
 from repro_torch.core.admission import AdmissionControl, DeviceStream
 from repro_torch.core.engine import EngineCore, EngineStats, RoundStats, Verdict
 from repro_torch.models.kvcache import SlotExhausted
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import DRAFT_STREAM, resolve_device, seeded_generator
 
 __all__ = [
     "DeviceStream",
@@ -122,8 +122,11 @@ class ServerEngine:
 
     # -- request queue -------------------------------------------------------
 
-    def submit(self, device_id: int, draft_tokens: np.ndarray, now: float) -> None:
-        self.admission.submit(device_id, draft_tokens, now)
+    def submit(self, device_id: int, draft_tokens: np.ndarray, now: float,
+               draft_q: Optional[np.ndarray] = None) -> None:
+        """Queue a device's proposal; sampling mode needs its q(d_i) row
+        (``EdgeDevice.pending_q``)."""
+        self.admission.submit(device_id, draft_tokens, now, draft_q=draft_q)
 
     def force_extend(self, device_id: int, tokens: np.ndarray) -> int:
         """Append ``tokens`` to the stream unverified (§III-A fallback resync:
@@ -163,9 +166,14 @@ class ServerEngine:
         batch = self.admission.next_batch(now)
         if batch is None:
             return None
-        prev, toks, _, lens = batch.padded_arrays()
+        prev, toks, qs, lens = batch.padded_arrays()
         slots = np.asarray([self.streams[r.device_id].slot for r in batch.requests], np.int32)
-        res, bucket, step_seconds = self.core.verify(slots, prev, toks, lens)
+        # only q(d_i) goes on the wire, never the full draft distribution, so
+        # corrections are sampled from the target (the JAX package's engine
+        # path does the same)
+        res, bucket, step_seconds = self.core.verify(
+            slots, prev, toks, qs if any(r.draft_q is not None for r in batch.requests) else None,
+            lens)
         depth_after = self.queue_depth
         verdicts = []
         committed_round = 0
@@ -239,7 +247,10 @@ class ServerEngine:
 
 
 class EdgeDeviceKit:
-    """Shared draft/prefill steps for a fleet of batch-1 edge devices."""
+    """Shared draft/prefill steps for a fleet of batch-1 edge devices. With
+    ``greedy=False`` each device samples its drafts from its own generator
+    and keeps the full draft distributions (``keep_q_full``), as the JAX
+    kit does; only their q(d_i) rows are submitted."""
 
     def __init__(
         self,
@@ -255,14 +266,11 @@ class EdgeDeviceKit:
         self.device = resolve_device(device)
         if draft_params.device != self.device:
             raise ValueError(f"draft weights are on {draft_params.device}, the kit on {self.device}")
-        if not greedy:
-            raise NotImplementedError(
-                "greedy=False is not ported yet (ROADMAP.md Queue A, 'Sampling')"
-            )
         self.model = draft_model
         self.params = draft_params
         self.k_max = k_max
         self.c_th = float(c_th)
+        self.greedy = greedy
         self._attn_chunk = attn_chunk
         self._prefill = verification.make_prefill_step(draft_model, attn_chunk=attn_chunk)
         # draft-ahead replays the post-acceptance state exactly; the dense
@@ -270,9 +278,11 @@ class EdgeDeviceKit:
         # a checkpoint of the draft-ahead round too
         self.supports_pipeline = greedy and draft_model.cfg.family not in ("ssm", "hybrid")
 
-    def draft(self, cache, prev: torch.Tensor) -> drafting.DraftResult:
+    def draft(self, cache, prev: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> drafting.DraftResult:
         return drafting.draft_round(self.model, self.params, cache, prev, k_max=self.k_max,
-                                    c_th=self.c_th, attn_chunk=self._attn_chunk)
+                                    c_th=self.c_th, greedy=self.greedy, generator=generator,
+                                    keep_q_full=not self.greedy, attn_chunk=self._attn_chunk)
 
     def peek(self, cache, tok: torch.Tensor) -> torch.Tensor:
         """Greedy next-token guess for ``tok`` against ``cache`` (no commit).
@@ -282,8 +292,8 @@ class EdgeDeviceKit:
                                          attn_chunk=self._attn_chunk)
         return torch.argmax(self.model.lm_head(self.params, h)[:, 0], dim=-1).to(torch.int32)
 
-    def spawn(self, device_id: int, prompt, *, max_len: int) -> "EdgeDevice":
-        return EdgeDevice(self, device_id, prompt, max_len=max_len)
+    def spawn(self, device_id: int, prompt, *, max_len: int, seed: int = 0) -> "EdgeDevice":
+        return EdgeDevice(self, device_id, prompt, max_len=max_len, seed=seed)
 
 
 class EdgeDevice:
@@ -297,16 +307,23 @@ class EdgeDevice:
     outputs. The cache buffers are shared and written in place; every
     speculative write lands past the committed length of the state it may be
     rolled back to, so a miss is undone by length alone.
+
+    A sampling device draws its drafts from its own generator on the kit's
+    device, seeded with ``seed``; ``pending_q`` holds the q(d_i) row of the
+    round in flight, for ``engine.submit(..., draft_q=dev.pending_q)``.
     """
 
-    def __init__(self, kit: EdgeDeviceKit, device_id: int, prompt, *, max_len: int):
+    def __init__(self, kit: EdgeDeviceKit, device_id: int, prompt, *, max_len: int,
+                 seed: int = 0):
         self.kit = kit
         self.device_id = device_id
         cache = kit.model.make_cache(1, max_len, device=kit.device, attn_chunk=kit._attn_chunk)
         prompt = torch.as_tensor(np.asarray(prompt, np.int32)).to(kit.device)
         _, self.cache, self.prev = kit._prefill(kit.params, cache, prompt[None, :])
+        self.generator = seeded_generator(kit.device, seed, DRAFT_STREAM)
         self.committed: List[int] = []
         self._pending: Optional[drafting.DraftResult] = None
+        self.pending_q: Optional[np.ndarray] = None
         self._ahead: Optional[tuple] = None  # (bonus_guess, cache_acc, dres)
         self.pipeline_hits = 0
         self.pipeline_misses = 0
@@ -317,11 +334,16 @@ class EdgeDevice:
         """Draft up to k_max tokens; returns the variable-length proposal."""
         if self._pending is not None:
             raise RuntimeError("previous round still awaiting a verdict")
-        dres = self.kit.draft(self.cache, self.prev)
-        self._pending = dres
+        dres = self.kit.draft(self.cache, self.prev, self.generator)
+        self._set_pending(dres)
         n = int(dres.lengths[0])
         self.drafted += n
         return dres.tokens[0, :n].cpu().numpy()
+
+    def _set_pending(self, dres: drafting.DraftResult) -> None:
+        self._pending = dres
+        if not self.kit.greedy:  # greedy verification ignores q
+            self.pending_q = dres.q_sel[0, :int(dres.lengths[0])].cpu().numpy()
 
     def draft_ahead(self) -> Optional[np.ndarray]:
         """Pre-draft the next round while the current one is in flight;
@@ -339,7 +361,7 @@ class EdgeDevice:
         bonus_guess = int(self.kit.peek(peek_cache, last)[0])
         cache_acc = drafting.resume_after_verify(pend, torch.tensor([n], dtype=torch.int32))
         prev_guess = torch.tensor([bonus_guess], dtype=torch.int32, device=self.kit.device)
-        dres = self.kit.draft(cache_acc, prev_guess)
+        dres = self.kit.draft(cache_acc, prev_guess, self.generator)
         self._ahead = (bonus_guess, cache_acc, dres)
         return dres.tokens[0, : int(dres.lengths[0])].cpu().numpy()
 
@@ -358,7 +380,7 @@ class EdgeDevice:
                 self.pipeline_hits += 1
                 self.cache = cache_acc
                 self.prev = torch.tensor([bonus_guess], dtype=torch.int32, device=self.kit.device)
-                self._pending = ahead
+                self._set_pending(ahead)
                 return ahead.tokens[0, : int(ahead.lengths[0])].cpu().numpy()
             self.pipeline_misses += 1
         self.cache = drafting.resume_after_verify(

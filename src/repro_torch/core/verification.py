@@ -20,23 +20,44 @@ recurrent state is not position-indexed).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.speculative import VerifyResult, speculative_verify
 from repro_torch.models.kvcache import gather_slots, scatter_slots, supports_paged_attention
+from repro_torch.runtime import VERIFY_STREAM, seeded_generator
 
 
 def make_verify_batch(prev_token: torch.Tensor, draft_tokens: torch.Tensor,
-                      lengths: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Assemble the padded verification request batch."""
-    return {
+                      lengths: torch.Tensor, draft_q: Optional[torch.Tensor] = None,
+                      seed: int = 0) -> Dict[str, Any]:
+    """Assemble the padded verification request batch. ``seed`` (a uint32,
+    as in the JAX package) seeds the round's acceptance and correction
+    draws in sampling mode; ``draft_q`` (B, K) carries q(d_i)."""
+    batch = {
         "tokens_in": torch.cat([prev_token[:, None].to(torch.int32),
                                 draft_tokens.to(torch.int32)], dim=1),
         "draft_tokens": draft_tokens.to(torch.int32),
         "lengths": lengths.to(torch.int32),
+        "seed": int(seed) & 0xFFFFFFFF,
     }
+    if draft_q is not None:
+        batch["draft_q"] = draft_q
+    return batch
+
+
+def _verify(model, params, h, batch, *, greedy: bool) -> VerifyResult:
+    """Logits of the fed positions, then the acceptance rule; a sampling
+    round draws at temperature 1 (a ServeSpec sets none) from a generator on
+    the logits' device seeded from the batch's seed."""
+    logits = model.lm_head(params, h)  # (B, K+1, V) f32
+    gen = None if greedy else seeded_generator(logits.device, batch["seed"], VERIFY_STREAM)
+    return speculative_verify(
+        batch["draft_tokens"], logits, gen, lengths=batch["lengths"],
+        draft_q=batch.get("draft_q"), draft_q_full=batch.get("draft_q_full"),
+        greedy=greedy,
+    )
 
 
 def make_verify_step(model, *, greedy: bool = True, attn_chunk: int = 1024):
@@ -44,9 +65,7 @@ def make_verify_step(model, *, greedy: bool = True, attn_chunk: int = 1024):
 
     def verify_step(params, cache, batch) -> Tuple[VerifyResult, Any]:
         h, ck_cache = model.decode_forward(params, cache, batch["tokens_in"], attn_chunk=attn_chunk)
-        logits = model.lm_head(params, h)  # (B, K+1, V) f32
-        res = speculative_verify(batch["draft_tokens"], logits, lengths=batch["lengths"],
-                                 greedy=greedy)
+        res = _verify(model, params, h, batch, greedy=greedy)
         return res, model.commit(ck_cache, res.n_commit)
 
     return verify_step
@@ -73,9 +92,7 @@ def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
         base_len = pool["length"][idx]
         h, new_pool = model.decode_forward(params, pool, batch["tokens_in"],
                                            attn_chunk=attn_chunk, slots=slots)
-        logits = model.lm_head(params, h)  # (B_bucket, K+1, V) f32
-        res = speculative_verify(batch["draft_tokens"], logits, lengths=batch["lengths"],
-                                 greedy=greedy)
+        res = _verify(model, params, h, batch, greedy=greedy)
         # duplicate scratch entries race here; the scratch row is reset
         # right after and never read as committed
         length = new_pool["length"].clone()
@@ -86,9 +103,7 @@ def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
     def gather_verify_step(params, pool, slots, batch) -> Tuple[VerifyResult, Any]:
         sub = gather_slots(pool, slots)
         h, ck_sub = model.decode_forward(params, sub, batch["tokens_in"], attn_chunk=attn_chunk)
-        logits = model.lm_head(params, h)
-        res = speculative_verify(batch["draft_tokens"], logits, lengths=batch["lengths"],
-                                 greedy=greedy)
+        res = _verify(model, params, h, batch, greedy=greedy)
         new_pool = scatter_slots(pool, slots, model.commit(ck_sub, res.n_commit))
         new_pool["length"][scratch_slot] = 0  # scatter_slots made a new length tensor
         return res, new_pool

@@ -90,7 +90,12 @@ def _gated_out(lp: SSDLayer, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
 
 def _ssm_inputs(cfg, lp: SSDLayer, x: torch.Tensor, conv0: Optional[torch.Tensor]):
     """Norm, in_proj, causal conv (over ``conv0`` then the fresh rows) and
-    the scan's inputs: (z, x_ssm bf16, B, C, dt f32, A, full conv input)."""
+    the scan's inputs: (z, x_ssm bf16, B, C, dt f32, A, full conv input).
+
+    With quantized weights ``dt_bias``, ``A_log``, ``D`` and ``gnorm`` are
+    bf16, as the JAX package's ``dequantize_pytree`` leaves them, and each op
+    promotes as the JAX expression does: ``dt + dt_bias`` and ``dt * A`` in
+    f32, ``A = -exp(A_log)`` in bf16, the norms widening their scales."""
     B, S, _ = x.shape
     cw, di, N = cfg.conv_width, cfg.d_inner, cfg.ssm_state
     zxbcdt = L.apply_norm(x, lp.norm, cfg.norm) @ lp.in_proj
@@ -121,7 +126,10 @@ def ssd_layer_forward(cfg, lp: SSDLayer, x: torch.Tensor, *, chunk: Optional[int
     B, S, _ = x.shape
     cw = cfg.conv_width
     z, x_ssm, Bm, Cm, dt, A, full = _ssm_inputs(cfg, lp, x, conv0)
-    y, h = ops.ssd_scan(x_ssm, dt, A, Bm, Cm, h0, chunk=chunk or cfg.ssm_chunk)
+    # A is bf16 where the weights were quantized (A_log is bf16 then); the
+    # JAX scan widens it in ``dt * A`` and the kernel takes it in f32: the
+    # same values
+    y, h = ops.ssd_scan(x_ssm, dt, A.float(), Bm, Cm, h0, chunk=chunk or cfg.ssm_chunk)
     y = y.float() + lp.D[None, None, :, None] * x_ssm.float()
     out = x + _gated_out(lp, y.reshape(B, S, cfg.d_inner), z)
     if return_state:

@@ -43,6 +43,15 @@ class CausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def set_weight(self, name: str, value: torch.Tensor) -> None:
+        """Replace parameter ``name`` (a ``named_parameters`` name) by
+        ``value``, whose dtype wins: a quantized bundle's norm scales and
+        SSM parameters are bf16 where a 16-bit one keeps them in f32."""
+        owner, _, attr = name.rpartition(".")
+        module = self.get_submodule(owner) if owner else self
+        setattr(module, attr, nn.Parameter(value, requires_grad=False))
+        self._head_f32 = (-1, None)
+
     def head_f32(self) -> torch.Tensor:
         """The output projection (d, V) widened to f32, kept until the
         weight changes. Widening bf16 is exact; keeping it saves a full

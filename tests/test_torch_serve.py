@@ -27,9 +27,16 @@ from repro.api.system import System as JSystem
 from repro.api.system import build_models as _jax_build_models
 from repro.core import engine_loop as jax_loop
 from repro_torch import bridge
-from repro_torch.api import ModelBundle, ModelSpec, ServeSpec, System, build_models
+from repro_torch.api import (
+    ModelBundle,
+    ModelSpec,
+    ServeSpec,
+    System,
+    build_draft_variant,
+    build_models,
+)
 from repro_torch.api.events import RoundEvent
-from repro_torch.api.spec import DeviceClassSpec, FleetSpec
+from repro_torch.api.spec import ClusterSpec, DeviceClassSpec, FleetSpec
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine_loop, verification
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
@@ -250,7 +257,7 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("entry", ["System.build", "build_models", "ServerEngine", "EdgeDeviceKit",
-                                   "bridge.params_from_jax"])
+                                   "bridge.params_from_jax", "build_draft_variant"])
 def test_entry_points_default_to_the_card(entry):
     """With no card and no explicit device="cpu", every entry point raises."""
     if torch.cuda.is_available():
@@ -261,6 +268,8 @@ def test_entry_points_default_to_the_card(entry):
             System.build(spec)
         elif entry == "build_models":
             build_models(spec.model)
+        elif entry == "build_draft_variant":
+            build_draft_variant(spec.model, draft_layers=1, draft_noise=0.0)
         elif entry == "bridge.params_from_jax":
             mb = jax_build_models(JServeSpec.from_json(SPEC_JSON).model)
             bridge.params_from_jax(ModelConfig(**dataclasses.asdict(mb.target_cfg)),
@@ -273,16 +282,23 @@ def test_entry_points_default_to_the_card(entry):
                 EdgeDeviceKit(pb.draft, pb.draft_params, k_max=4)
 
 
+_FLEET = FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))
+
+
 @pytest.mark.parametrize("change", [
     {"backend": "cluster"},
     {"backend": "transport"},
-    {"fleet": FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))},
-    {"greedy": False},
+    {"fleet": dataclasses.replace(_FLEET, emulate_rates=True)},
+    {"fleet": _FLEET, "cluster": ClusterSpec(placement="class-affinity")},
     {"paged_attention": False},
-    {"model": ModelSpec(vocab_size=128, bits=4)},
-    {"model": ModelSpec(vocab_size=128, bits=8)},
+    {"backend": "cluster", "cluster": ClusterSpec(replicas=2)},
+    {"backend": "transport", "fleet": _FLEET},
 ])
 def test_unported_specs_raise_not_implemented(change):
+    """What a later slice serves (cluster and transport, the fleet knobs only
+    they use, paged_attention=False) is refused; sampling, quantized
+    targets and engine fleets are served (tests/test_torch_{sampling,quant,
+    fleet}.py)."""
     spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         System.build(spec, device="cpu")
