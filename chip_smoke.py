@@ -38,6 +38,19 @@ Phases, each of which must pass for the script to exit 0:
                ssm    - full-width mamba2-370m (48-layer target, 1-layer
                         draft): prefill through the SSD scan kernel, verify
                         by gather/scatter with state checkpoints;
+               cluster, cluster int8 - 8 devices on the cluster backend, 2
+                        in-process replicas x 4 slots (bf16, int8 pools),
+                        round-robin; even ids stop after 8 tokens, odd after
+                        32, so retirement migrates streams (>= 1 required);
+               transport - the transport backend, loopback to one replica,
+                        6 devices, pipelined, after System.warmup();
+               transport fleet - the fleet on the transport backend: 2
+                        replicas, class-affinity, simulated lossless WLAN,
+                        draft rates emulated (x10), adaptive k and c_th;
+                        each class on its home replica, no round above its
+                        k, each class against its own reference;
+                        on these lossless links no timeout, fallback round
+                        or dropped frame; wire bytes and frames printed;
                every kernel of a path must be launched in its run (counters
                reset just before, read just after; "launches" is a kernel's
                main path's count, "launches_by_path" every path's), some
@@ -117,6 +130,9 @@ SOURCES = {
 }
 SOURCE_OF = {name: SOURCES["ssd_scan" if name == "ssd_scan" else "verify_attn"]
              for name in REPLACES}
+# the kernel entries a qwen2 serve on a bf16 / an int8 pool must launch
+BF16_PATH = {"verify_attention_packed": None, "verify_attention_paged": None}
+INT8_PATH = {"verify_attention_packed_int8": None, "verify_attention_paged_int8": None}
 
 
 def _time_ms(fn, iters: int = 50) -> float:
@@ -579,6 +595,23 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
                              "went untested")
     if bundle.target_cfg.family == "ssm" and st.acceptance_rate >= 1:
         raise AssertionError(f"{label}: every draft was accepted: state rollback went untested")
+    _record_launches(label, records, path, launches)
+    vocab = bundle.target_cfg.vocab_size
+    for s in res.sessions:
+        if len(s.tokens) != 32 or not all(0 <= t < vocab for t in s.tokens):
+            raise AssertionError(f"{label}: device {s.device_id}: bad output {s.tokens}")
+        if len(rounds[s.device_id]) != len(rows[s.device_id]):
+            raise AssertionError(f"{label}: device {s.device_id}: {len(rounds[s.device_id])} "
+                                 f"rounds but {len(rows[s.device_id])} verify batches")
+    return {"outputs": res.outputs, "rounds": rounds, "rows": rows, "per_slot": per_slot,
+            "tokens_per_s": res.total_tokens / wall}
+
+
+def _record_launches(label: str, records: dict, path: dict, launches: dict) -> None:
+    """Each kernel entry of ``path`` must show the launches it maps to (None:
+    at least one) in this path's run; a record's ``launches`` is the count
+    of the first path that runs it (its main path), ``launches_by_path``
+    every path's."""
     for name, want in path.items():
         n = launches[name]
         rec = records[name]
@@ -588,14 +621,6 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
         if n <= 0 or (want is not None and n != want):
             raise AssertionError(f"{label}: {name} launched {n} times on the path "
                                  f"(expected {want if want is not None else '> 0'})")
-    vocab = bundle.target_cfg.vocab_size
-    for s in res.sessions:
-        if len(s.tokens) != 32 or not all(0 <= t < vocab for t in s.tokens):
-            raise AssertionError(f"{label}: device {s.device_id}: bad output {s.tokens}")
-        if len(rounds[s.device_id]) != len(rows[s.device_id]):
-            raise AssertionError(f"{label}: device {s.device_id}: {len(rounds[s.device_id])} "
-                                 f"rounds but {len(rows[s.device_id])} verify batches")
-    return {"outputs": res.outputs, "rounds": rounds, "rows": rows, "per_slot": per_slot}
 
 
 def _first_difference(a, b):
@@ -786,7 +811,7 @@ def serve_sample(records: dict, bundle, prompts) -> dict:
     watched = dataclasses.replace(bundle, target=target_watch.wrap(bundle.target),
                                   draft=draft_watch.wrap(bundle.draft))
     served = serve("sample", records, watched, prompts, spec=serve_spec("engine", greedy=False),
-                   path={"verify_attention_packed": None, "verify_attention_paged": None})
+                   path=BF16_PATH)
     if not (bool(target_watch.ok) and bool(draft_watch.ok)):
         raise AssertionError(f"sample: a logit was not finite (target ok {bool(target_watch.ok)},"
                              f" drafts ok {bool(draft_watch.ok)})")
@@ -831,9 +856,18 @@ def serve_fleet(records: dict, bundle, prompts) -> None:
     class drafts would accept nothing), put in a KitCache. Each class's
     streams are held to its own reference (``fleet_reference_specs()``)
     with check(); a class drafting k tokens commits at most k + 1 a round."""
+    spec = fleet_spec()
+    kits, bundles = fleet_kits(bundle, spec)
+    served = serve("fleet", records, bundle, prompts, spec=spec, kits=kits, path=BF16_PATH)
+    check_fleet("fleet", bundles, prompts, served, spec=spec)
+
+
+def fleet_kits(bundle, spec):
+    """The fleet's class drafts as prefixes of the full-width target, in a
+    KitCache (random-init class drafts would accept nothing), and each
+    class's bundle for its reference."""
     from repro_torch.api import KitCache
 
-    spec = fleet_spec()
     kits, bundles = KitCache(), []
     for rc in spec.resolved_classes():
         if rc.draft_layers == spec.model.draft_layers:
@@ -843,18 +877,189 @@ def serve_fleet(records: dict, bundle, prompts) -> None:
         kits.drafts[(spec.model.draft_arch, rc.draft_layers, rc.draft_noise,
                      spec.model.vocab_size, spec.model.seed)] = (dcfg, draft, dp)
         bundles.append(dataclasses.replace(bundle, draft_cfg=dcfg, draft=draft, draft_params=dp))
-    served = serve("fleet", records, bundle, prompts, spec=spec, kits=kits,
-                   path={"verify_attention_packed": None, "verify_attention_paged": None})
+    return kits, bundles
+
+
+def check_fleet(label: str, bundles, prompts, served: dict, *, spec) -> None:
+    """Each class's streams against its own reference (check()); a class
+    drafting k tokens commits at most k + 1 a round."""
     for rc, (lo, hi, refspec) in zip(spec.resolved_classes(), spec.fleet_reference_specs()):
         longest = max(len(r) for d in range(lo, hi) for r in served["rounds"][d])
-        print(f"fleet class {rc.index} ({rc.spec.profile}, k {rc.k}, c_th {rc.c_th}, "
+        print(f"{label} class {rc.index} ({rc.spec.profile}, k {rc.k}, c_th {rc.c_th}, "
               f"{rc.draft_layers}-layer draft): most tokens committed in a round {longest}",
               flush=True)
         if longest > rc.k + 1:
-            raise AssertionError(f"fleet class {rc.index}: a round committed {longest} tokens, "
-                                 f"more than k + 1 = {rc.k + 1}")
-        check(f"fleet class {rc.index}", bundles[rc.index], prompts[lo:hi], served,
+            raise AssertionError(f"{label} class {rc.index}: a round committed {longest} "
+                                 f"tokens, more than k + 1 = {rc.k + 1}")
+        check(f"{label} class {rc.index}", bundles[rc.index], prompts[lo:hi], served,
               spec=refspec, lo=lo)
+
+
+def _drive_sessions(system, prompts, budgets, on_event) -> dict:
+    """Every device's session pumped in turn until all finish (budgets may
+    differ); device -> committed tokens."""
+    sessions = [system.open_session(prompts[i], device_id=i, max_new=budgets[i])
+                for i in range(len(budgets))]
+    gens = [sess.generate() for sess in sessions]
+    while not all(sess.done for sess in sessions):
+        for sess, gen in zip(sessions, gens):
+            ev = next(gen, None)  # an event of this session, or one pump of them all
+            if ev is not None:
+                on_event(ev)
+    return {sess.device_id: sess.result.tokens for sess in sessions}
+
+
+def serve_cluster(label: str, records: dict, bundle, prompts, *, kv_dtype: str,
+                  engine_tps: float) -> dict:
+    """The cluster backend: 2 in-process replicas x 4 slots, round-robin
+    placement, 8 devices. Even ids stop after 8 tokens and odd ids after 32,
+    so replica 0 (the even ids) empties first and retirement must migrate
+    streams (their rows, int8 scales included, copied bit for bit). The
+    engine backend first serves the same sessions on one replica of 8
+    slots, as the cluster's yardstick (its tokens are not checked)."""
+    from repro_torch.api import System
+    from repro_torch.api.spec import ClusterSpec
+
+    spec = serve_spec("cluster", kv_dtype=kv_dtype, devices=8,
+                      cluster=ClusterSpec(replicas=2, placement="round-robin"))
+    budgets = [8 if i % 2 == 0 else 32 for i in range(len(prompts))]
+    one = System.build(spec.with_backend("engine"), models=bundle)
+    one.warmup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    same = _drive_sessions(one, prompts, budgets, lambda ev: None)
+    torch.cuda.synchronize()
+    one_tps = sum(len(t) for t in same.values()) / (time.perf_counter() - t0)
+    system = System.build(spec, models=bundle)
+    system.warmup()
+    torch.cuda.synchronize()
+    rounds = {d: [] for d in range(len(prompts))}
+    _reset_launches()
+    t0 = time.perf_counter()
+    outputs = _drive_sessions(system, prompts, budgets, _round_sink(rounds))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    router = system.engine
+    st = router.stats()
+    total = sum(len(t) for t in outputs.values())
+    print(f"serve {label}: cluster backend, 2 replicas x 4 slots ({kv_dtype} pools), "
+          f"8 devices, {total} tokens in {wall:.3f} s ({total / wall:.1f} tokens/s; the "
+          f"same sessions on one engine replica {one_tps:.1f}, the 6-device engine serve "
+          f"{engine_tps:.1f}), rounds {st.rounds}, migrations {router.migrations}, mean fill "
+          f"{st.mean_batch_fill:.2f}, acceptance {st.acceptance_rate:.3f}, launches {launches}",
+          flush=True)
+    _record_launches(label, records, INT8_PATH if kv_dtype == "int8" else BF16_PATH, launches)
+    if router.migrations < 1:
+        raise AssertionError(f"{label}: no stream migrated")
+    vocab = bundle.target_cfg.vocab_size
+    for d, toks in outputs.items():
+        if len(toks) != budgets[d] or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label}: device {d}: bad output {toks}")
+    return {"outputs": outputs, "rounds": rounds, "tokens_per_s": total / wall}
+
+
+def _wire_checks(label: str, res, total: int) -> None:
+    """Lossless links: no straggler timeout, no fallback round, no dropped
+    frame; prints wire bytes per committed token and frames."""
+    st, cl = res.engine, res.clients
+    print(f"serve {label}: wire {st.bytes_tx + st.bytes_rx} bytes "
+          f"({(st.bytes_tx + st.bytes_rx) / total:.1f} per committed token), "
+          f"frames {st.frames_rx} up / {st.frames_tx} down, pipeline hits "
+          f"{cl.pipeline_hits} misses {cl.pipeline_misses}, k_mean {cl.k_mean:.2f}, "
+          f"c_th_mean {cl.c_th_mean:.3f}", flush=True)
+    bad = {"timeouts": st.timeouts, "fallback_rounds": st.fallback_rounds + cl.fallback_rounds,
+           "frames_dropped": st.frames_dropped + cl.frames_dropped}
+    if any(bad.values()):
+        raise AssertionError(f"{label}: a lossless serve lost rounds: {bad}")
+
+
+def serve_transport(label: str, records: dict, bundle, prompts, *, spec, engine_tps: float,
+                    kits=None, on_event=None) -> dict:
+    """The transport backend: asyncio EdgeClients and a TransportServer in
+    this process, after System.warmup() (a first verify must not outlast a
+    client's verify_timeout)."""
+    from repro_torch.api import System
+
+    system = System.build(spec, models=bundle, kits=kits)
+    system.warmup()
+    torch.cuda.synchronize()
+    rounds = {d: [] for d in range(len(prompts))}
+    sink = _round_sink(rounds)
+
+    def events(ev):
+        sink(ev)
+        if on_event is not None:
+            on_event(system, ev)
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = system.serve(prompts, on_event=events)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    st = res.engine
+    print(f"serve {label}: transport backend ({spec.transport.link} link, "
+          f"{spec.cluster.n_replicas} replica(s)), {len(prompts)} devices, {res.total_tokens} "
+          f"tokens in {wall:.3f} s ({res.total_tokens / wall:.1f} tokens/s; the engine serve "
+          f"of this call {engine_tps:.1f}), rounds {st.rounds}, mean fill "
+          f"{st.mean_batch_fill:.2f}, acceptance {st.acceptance_rate:.3f}, launches {launches}",
+          flush=True)
+    _record_launches(label, records, BF16_PATH, launches)
+    _wire_checks(label, res, res.total_tokens)
+    vocab = bundle.target_cfg.vocab_size
+    for sres in res.sessions:
+        if len(sres.tokens) != spec.max_new or not all(0 <= t < vocab for t in sres.tokens):
+            raise AssertionError(f"{label}: device {sres.device_id}: bad output {sres.tokens}")
+    return {"outputs": res.outputs, "rounds": rounds, "tokens_per_s": res.total_tokens / wall}
+
+
+def transport_fleet_spec():
+    """fleet_spec()'s two classes on the transport backend: 2 replicas, a
+    simulated lossless WLAN per device, class-affinity placement (migration
+    off: it would move a stream off its class's home), each class drafting
+    at its board's rate times 10 (the Raspberry Pi's 3.1 tokens/s becomes
+    31, so the throttle adds a second or two), adaptive k and c_th."""
+    from repro_torch.api.spec import ClusterSpec, TransportSpec
+
+    spec = fleet_spec()
+    return dataclasses.replace(
+        spec, backend="transport", kctl="adaptive", cctl="adaptive",
+        fleet=dataclasses.replace(spec.fleet, emulate_rates=True, rate_scale=10.0),
+        cluster=ClusterSpec(replicas=2, placement="class-affinity", migrate_on_retire=False),
+        transport=TransportSpec(link="sim", net="wlan"))
+
+
+def serve_transport_fleet(records: dict, bundle, prompts, *, engine_tps: float) -> None:
+    """The transport fleet: each class equal to its own reference up to near
+    ties, each class's streams on its home replica (class i on replica i),
+    no round drafting more than its class's k."""
+    spec = transport_fleet_spec()
+    kits, bundles = fleet_kits(bundle, spec)
+    homes, drafted = {}, {}
+
+    def on_event(system, ev):
+        from repro_torch.api.events import RoundEvent
+
+        if isinstance(ev, RoundEvent):  # the stream is placed until its Close
+            homes.setdefault(ev.device_id, set()).add(system.engine.replica_of(ev.device_id))
+            drafted[ev.device_id] = max(drafted.get(ev.device_id, 0), ev.n_drafted)
+
+    served = serve_transport("transport fleet", records, bundle, prompts, spec=spec,
+                             engine_tps=engine_tps, kits=kits, on_event=on_event)
+    for rc in spec.resolved_classes():
+        devs = range(rc.lo, rc.hi)
+        on = sorted(set().union(*(homes[d] for d in devs)))
+        print(f"transport fleet class {rc.index}: verified on replicas {on}, most tokens "
+              f"drafted in a round {max(drafted[d] for d in devs)} (k {rc.k})", flush=True)
+        for d in devs:
+            if homes[d] != {rc.index}:
+                raise AssertionError(f"transport fleet: device {d} of class {rc.index} was "
+                                     f"verified on replicas {sorted(homes[d])}")
+            if drafted[d] > rc.k:
+                raise AssertionError(f"transport fleet: device {d} drafted {drafted[d]} tokens "
+                                     f"in a round, more than its class's k {rc.k}")
+    check_fleet("transport fleet", bundles, prompts, served, spec=spec)
 
 
 def build_kernels() -> None:
@@ -902,17 +1107,14 @@ def main() -> int:
     prompts = np.random.default_rng(2).integers(0, 151936, size=(6, 200)).astype(np.int32)
 
     qwen = _phase("init qwen2-1.5b", lambda: full_width_bundle("qwen2-1.5b"))
-    per_slot = {}
+    per_slot, engine_tps = {}, {}
     # each path: (label, kv_dtype, kernel entries it must launch)
-    for label, kv_dtype, path in (
-        ("bf16", "bf16", {"verify_attention_packed": None, "verify_attention_paged": None}),
-        ("int8", "int8", {"verify_attention_packed_int8": None,
-                          "verify_attention_paged_int8": None}),
-    ):
+    for label, kv_dtype, path in (("bf16", "bf16", BF16_PATH), ("int8", "int8", INT8_PATH)):
         spec = serve_spec("engine", kv_dtype=kv_dtype)
         served = _phase(f"serve {label}", lambda: serve(
             label, records, qwen, prompts, spec=spec, path=path))
         per_slot[label] = served["per_slot"]
+        engine_tps[kv_dtype] = served["tokens_per_s"]
         _phase(f"check {label}", lambda: check(label, qwen, prompts, served,
                                                spec=serve_spec("reference", kv_dtype=kv_dtype)))
     ratio = per_slot["int8"] / per_slot["bf16"]
@@ -925,12 +1127,28 @@ def main() -> int:
     _phase("serve sample", lambda: serve_sample(records, qwen, prompts))
     q8, _ = _phase("quantize 8", lambda: quantize_bundle(qwen, 8))
     served = _phase("serve bits8", lambda: serve(
-        "bits8", records, q8, prompts, spec=serve_spec("engine", bits=8),
-        path={"verify_attention_packed": None, "verify_attention_paged": None}))
+        "bits8", records, q8, prompts, spec=serve_spec("engine", bits=8), path=BF16_PATH))
     _phase("check bits8", lambda: check("bits8", q8, prompts, served,
                                         spec=serve_spec("reference", bits=8)))
     del q8
     _phase("serve fleet", lambda: serve_fleet(records, qwen, prompts))
+
+    # the engine serves' 6 prompts and 2 more
+    prompts8 = np.concatenate([prompts, np.random.default_rng(3).integers(
+        0, 151936, size=(2, 200)).astype(np.int32)])
+    for label, kv_dtype in (("cluster", "bf16"), ("cluster int8", "int8")):
+        served = _phase(f"serve {label}", lambda: serve_cluster(
+            label, records, qwen, prompts8, kv_dtype=kv_dtype, engine_tps=engine_tps[kv_dtype]))
+        _phase(f"check {label}", lambda: check(
+            label, qwen, prompts8, served, spec=serve_spec("reference", kv_dtype=kv_dtype,
+                                                           devices=8)))
+    served = _phase("serve transport", lambda: serve_transport(
+        "transport", records, qwen, prompts, spec=serve_spec("transport"),
+        engine_tps=engine_tps["bf16"]))
+    _phase("check transport", lambda: check("transport", qwen, prompts, served,
+                                            spec=serve_spec("reference")))
+    _phase("serve transport fleet", lambda: serve_transport_fleet(
+        records, qwen, prompts, engine_tps=engine_tps["bf16"]))
     del qwen
     torch.cuda.empty_cache()
 

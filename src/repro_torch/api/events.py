@@ -3,8 +3,8 @@
 The port of ``repro.api.events``. A Session's ``generate()`` yields, per
 round, a ``TokenEvent`` for each token committed to the stream (capped at
 the session's budget), then one ``RoundEvent``, and finally one
-``DoneEvent``; every backend emits the same records. The transport
-client's stats and per-round traces arrive with those backends.
+``DoneEvent``; every backend emits the same records. A transport session's
+result also carries its client's stats and per-round trace.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.core.engine import EngineStats
+from repro_torch.transport.client import ClientStats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,13 +60,16 @@ class SessionResult:
     fallback_rounds: int = 0
     fallback_tokens: int = 0
     wall_seconds: float = 0.0
+    client: Optional[ClientStats] = None  # transport backend only
+    # per-round TraceEvents of a transport session's client (telemetry on)
+    trace: List = dataclasses.field(default_factory=list)
 
     @property
     def acceptance_rate(self) -> float:
         return self.accepted / max(self.drafted, 1)
 
     def to_json(self) -> dict:
-        return {
+        d = {
             "device_id": self.device_id,
             "n_tokens": len(self.tokens),
             "tokens": [int(t) for t in self.tokens],
@@ -77,16 +81,25 @@ class SessionResult:
             "fallback_tokens": self.fallback_tokens,
             "wall_seconds": self.wall_seconds,
         }
+        if self.client is not None:
+            d["client"] = self.client.to_json()
+        if self.trace:
+            d["trace"] = [ev.to_json() for ev in self.trace]
+        return d
 
 
 @dataclasses.dataclass
 class ServeResult:
-    """A full fleet run: per-session results + the server's stats."""
+    """A full fleet run: per-session results + merged server/client stats."""
 
     backend: str
     sessions: List[SessionResult]
     engine: EngineStats
+    clients: Optional[ClientStats] = None  # ClientStats.merge over the fleet
     wall_seconds: float = 0.0
+    # devices whose streams went down with a replica; stays empty until the
+    # Router's supervision is ported (ROADMAP.md Queue A, faults)
+    lost_devices: List[int] = dataclasses.field(default_factory=list)
     # metrics snapshot; None unless telemetry was enabled for the run
     telemetry: Optional[dict] = None
 
@@ -107,6 +120,10 @@ class ServeResult:
             "engine": self.engine.to_json(),
             "sessions": [s.to_json() for s in self.sessions],
         }
+        if self.lost_devices:
+            d["lost_devices"] = [int(x) for x in self.lost_devices]
+        if self.clients is not None:
+            d["clients"] = self.clients.to_json()
         if self.telemetry is not None:
             d["telemetry"] = self.telemetry
         return d

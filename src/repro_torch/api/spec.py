@@ -2,8 +2,8 @@
 
 The port's own copy of ``repro.api.spec``: the same fields, validation and
 JSON form, so a spec file serves both packages. The port's ``System``
-builds the ``reference`` and ``engine`` backends so far and refuses the
-rest with ``NotImplementedError`` (ROADMAP.md Queue A).
+builds every backend with in-process replicas and refuses remote replicas
+and fault schedules with ``NotImplementedError`` (ROADMAP.md Queue A).
 
 The repo grew four ways to run the same system — the lock-step reference
 loop, the in-process ServerEngine, the asyncio transport runtime, and the
@@ -152,8 +152,10 @@ class ReplicaSpec:
                 f"replica (set flavor='remote' to dial a worker)",
             )
         elif self.address:
+            from repro_torch.transport.links import parse_addr  # lazy: keep spec light
+
             try:
-                _parse_addr(self.address)
+                parse_addr(self.address)
             except ValueError as e:
                 raise SpecError(f"replica.address invalid: {e}") from e
 
@@ -281,26 +283,6 @@ class ClusterSpec:
             f"cluster.placement {self.placement!r} not in {PLACEMENTS}",
         )
         self.faults.validate()
-
-
-def _parse_addr(addr: str):
-    """``("tcp", host, port)`` or ``("uds", path)`` from a listen/dial address
-    (``tcp:HOST:PORT``, ``uds:/path.sock`` or bare ``HOST:PORT``); a copy of
-    the JAX package's ``transport.links.parse_addr`` check."""
-    if addr.startswith("uds:"):
-        path = addr[len("uds:"):]
-        if not path:
-            raise ValueError(f"uds address needs a socket path: {addr!r}")
-        return ("uds", path)
-    rest = addr[len("tcp:"):] if addr.startswith("tcp:") else addr
-    host, sep, port_s = rest.rpartition(":")
-    if not sep or not host:
-        raise ValueError(f"bad address {addr!r} (want tcp:HOST:PORT or uds:/path.sock)")
-    try:
-        port = int(port_s)
-    except ValueError:
-        raise ValueError(f"bad port in address {addr!r}") from None
-    return ("tcp", host, port)
 
 
 def _replica_from(r) -> ReplicaSpec:

@@ -1,7 +1,9 @@
 """System + Session: the front door over the port's SLED backends.
 
-The port of ``repro.api.system`` for the ``reference`` (lock-step loop) and
-``engine`` (in-process ServerEngine) backends::
+The port of ``repro.api.system``: the ``reference`` (lock-step loop),
+``engine`` (in-process ServerEngine), ``cluster`` (a Router over in-process
+replicas) and ``transport`` (asyncio EdgeClients and a TransportServer
+over loopback or simulated links) backends::
 
     system = System.build(ServeSpec(backend="engine"))   # on the card
     result = system.serve(prompts)                        # ServeResult
@@ -10,31 +12,37 @@ The port of ``repro.api.system`` for the ``reference`` (lock-step loop) and
 CPU) and an optional prebuilt ``ModelBundle``, which is how a caller serves
 a model at full width: build the bundle from the full config and pass it
 in. Sampling (``greedy=False``), quantized targets (``model.bits`` 8 and
-4) and heterogeneous fleets (engine backend, one drafting kit per device
-class) are served as the JAX package serves them. Specs that need a later
-slice (cluster, transport and the fleet knobs only they use,
-``paged_attention=False``, the families other than dense and ssm) raise
-``NotImplementedError`` naming the ROADMAP.md item.
+4) and heterogeneous fleets (one drafting kit per device class) are served
+as the JAX package serves them. Specs that need a later slice (remote
+replicas, fault schedules and policies, ``paged_attention=False``, the
+families other than dense and ssm) raise ``NotImplementedError`` naming the
+ROADMAP.md item.
 
-Sessions on the engine backend interleave cooperatively: each
+Sessions on the engine and cluster backends interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
-the engine once, so concurrently pumped sessions batch together.
+the engine once, so concurrently pumped sessions batch together. Transport
+sessions run the asyncio client (a loop thread of its own when one session
+is streamed).
 """
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import logging
+import queue
+import threading
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch import telemetry
 from repro_torch.api.events import DoneEvent, Event, RoundEvent, ServeResult, SessionResult, TokenEvent
-from repro_torch.api.spec import ServeSpec
+from repro_torch.api.spec import FaultPolicy, ServeSpec
+from repro_torch.cluster.router import ClassAffinityPlacement, Router
 from repro_torch.configs.base import get_config
 from repro_torch.core import engine_loop
 from repro_torch.core.engine import EngineStats
@@ -43,10 +51,14 @@ from repro_torch.models.kvcache import supports_paged_attention
 from repro_torch.models.model_zoo import build_model, perturb_params
 from repro_torch.quant import dequantize_pytree, quantize_pytree
 from repro_torch.runtime import resolve_device
+from repro_torch.serving.devices import NETS
+from repro_torch.transport import codec
+from repro_torch.transport.client import ClientStats, EdgeClient
+from repro_torch.transport.links import make_link
+from repro_torch.transport.server import TransportServer
 
 log = logging.getLogger(__name__)
 
-_PORTED_BACKENDS = ("reference", "engine")
 PERTURB_SEED = 7  # the draft-noise stream (the JAX package's perturb default)
 
 
@@ -145,8 +157,11 @@ class Session:
         self._rounds = 0
         self._drafted = 0
         self._accepted = 0
+        self._fallback_rounds = 0
+        self._fallback_tokens = 0
         self._committed = 0
         self._t_open = time.time()
+        self._trace: List = []  # a transport client's per-round TraceEvents
 
     @property
     def done(self) -> bool:
@@ -166,7 +181,8 @@ class Session:
         else:
             self._events.append(ev)
 
-    def _note_round(self, tokens, n_drafted: int, n_accepted: int) -> None:
+    def _note_round(self, tokens, n_drafted: int, n_accepted: int,
+                    fallback: bool = False) -> None:
         toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
         for t in toks:
             if self._committed < self.max_new:
@@ -174,17 +190,24 @@ class Session:
             self._committed += 1
         self._push(RoundEvent(device_id=self.device_id, round=self._rounds,
                               n_drafted=int(n_drafted), n_accepted=int(n_accepted),
-                              tokens=tuple(toks)))
+                              tokens=tuple(toks), fallback=fallback))
         self._rounds += 1
         self._drafted += int(n_drafted)
-        self._accepted += int(n_accepted)
+        if fallback:
+            self._fallback_rounds += 1
+            self._fallback_tokens += len(toks)
+        else:
+            self._accepted += int(n_accepted)
 
-    def _finish(self, tokens) -> None:
+    def _finish(self, tokens, client: Optional[ClientStats] = None) -> None:
         tokens = [int(t) for t in tokens][: self.max_new]
         self.result = SessionResult(
             device_id=self.device_id, tokens=tokens, rounds=self._rounds,
             drafted=self._drafted, accepted=self._accepted,
-            wall_seconds=time.time() - self._t_open,
+            fallback_rounds=self._fallback_rounds, fallback_tokens=self._fallback_tokens,
+            wall_seconds=(client.wall_seconds if client is not None
+                          else time.time() - self._t_open),
+            client=client, trace=self._trace,
         )
         self._system._waiting.pop(self.device_id, None)
         self._system._running.pop(self.device_id, None)
@@ -194,12 +217,12 @@ class Session:
 class System:
     """A built SLED deployment: models + the spec's execution backend."""
 
-    def __init__(self, spec: ServeSpec, models: ModelBundle, engine: Optional[ServerEngine],
-                 kit: Optional[EdgeDeviceKit], device: torch.device,
-                 class_kits: Optional[List[EdgeDeviceKit]] = None):
+    def __init__(self, spec: ServeSpec, models: ModelBundle,
+                 engine: Union[ServerEngine, Router, None], kit: Optional[EdgeDeviceKit],
+                 device: torch.device, class_kits: Optional[List[EdgeDeviceKit]] = None):
         self.spec = spec
         self.models = models
-        self.engine = engine  # ServerEngine | None (reference)
+        self.engine = engine  # ServerEngine | Router | None (reference)
         self.kit = kit
         # a fleet: one kit per resolved device class (kit_for routes)
         self.class_kits: List[EdgeDeviceKit] = list(class_kits or [])
@@ -210,6 +233,9 @@ class System:
         self._tick = 0
         self._t0: Optional[float] = None
         self._ref_steps: Optional[dict] = None
+        # one transport fleet at a time: the engine is not thread-safe, and
+        # each fleet run owns its own TransportServer and event loop
+        self._transport_lock = threading.Lock()
 
     @classmethod
     def build(
@@ -226,14 +252,22 @@ class System:
         Systems."""
         dev = resolve_device(device)
         spec.validate()
-        if spec.backend not in _PORTED_BACKENDS:
-            raise _not_ported(f"backend {spec.backend!r}", "Cluster and transport")
-        # what the transport runtime does with a fleet: per-class draft rates
-        # and one home replica per class
-        if spec.fleet.emulate_rates:
-            raise _not_ported("fleet.emulate_rates", "Cluster and transport")
-        if spec.cluster.placement == "class-affinity":
-            raise _not_ported("cluster.placement='class-affinity'", "Cluster and transport")
+        # remote workers, and the supervision that survives their death
+        if spec.cluster.has_remote:
+            raise _not_ported("remote replicas (cluster.replicas flavor 'remote')",
+                              "Remote workers and faults")
+        if spec.faults.active:
+            raise _not_ported("a fault schedule (spec.faults)", "Remote workers and faults")
+        if spec.cluster.faults != FaultPolicy():
+            raise _not_ported("a fault policy other than the default (cluster.faults)",
+                              "Remote workers and faults")
+        if spec.backend == "transport" and spec.transport.codec_version != codec.VERSION:
+            # the spec can describe other protocol versions; this runtime
+            # speaks the current one only
+            raise ValueError(
+                f"this runtime speaks codec v{codec.VERSION} only; the spec declares "
+                f"codec_version={spec.transport.codec_version}"
+            )
         if not spec.paged_attention:
             raise _not_ported("paged_attention=False", "Other model families")
         if spec.telemetry:
@@ -254,15 +288,27 @@ class System:
             if getattr(models, name).device != dev:
                 raise ValueError(f"models.{name} live on {getattr(models, name).device}, "
                                  f"the System on {dev}")
-        engine = None
-        if spec.backend == "engine":
-            engine = ServerEngine(
-                models.target, models.target_params,
-                n_slots=spec.slots_per_replica, max_len=spec.max_len, k_max=spec.k_max,
-                policy=spec.scheduler.policy, max_wait=spec.scheduler.max_wait,
+        engine: Union[ServerEngine, Router, None] = None
+        if spec.backend != "reference":
+            engine_kw = dict(
+                max_len=spec.max_len, k_max=spec.k_max, policy=spec.scheduler.policy,
+                max_wait=spec.scheduler.max_wait,
                 straggler_timeout=spec.scheduler.straggler_timeout, greedy=spec.greedy,
                 attn_chunk=spec.attn_chunk, kv_dtype=spec.kv_dtype, device=dev,
             )
+            if spec.backend == "engine" or (
+                spec.backend == "transport" and spec.cluster.n_replicas == 1
+            ):
+                # one replica: the bare engine (the transport server fronts an
+                # engine or a Router alike)
+                engine = ServerEngine(models.target, models.target_params,
+                                      n_slots=spec.slots_per_replica, **engine_kw)
+            else:  # cluster, or transport fronting a replica set
+                engine = Router.build(
+                    models.target, models.target_params, replicas=spec.cluster.n_replicas,
+                    n_slots=spec.slots_per_replica, placement=cls._placement(spec),
+                    migrate_on_retire=spec.cluster.migrate_on_retire, **engine_kw,
+                )
         kit = EdgeDeviceKit(
             models.draft, models.draft_params, k_max=spec.k_max, c_th=spec.c_th,
             greedy=spec.greedy, attn_chunk=spec.attn_chunk, device=dev,
@@ -272,6 +318,23 @@ class System:
         if warmup:
             system.warmup()
         return system
+
+    @classmethod
+    def _placement(cls, spec: ServeSpec):
+        """The Router's placement: the spec's policy name, or a
+        ClassAffinityPlacement on the fleet's device -> class map, so each
+        device class has a home replica (one k, one draft per batch)."""
+        if spec.cluster.placement == "class-affinity" and spec.fleet.active:
+            ranges = tuple((rc.lo, rc.hi) for rc in spec.resolved_classes())
+
+            def class_index(dev: int) -> int:
+                for i, (lo, hi) in enumerate(ranges):
+                    if lo <= dev < hi:
+                        return i
+                return dev  # a late-joined id outside the fleet: its own bucket
+
+            return ClassAffinityPlacement(class_index)
+        return spec.cluster.placement
 
     @classmethod
     def _build_class_kits(cls, spec: ServeSpec, models: ModelBundle, cache: Optional[KitCache],
@@ -313,11 +376,33 @@ class System:
                 return self.class_kits[rc.index]
         return self.kit
 
+    def rate_for(self, device_id: int) -> Optional[float]:
+        """Draft-rate throttle for ``device_id`` in tokens/s (None: none):
+        the class's hardware rate times ``fleet.rate_scale`` when the fleet
+        emulates device speeds, else the transport's ``draft_rate``."""
+        fleet = self.spec.fleet
+        if fleet.active and fleet.emulate_rates:
+            rc = self.spec.class_of(device_id)
+            if rc is not None:
+                return rc.hardware_rate() * fleet.rate_scale
+        return self.spec.transport.draft_rate
+
     def warmup(self) -> Dict[int, float]:
-        """Run the verify buckets once (engine backend only)."""
+        """Run the verify buckets once (engine-backed backends only)."""
         if self.engine is None:
             return {}
         return self.engine.warmup()
+
+    def close(self) -> None:
+        """Release what outlives a serve. The in-process backends hold
+        nothing of the kind (remote workers, drained here in the JAX
+        package, are not ported yet); safe to call twice."""
+
+    def __enter__(self) -> "System":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def prompts(self) -> np.ndarray:
         """The spec's default workload: ``(devices, prompt_len)`` prompts drawn
@@ -375,10 +460,14 @@ class System:
             s._sink = sink
             sessions.append(s)
         t0 = time.time()
+        clients: Optional[ClientStats] = None
         if self.spec.backend == "reference":
             for _ in self._reference_rounds(sessions):
                 pass
             stats = self._reference_stats(sessions, time.time() - t0)
+        elif self.spec.backend == "transport":
+            with self._transport_lock:
+                stats, clients = asyncio.run(self._transport_fleet(sessions))
         else:
             deadline = time.time() + 600.0
             while not all(s.done for s in sessions):
@@ -386,12 +475,19 @@ class System:
                 if time.time() > deadline:
                     raise RuntimeError("in-process fleet failed to drain in 600s")
             stats = self.engine.stats(time.time() - (self._t0 or t0))
-        payload = {"snapshot": telemetry.registry().snapshot()} if telemetry.enabled() else None
+        payload: Optional[dict] = None
+        if telemetry.enabled():
+            payload = (self.engine.telemetry_payload() if self.engine is not None
+                       else {"snapshot": telemetry.registry().snapshot(), "flight": []})
         return ServeResult(backend=self.spec.backend, sessions=[s.result for s in sessions],
-                           engine=stats, wall_seconds=time.time() - t0, telemetry=payload)
+                           engine=stats, clients=clients, wall_seconds=time.time() - t0,
+                           telemetry=payload)
 
     def _generate(self, session: Session) -> Iterator[Event]:
         if session.done:
+            return
+        if self.spec.backend == "transport":
+            yield from self._generate_transport(session)
             return
         gen = (self._reference_rounds([session]) if self.spec.backend == "reference"
                else self._pump_driver(session))
@@ -409,7 +505,61 @@ class System:
                 raise RuntimeError(f"session {session.device_id} failed to finish in 600s")
             yield None
 
-    # -- engine backend ------------------------------------------------------
+    def _generate_transport(self, session: Session) -> Iterator[Event]:
+        """Stream one transport session: the asyncio client runs on a loop
+        thread of its own and its events cross over a queue. Concurrent
+        transport streams take turns behind the System's transport lock (the
+        engine is not thread-safe). Closing the generator early cancels the
+        run and retires the stream, so its slot frees."""
+        q: queue.Queue = queue.Queue()
+        session._sink = q.put
+        done = object()
+        cancelled = threading.Event()
+        handle: dict = {}
+
+        def work():
+            async def runner():
+                handle["loop"] = asyncio.get_running_loop()
+                handle["task"] = asyncio.current_task()
+                await self._transport_fleet([session])
+
+            with self._transport_lock:
+                if cancelled.is_set():  # the consumer left before our turn
+                    q.put(done)
+                    return
+                try:
+                    asyncio.run(runner())
+                except asyncio.CancelledError:
+                    pass
+                except BaseException as e:  # raised again on the consumer's side
+                    q.put(e)
+                finally:
+                    if not session.done:  # cancelled mid-stream: free the slot
+                        self._waiting.pop(session.device_id, None)
+                        if self.engine is not None and session.device_id in self.engine.streams:
+                            self.engine.retire(session.device_id)
+                q.put(done)
+
+        t = threading.Thread(target=work, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            cancelled.set()
+            if not session.done and handle.get("task") is not None:
+                try:
+                    handle["loop"].call_soon_threadsafe(handle["task"].cancel)
+                except RuntimeError:
+                    pass  # the loop has closed already
+            t.join(timeout=60.0)
+
+    # -- engine and cluster backends -----------------------------------------
 
     def _pump_inproc(self) -> None:
         """One scheduler tick: admit joined sessions, submit ready drafts,
@@ -438,7 +588,7 @@ class System:
                 # engine backend refuses greedy=False; the port submits the
                 # q row as the JAX transport client does
                 self.engine.submit(s.device_id, toks, time.time() - self._t0,
-                                   draft_q=s._device.pending_q)
+                                   draft_q=None if self.spec.greedy else s._device.pending_q)
         finished = []
         for v in self.engine.step(time.time() - self._t0) or []:
             s = self._running[v.device_id]
@@ -505,3 +655,58 @@ class System:
             server_rounds_per_s=rounds / wall, streams_served=len(sessions),
             acceptance_rate=accepted / max(drafted, 1),
         )
+
+    # -- transport backend ---------------------------------------------------
+
+    async def _transport_fleet(self, sessions: List[Session]):
+        """The sessions as asyncio EdgeClients against one TransportServer
+        fronting the engine: one link per device, seeded
+        ``session_seed_base + id``, over its class's network, with a
+        reconnect hook that dials a fresh link of the same kind. Returns the
+        server's stats (wire counters folded in) and the merged client
+        stats."""
+        spec, tspec = self.spec, self.spec.transport
+        server = TransportServer(self.engine)
+
+        def net_for(dev: int) -> str:
+            rc = spec.class_of(dev)
+            return rc.net if rc is not None else tspec.net
+
+        def relink(dev: int):
+            async def dial():
+                fresh = make_link(tspec.link, net=NETS[net_for(dev)],
+                                  seed=spec.session_seed_base + dev)
+                server.attach(fresh.server)
+                return fresh.device
+
+            return dial
+
+        runs = []
+        for idx, s in enumerate(sessions):
+            link = make_link(tspec.link, net=NETS[net_for(s.device_id)],
+                             seed=spec.session_seed_base + s.device_id)
+            server.attach(link.server)
+            client = EdgeClient(
+                self.kit_for(s.device_id), s.device_id, s.prompt, link.device,
+                max_new=s.max_new, max_len=spec.max_len, qmode=tspec.qmode,
+                pipeline=tspec.pipeline, verify_timeout=tspec.verify_timeout,
+                admit_timeout=tspec.verify_timeout, draft_rate=self.rate_for(s.device_id),
+                kctl=spec.kctl, cctl=spec.cctl, seed=spec.session_seed_base + s.device_id,
+                on_round=s._note_round, reconnect=relink(s.device_id),
+            )
+            runs.append((idx, s, client))
+
+        async def run_one(idx: int, s: Session, client: EdgeClient):
+            await asyncio.sleep(idx * tspec.stagger_s)
+            tokens = await client.run()
+            s._trace = client.trace  # the client's attribution, wire_s included
+            s._finish(tokens, client=client.stats)
+
+        await asyncio.gather(*(run_one(i, s, c) for i, s, c in runs))
+        for _ in range(500):  # let in-flight Close frames retire their streams
+            if not self.engine.streams:
+                break
+            await asyncio.sleep(0.01)
+        stats = server.stats()
+        await server.stop()
+        return stats, ClientStats.merge([c.stats for _, _, c in runs])

@@ -1,0 +1,411 @@
+"""Cluster router: replica-sharded verification behind one serving surface.
+
+The port of ``repro.cluster.router`` for in-process replicas. At scale the
+target tier is N engine replicas behind one front door; the
+:class:`Router` owns them and turns admission into a placement decision:
+
+  * **placement**: a :class:`PlacementPolicy` (``least-loaded``,
+    ``affinity``, ``round-robin``, ``class-affinity``) picks the replica for
+    each new stream among those with a free pool slot;
+  * **migration**: when a stream retires and frees a slot, the router may
+    pull an active stream over from the most-loaded replica
+    (``migrate_on_retire``). The KV row is copied bit for bit
+    (``export_stream``/``import_stream``: K/V, the int8 pool's scales, the
+    ssm family's state), so migration never changes a stream's tokens,
+    only which replica's batches it rides in;
+  * **aggregation**: cluster stats are ``EngineStats.merge`` over the
+    replicas, and verdicts carry replica-local queue-depth feedback.
+
+The router mirrors the ServerEngine surface (admit / submit / step /
+retire / cancel_request / force_extend / stats / warmup), so the in-process
+pump and the transport server drive a replica fleet by holding a Router
+where they held an engine.
+
+Remote replicas (worker processes over the control plane) and the
+supervision that survives their death (eviction, respawn, stream recovery,
+heartbeats, flight recorders) come with the next slices (ROADMAP.md
+Queue A).
+"""
+
+from __future__ import annotations
+
+import logging
+from collections.abc import Mapping
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
+
+import numpy as np
+
+from repro_torch import telemetry
+from repro_torch.core.admission import DeviceStream
+from repro_torch.core.engine import EngineStats, Verdict
+from repro_torch.core.server_engine import ServerEngine
+
+log = logging.getLogger(__name__)
+
+
+class MigrationError(RuntimeError):
+    """A stream move that cannot preserve bit-identity was requested."""
+
+
+class LocalReplica:
+    """In-process replica: a ServerEngine behind the replica surface.
+
+    Everything not listed here (admit/submit/step/...) delegates to the
+    engine; the explicit members are what the Router needs uniform across
+    flavors (capacity, fingerprint).
+    """
+
+    flavor = "local"
+
+    def __init__(self, engine: ServerEngine):
+        self.engine = engine
+
+    @property
+    def n_free(self) -> int:
+        return self.engine.pool.n_free
+
+    @property
+    def max_len(self) -> int:
+        return self.engine.pool.max_len
+
+    @property
+    def fingerprint(self) -> tuple:
+        e = self.engine
+        # kv_dtype is part of the identity: an int8 row written into a bf16
+        # pool (or the reverse) would be cast and corrupt the cache
+        return (e.k_max, e.pool.max_len, e.greedy, e.paged_attention, e.kv_dtype)
+
+    def __getattr__(self, name: str):
+        return getattr(self.engine, name)
+
+
+class PlacementPolicy:
+    """Chooses the replica for a new stream; None when every pool is full."""
+
+    name = "base"
+
+    def choose(self, router: "Router", device_id: int) -> Optional[int]:
+        raise NotImplementedError
+
+    @staticmethod
+    def _open(router: "Router") -> List[int]:
+        return [i for i, r in enumerate(router.replicas) if r.n_free > 0]
+
+
+class LeastLoadedPlacement(PlacementPolicy):
+    """Fewest active streams wins (ties break toward the lowest replica id):
+    keeps per-replica batch fill even under staggered arrivals."""
+
+    name = "least-loaded"
+
+    def choose(self, router: "Router", device_id: int) -> Optional[int]:
+        open_ = self._open(router)
+        if not open_:
+            return None
+        return min(open_, key=lambda i: (len(router.replicas[i].streams), i))
+
+
+class AffinityPlacement(PlacementPolicy):
+    """Deterministic device->replica hash (session/cache affinity); falls
+    over to least-loaded when the home replica is full."""
+
+    name = "affinity"
+
+    def choose(self, router: "Router", device_id: int) -> Optional[int]:
+        home = device_id % len(router.replicas)
+        if router.replicas[home].n_free > 0:
+            return home
+        return LeastLoadedPlacement().choose(router, device_id)
+
+
+class RoundRobinPlacement(PlacementPolicy):
+    """Cycle through replicas, skipping full pools."""
+
+    name = "round-robin"
+
+    def __init__(self) -> None:
+        self._next = 0
+
+    def choose(self, router: "Router", device_id: int) -> Optional[int]:
+        n = len(router.replicas)
+        for off in range(n):
+            i = (self._next + off) % n
+            if router.replicas[i].n_free > 0:
+                self._next = i + 1
+                return i
+        return None
+
+
+class ClassAffinityPlacement(PlacementPolicy):
+    """Home a heterogeneous fleet's device CLASSES on replicas (class i ->
+    replica i % n): same-class streams share a verify batch, so each
+    replica's rounds keep one (k, c_th, draft model) shape. Spills to
+    least-loaded when the home replica is full.
+
+    ``class_of`` maps device_id -> class index (System supplies it from the
+    fleet spec); without one it degrades to per-device affinity.
+    """
+
+    name = "class-affinity"
+
+    def __init__(self, class_of: Optional[Callable[[int], int]] = None) -> None:
+        self.class_of = class_of
+
+    def choose(self, router: "Router", device_id: int) -> Optional[int]:
+        cls = self.class_of(device_id) if self.class_of is not None else device_id
+        home = cls % len(router.replicas)
+        if router.replicas[home].n_free > 0:
+            return home
+        return LeastLoadedPlacement().choose(router, device_id)
+
+
+PLACEMENT_POLICIES = {
+    p.name: p for p in (
+        LeastLoadedPlacement, AffinityPlacement, RoundRobinPlacement, ClassAffinityPlacement,
+    )
+}
+
+
+def make_placement(policy: str) -> PlacementPolicy:
+    if policy not in PLACEMENT_POLICIES:
+        raise ValueError(
+            f"unknown placement policy {policy!r} (one of {sorted(PLACEMENT_POLICIES)})"
+        )
+    return PLACEMENT_POLICIES[policy]()
+
+
+class _StreamView(Mapping):
+    """Read-only dict-like view over every replica's streams: membership
+    and lookup go through the router's placement map (O(1) per transport
+    frame) instead of merging N dicts per access."""
+
+    def __init__(self, router: "Router"):
+        self._router = router
+
+    def __contains__(self, device_id) -> bool:
+        return device_id in self._router._where
+
+    def __getitem__(self, device_id) -> DeviceStream:
+        return self._router._replica(device_id).streams[device_id]
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(self._router._where)
+
+    def __len__(self) -> int:
+        return len(self._router._where)
+
+
+class Router:
+    """N in-process replicas + placement: the cluster object."""
+
+    def __init__(
+        self,
+        replicas: Sequence[Any],
+        *,
+        placement: Union[str, PlacementPolicy] = "least-loaded",
+        migrate_on_retire: bool = True,
+    ):
+        if not replicas:
+            raise ValueError("Router needs at least one replica")
+        wrapped = [LocalReplica(r) if isinstance(r, ServerEngine) else r for r in replicas]
+        k_maxes = {r.k_max for r in wrapped}
+        max_lens = {r.max_len for r in wrapped}
+        if len(k_maxes) > 1 or len(max_lens) > 1:
+            raise ValueError(
+                f"replicas must be homogeneous for migration: k_max {k_maxes}, "
+                f"max_len {max_lens}"
+            )
+        self.replicas: List[Any] = wrapped
+        self.placement = (
+            placement if isinstance(placement, PlacementPolicy) else make_placement(placement)
+        )
+        self.migrate_on_retire = migrate_on_retire
+        self.migrations = 0
+        self._where: Dict[int, int] = {}  # device_id -> replica index
+
+    @classmethod
+    def build(
+        cls,
+        model: Any,
+        params: Any,
+        *,
+        replicas: int,
+        n_slots: int,
+        placement: Union[str, PlacementPolicy] = "least-loaded",
+        migrate_on_retire: bool = True,
+        **engine_kw,
+    ) -> "Router":
+        """N homogeneous in-process replicas of ``n_slots`` rows each. They
+        share the target's parameter tensors (one object); each has its own
+        pool."""
+        if replicas < 1:
+            raise ValueError(f"need at least 1 replica, got {replicas}")
+        engines = [ServerEngine(model, params, n_slots=n_slots, **engine_kw)
+                   for _ in range(replicas)]
+        return cls(engines, placement=placement, migrate_on_retire=migrate_on_retire)
+
+    # -- introspection -------------------------------------------------------
+
+    @property
+    def streams(self) -> Mapping:
+        """Device -> stream across replicas (read-only, O(1) lookups)."""
+        return _StreamView(self)
+
+    @property
+    def queue_depth(self) -> int:
+        return sum(r.queue_depth for r in self.replicas)
+
+    def replica_of(self, device_id: int) -> int:
+        return self._where[device_id]
+
+    def loads(self) -> List[int]:
+        """Active stream count per replica."""
+        return [len(r.streams) for r in self.replicas]
+
+    def _replica(self, device_id: int):
+        return self.replicas[self._where[device_id]]
+
+    # -- admission as placement ----------------------------------------------
+
+    def admit(self, device_id: int, prompt, now: float = 0.0) -> Optional[DeviceStream]:
+        """Place the stream on the replica the policy chooses; None when
+        every pool is full (the caller queues and retries on retire)."""
+        if device_id in self._where:
+            raise ValueError(f"device {device_id} already admitted")
+        idx = self.placement.choose(self, device_id)
+        if idx is None:
+            return None
+        with telemetry.span("router_place_seconds"):
+            stream = self.replicas[idx].admit(device_id, prompt, now)
+        if stream is None:  # the policy saw a free slot the replica lacks
+            return None
+        self._where[device_id] = idx
+        log.info("placed device %d on replica %d (%d free slot(s) left)",
+                 device_id, idx, self.replicas[idx].n_free)
+        return stream
+
+    def retire(self, device_id: int) -> DeviceStream:
+        idx = self._where.pop(device_id)
+        stream = self.replicas[idx].retire(device_id)
+        if self.migrate_on_retire:
+            self._rebalance_into(idx)
+        return stream
+
+    def migrate(self, device_id: int, dst: int) -> None:
+        """Move a quiescent stream to replica ``dst`` bit for bit: the row is
+        copied exactly between same-flavor replicas with equal fingerprints,
+        so the stream's future tokens are unchanged (only its batch-mates
+        are). In-process replicas share the parameters by object."""
+        src = self._where[device_id]
+        if src == dst:
+            return
+        src_r, dst_r = self.replicas[src], self.replicas[dst]
+        if src_r.flavor != dst_r.flavor:
+            raise MigrationError(
+                f"cannot migrate device {device_id} from {src_r.flavor} replica {src} to "
+                f"{dst_r.flavor} replica {dst}: parameters on the two sides have different "
+                "provenance, so bit-identity across the move cannot be guaranteed"
+            )
+        if src_r.fingerprint != dst_r.fingerprint:
+            raise MigrationError(
+                f"replica fingerprints differ ({src_r.fingerprint} vs "
+                f"{dst_r.fingerprint}); migration would change the stream's tokens"
+            )
+        with telemetry.span("router_migrate_seconds"):
+            stream, row = src_r.export_stream(device_id)
+            try:
+                dst_r.import_stream(stream, row)
+            except Exception:
+                # roll back: a stream is never lost mid-migration
+                src_r.import_stream(stream, row)
+                raise
+        self._where[device_id] = dst
+        self.migrations += 1
+        telemetry.count("router_migrations_total")
+        log.info("migrated device %d: replica %d -> %d", device_id, src, dst)
+
+    def _rebalance_into(self, dst: int) -> None:
+        """After a retirement freed a slot on ``dst``: pull one quiescent
+        same-flavor stream over from the most-loaded replica when the
+        imbalance is >= 2 (moving one stream then strictly improves it)."""
+        dst_r = self.replicas[dst]
+        if dst_r.n_free == 0:
+            return
+        loads = self.loads()
+        candidates = [i for i, r in enumerate(self.replicas)
+                      if i != dst and r.flavor == dst_r.flavor]
+        if not candidates:
+            return
+        src = max(candidates, key=lambda i: (loads[i], -i))
+        if loads[src] - loads[dst] < 2:
+            return
+        replica = self.replicas[src]
+        movable = [d for d in replica.streams if not replica.has_inflight(d)]
+        if movable:
+            self.migrate(movable[0], dst)
+
+    # -- request path (delegated via the placement map) ----------------------
+
+    def submit(self, device_id: int, draft_tokens: np.ndarray, now: float,
+               draft_q: Optional[np.ndarray] = None) -> None:
+        self._replica(device_id).submit(device_id, np.asarray(draft_tokens), now,
+                                        draft_q=draft_q)
+
+    def cancel_request(self, device_id: int) -> bool:
+        return self._replica(device_id).cancel_request(device_id)
+
+    def force_extend(self, device_id: int, tokens: np.ndarray) -> int:
+        return self._replica(device_id).force_extend(
+            device_id, np.asarray(tokens, np.int32).reshape(-1))
+
+    def has_inflight(self, device_id: int) -> bool:
+        return device_id in self._where and self._replica(device_id).has_inflight(device_id)
+
+    def next_event_hint(self, now: float) -> Optional[float]:
+        hints = [h for r in self.replicas if (h := r.next_event_hint(now)) is not None]
+        return min(hints) if hints else None
+
+    # -- the serving hot loop ------------------------------------------------
+
+    def step(self, now: float) -> Optional[List[Verdict]]:
+        """Step every replica whose policy fires, back to back in replica
+        order (they share one card); one verdict list, merged in replica
+        order. Each verdict's queue-depth feedback stays replica-local: the
+        congestion signal of the streams riding that replica."""
+        verdicts: List[Verdict] = []
+        with telemetry.span("router_step_seconds"):
+            for replica in self.replicas:
+                out = replica.step(now)
+                if out:
+                    verdicts.extend(out)
+        return verdicts or None
+
+    def warmup(self) -> Dict[int, float]:
+        """Warm one replica: the kernels, their builds and the libraries'
+        handles are the process's, shared by every replica."""
+        return self.replicas[0].warmup()
+
+    # -- stats ---------------------------------------------------------------
+
+    def stats(self, now: Optional[float] = None) -> EngineStats:
+        return EngineStats.merge(self.replica_stats(now))
+
+    def replica_stats(self, now: Optional[float] = None) -> List[EngineStats]:
+        return [r.stats(now) for r in self.replicas]
+
+    def telemetry_payload(self) -> dict:
+        """Cluster-level telemetry record, the keys of
+        ``ServerEngine.telemetry_payload`` plus each replica's pool capacity;
+        empty while telemetry is off. ``flight`` stays empty until the flight
+        recorder is ported (ROADMAP.md Queue A, faults)."""
+        if not telemetry.enabled():
+            return {}
+        pools = {
+            str(i): {
+                "kv_dtype": r.engine.kv_dtype,
+                "kv_pool_bytes": r.engine.pool.pool_bytes(),
+                "bytes_per_slot": r.engine.pool.bytes_per_slot(),
+            }
+            for i, r in enumerate(self.replicas)
+        }
+        return {"snapshot": telemetry.registry().snapshot(), "flight": [], "pools": pools}

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.core import verification
-from repro_torch.models.kvcache import PagedKVCache, supports_paged_attention
+from repro_torch.models.kvcache import PagedKVCache, gather_slots, supports_paged_attention
 from repro_torch.models.transformer import KV_DTYPES
 from repro_torch.runtime import resolve_device
 
@@ -83,10 +83,57 @@ class EngineStats:
     streams_served: int = 0
     acceptance_rate: float = 0.0
     mean_queue_depth: float = 0.0
+    # wire stats: zero in process, filled from the link stats by the
+    # transport server (transport/server.py)
+    bytes_tx: int = 0
+    bytes_rx: int = 0
+    frames_tx: int = 0
+    frames_rx: int = 0
+    frames_dropped: int = 0
     fallback_rounds: int = 0
+    replicas: int = 1  # > 1 only for cluster-merged records
 
     def to_json(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def merge(cls, stats: Sequence["EngineStats"]) -> "EngineStats":
+        """One cluster-level record from per-replica records. Replicas serve
+        concurrently, so counts and rates sum (busy fractions too: above 1
+        means more than one replica's worth of compute); means and
+        acceptance are weighted by each replica's rounds, an idle replica
+        carrying no weight. ``per_device_rate`` is the merged rate over the
+        summed stream counts, each rebuilt as ``wstgr / per_device_rate``
+        (an idle replica's ``streams_served``)."""
+        stats = list(stats)
+        if not stats:
+            raise ValueError("EngineStats.merge needs at least one record")
+        if len(stats) == 1:
+            return dataclasses.replace(stats[0])
+        rounds = [s.rounds for s in stats]
+        total_rounds = sum(rounds)
+
+        def wmean(vals):
+            if total_rounds == 0:
+                return float(sum(vals) / len(vals))
+            return float(sum(v * r for v, r in zip(vals, rounds)) / total_rounds)
+
+        n_streams = [s.wstgr / s.per_device_rate if s.per_device_rate > 0
+                     else float(s.streams_served) for s in stats]
+        wstgr = sum(s.wstgr for s in stats)
+        summed = ("server_busy_frac", "timeouts", "fallback_tokens", "server_rounds_per_s",
+                  "partial_rounds", "streams_served", "bytes_tx", "bytes_rx", "frames_tx",
+                  "frames_rx", "frames_dropped", "fallback_rounds", "replicas")
+        return cls(
+            wstgr=wstgr,
+            per_device_rate=wstgr / max(sum(n_streams), 1e-9),
+            rounds=total_rounds,
+            mean_batch_fill=wmean([s.mean_batch_fill for s in stats]),
+            mean_round_latency=wmean([s.mean_round_latency for s in stats]),
+            acceptance_rate=wmean([s.acceptance_rate for s in stats]),
+            mean_queue_depth=wmean([s.mean_queue_depth for s in stats]),
+            **{f: sum(getattr(s, f) for s in stats) for f in summed},
+        )
 
 
 def _pad_to(a: np.ndarray, n: int, fill=0) -> np.ndarray:
@@ -205,6 +252,16 @@ class EngineCore:
             _, row, prev = self.steps.prefill(self.params, row, self._tensor(prompt)[None, :])
             self.pool.write_slot(slot, row)
             return int(prev[0])
+
+    def export_row(self, slot: int) -> Dict[str, torch.Tensor]:
+        """A dense batch-1 copy of pool row ``slot``, every leaf (K/V, the
+        int8 pool's scales, the ssm family's state): a migrated stream
+        moves to another replica's pool bit for bit."""
+        return gather_slots(self.pool.cache, self._tensor([slot]))
+
+    def import_row(self, slot: int, row_cache: Dict[str, torch.Tensor]) -> None:
+        """Install an exported row into pool row ``slot``."""
+        self.pool.write_slot(slot, row_cache)
 
     # -- compute -------------------------------------------------------------
 

@@ -11,6 +11,7 @@ loops (a batch-1 draft model per device, sharing one kit).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -75,6 +76,10 @@ class ServerEngine:
         )
         self.k_max = k_max
         self.greedy = greedy
+        # the port serves the slot-indexed pool only (paged_attention=False
+        # is refused by System.build); read by LocalReplica.fingerprint
+        self.paged_attention = True
+        self.kv_dtype = kv_dtype
         self._batch_cap = cap
         self.round_log: List[RoundStats] = []
         self._t0: Optional[float] = None
@@ -120,6 +125,31 @@ class ServerEngine:
         self.core.free_slot(stream.slot)
         return stream
 
+    # -- stream migration (cluster router) -----------------------------------
+
+    def export_stream(self, device_id: int):
+        """Detach a quiescent stream for migration to another replica:
+        ``(stream, row_cache)``, the server-side stream state and a bit-exact
+        copy of its pool row. Refuses while a request is in flight (the row
+        would change under the copy)."""
+        if self.admission.has_inflight(device_id):
+            raise ValueError(f"device {device_id} has a request in flight; cannot migrate")
+        row = self.core.export_row(self.streams[device_id].slot)
+        stream = self.admission.release(device_id, served=False)
+        self.core.free_slot(stream.slot)
+        return stream, row
+
+    def import_stream(self, stream: DeviceStream, row_cache) -> DeviceStream:
+        """Adopt a stream exported from another replica: a free slot, the row
+        installed bit for bit, the stream registered."""
+        slot = self.core.alloc_slot()  # raises SlotExhausted when full
+        self.core.import_row(slot, row_cache)
+        stream.slot = slot
+        self.admission.adopt(stream)
+        if self._t0 is None:
+            self._t0 = stream.admitted_at
+        return stream
+
     # -- request queue -------------------------------------------------------
 
     def submit(self, device_id: int, draft_tokens: np.ndarray, now: float,
@@ -127,6 +157,13 @@ class ServerEngine:
         """Queue a device's proposal; sampling mode needs its q(d_i) row
         (``EdgeDevice.pending_q``)."""
         self.admission.submit(device_id, draft_tokens, now, draft_q=draft_q)
+
+    def cancel_request(self, device_id: int) -> bool:
+        """Withdraw the device's queued request (the transport's fallback:
+        the device timed out and released its drafts). False when nothing is
+        queued: the round was verified and its verdict, on its way, is
+        authoritative."""
+        return self.admission.cancel(device_id)
 
     def force_extend(self, device_id: int, tokens: np.ndarray) -> int:
         """Append ``tokens`` to the stream unverified (§III-A fallback resync:
@@ -157,6 +194,11 @@ class ServerEngine:
     @property
     def queue_depth(self) -> int:
         return self.admission.queue_depth
+
+    def next_event_hint(self, now: float) -> Optional[float]:
+        """Earliest future planner deadline or straggler event (when the
+        transport server's step loop should wake)."""
+        return self.admission.next_event_hint(now)
 
     # -- the serving hot loop ------------------------------------------------
 
@@ -240,6 +282,18 @@ class ServerEngine:
             fallback_rounds=self._fallback_rounds,
         )
 
+    def telemetry_payload(self) -> dict:
+        """This replica's telemetry as one JSON-shaped record, empty while
+        telemetry is off: the metrics snapshot, with the pool gauges read
+        now. ``flight`` stays empty: the flight recorder is not ported yet
+        (ROADMAP.md Queue A, faults)."""
+        if not telemetry.enabled():
+            return {}
+        reg = telemetry.registry()
+        reg.gauge("engine_kv_pool_bytes").set(float(self.pool.pool_bytes()))
+        reg.gauge("engine_bytes_per_slot").set(float(self.pool.bytes_per_slot()))
+        return {"snapshot": reg.snapshot(), "flight": []}
+
 
 # ---------------------------------------------------------------------------
 # Device side: batch-1 drafting loops sharing one kit
@@ -278,10 +332,13 @@ class EdgeDeviceKit:
         # a checkpoint of the draft-ahead round too
         self.supports_pipeline = greedy and draft_model.cfg.family not in ("ssm", "hybrid")
 
-    def draft(self, cache, prev: torch.Tensor,
-              generator: Optional[torch.Generator] = None) -> drafting.DraftResult:
+    def draft(self, cache, prev: torch.Tensor, generator: Optional[torch.Generator] = None,
+              c_th: Optional[float] = None) -> drafting.DraftResult:
+        """One round of ``k_max`` draft steps; ``c_th`` overrides the kit's
+        confidence bar for this round (the adaptive controller moves it)."""
         return drafting.draft_round(self.model, self.params, cache, prev, k_max=self.k_max,
-                                    c_th=self.c_th, greedy=self.greedy, generator=generator,
+                                    c_th=self.c_th if c_th is None else float(c_th),
+                                    greedy=self.greedy, generator=generator,
                                     keep_q_full=not self.greedy, attn_chunk=self._attn_chunk)
 
     def peek(self, cache, tok: torch.Tensor) -> torch.Tensor:
@@ -294,6 +351,16 @@ class EdgeDeviceKit:
 
     def spawn(self, device_id: int, prompt, *, max_len: int, seed: int = 0) -> "EdgeDevice":
         return EdgeDevice(self, device_id, prompt, max_len=max_len, seed=seed)
+
+
+def _clamp_draft(dres: drafting.DraftResult, k: Optional[int]) -> drafting.DraftResult:
+    """Cap a round's proposal at ``k`` tokens (adaptive speculation length).
+    The round always runs ``k_max`` steps; drafting is autoregressive, so
+    the first ``k`` tokens are what a ``k``-step round would have drafted,
+    and rollback reads only ``lengths`` and the verdict's acceptance."""
+    if k is None or k < 1:
+        return dres
+    return dataclasses.replace(dres, lengths=torch.clamp(dres.lengths, max=int(k)))
 
 
 class EdgeDevice:
@@ -330,11 +397,12 @@ class EdgeDevice:
         self.fallback_tokens = 0
         self.drafted = 0
 
-    def draft(self) -> np.ndarray:
-        """Draft up to k_max tokens; returns the variable-length proposal."""
+    def draft(self, k: Optional[int] = None, c_th: Optional[float] = None) -> np.ndarray:
+        """Draft up to ``min(k, k_max)`` tokens at confidence bar ``c_th``
+        (the kit's when None); returns the variable-length proposal."""
         if self._pending is not None:
             raise RuntimeError("previous round still awaiting a verdict")
-        dres = self.kit.draft(self.cache, self.prev, self.generator)
+        dres = _clamp_draft(self.kit.draft(self.cache, self.prev, self.generator, c_th), k)
         self._set_pending(dres)
         n = int(dres.lengths[0])
         self.drafted += n
@@ -342,10 +410,11 @@ class EdgeDevice:
 
     def _set_pending(self, dres: drafting.DraftResult) -> None:
         self._pending = dres
-        if not self.kit.greedy:  # greedy verification ignores q
-            self.pending_q = dres.q_sel[0, :int(dres.lengths[0])].cpu().numpy()
+        # the round's q row leaves the card once, for the wire or the engine
+        self.pending_q = dres.q_sel[0, :int(dres.lengths[0])].cpu().numpy()
 
-    def draft_ahead(self) -> Optional[np.ndarray]:
+    def draft_ahead(self, k: Optional[int] = None,
+                    c_th: Optional[float] = None) -> Optional[np.ndarray]:
         """Pre-draft the next round while the current one is in flight;
         it becomes live only if on_verdict() confirms the speculation."""
         if self._pending is None:
@@ -361,7 +430,7 @@ class EdgeDevice:
         bonus_guess = int(self.kit.peek(peek_cache, last)[0])
         cache_acc = drafting.resume_after_verify(pend, torch.tensor([n], dtype=torch.int32))
         prev_guess = torch.tensor([bonus_guess], dtype=torch.int32, device=self.kit.device)
-        dres = self.kit.draft(cache_acc, prev_guess, self.generator)
+        dres = _clamp_draft(self.kit.draft(cache_acc, prev_guess, self.generator, c_th), k)
         self._ahead = (bonus_guess, cache_acc, dres)
         return dres.tokens[0, : int(dres.lengths[0])].cpu().numpy()
 

@@ -1,10 +1,12 @@
 """repro_torch.telemetry: the metrics half of the JAX package's telemetry.
 
 Off by default; ``System.build`` turns it on when the spec says
-``telemetry: true``. Spans wrap host-side boundaries only.
+``telemetry: true``. Spans wrap host-side boundaries only. ``TraceEvent``
+is the per-round record the transport client keeps.
 """
 
 from repro_torch.telemetry.metrics import (
+    C_TH_BUCKETS,
     K_BUCKETS,
     LATENCY_BUCKETS_S,
     MetricsRegistry,
@@ -15,8 +17,10 @@ from repro_torch.telemetry.metrics import (
     registry,
     span,
 )
+from repro_torch.telemetry.trace import TraceEvent
 
 __all__ = [
+    "C_TH_BUCKETS",
     "K_BUCKETS",
     "LATENCY_BUCKETS_S",
     "MetricsRegistry",
@@ -26,4 +30,5 @@ __all__ = [
     "observe",
     "registry",
     "span",
+    "TraceEvent",
 ]

@@ -1,8 +1,8 @@
 """Process-local metrics registry: counters, gauges, fixed-bucket histograms.
 
 The port's own copy of ``repro.telemetry.metrics`` without the Prometheus
-exposition: the registry renders a JSON snapshot (``snapshot()``). Traces,
-the flight recorder and ``top`` are still to port (ROADMAP.md Queue A).
+exposition: the registry renders a JSON snapshot (``snapshot()``). The
+flight recorder and ``top`` are still to port (ROADMAP.md Queue A).
 
 Everything here is observation-only and cheap: a metric update is a dict hit
 plus a locked float add, and the :func:`span` context manager short-circuits

@@ -36,7 +36,16 @@ from repro_torch.api import (
     build_models,
 )
 from repro_torch.api.events import RoundEvent
-from repro_torch.api.spec import ClusterSpec, DeviceClassSpec, FleetSpec
+from repro_torch.api.spec import (
+    ClusterSpec,
+    DeviceClassSpec,
+    FaultEvent,
+    FaultPolicy,
+    FaultSpec,
+    FleetSpec,
+    ReplicaSpec,
+)
+from repro_torch.cluster.router import Router
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine_loop, verification
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
@@ -283,25 +292,45 @@ def test_entry_points_default_to_the_card(entry):
 
 
 _FLEET = FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))
+_REMOTE = ReplicaSpec(flavor="remote", address="tcp:127.0.0.1:7001")
+_KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 
 
 @pytest.mark.parametrize("change", [
-    {"backend": "cluster"},
-    {"backend": "transport"},
-    {"fleet": dataclasses.replace(_FLEET, emulate_rates=True)},
-    {"fleet": _FLEET, "cluster": ClusterSpec(placement="class-affinity")},
     {"paged_attention": False},
-    {"backend": "cluster", "cluster": ClusterSpec(replicas=2)},
-    {"backend": "transport", "fleet": _FLEET},
+    {"backend": "cluster", "cluster": ClusterSpec(replicas=(ReplicaSpec(flavor="remote"),))},
+    {"backend": "transport", "cluster": ClusterSpec(replicas=(ReplicaSpec(), _REMOTE))},
+    {"backend": "cluster", "cluster": ClusterSpec(replicas=2), "faults": _KILL},
+    {"backend": "transport", "faults": _KILL},
+    {"backend": "cluster", "cluster": ClusterSpec(replicas=2, faults=FaultPolicy(respawn=True))},
+    {"backend": "transport", "cluster": ClusterSpec(faults=FaultPolicy(recover_streams=True))},
+    {"backend": "cluster", "cluster": ClusterSpec(faults=FaultPolicy(heartbeat_interval_s=1.0))},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (cluster and transport, the fleet knobs only
-    they use, paged_attention=False) is refused; sampling, quantized
-    targets and engine fleets are served (tests/test_torch_{sampling,quant,
-    fleet}.py)."""
+    """What a later slice serves (remote replicas, fault schedules and
+    non-default fault policies, paged_attention=False) is refused; the
+    cluster and transport backends with in-process replicas, sampling,
+    quantized targets and fleets are served."""
     spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         System.build(spec, device="cpu")
+
+
+@pytest.mark.parametrize("change,engine", [
+    ({"backend": "cluster"}, Router),
+    ({"backend": "transport"}, ServerEngine),
+    ({"fleet": dataclasses.replace(_FLEET, emulate_rates=True)}, ServerEngine),
+    ({"fleet": _FLEET, "cluster": ClusterSpec(placement="class-affinity")}, ServerEngine),
+    ({"backend": "cluster", "cluster": ClusterSpec(replicas=2)}, Router),
+    ({"backend": "transport", "fleet": _FLEET}, ServerEngine),
+])
+def test_specs_refused_before_the_cluster_slice_build(change, engine):
+    """The specs the port refused until the cluster and transport slice
+    build, on the engine the JAX package builds for them (a bare engine
+    for one transport replica, a Router for a cluster)."""
+    spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
+    system = System.build(spec, device="cpu")
+    assert type(system.engine) is engine
 
 
 def _protocol_script(engine, spawn, prompts, max_new=8):
