@@ -51,6 +51,20 @@ Phases, each of which must pass for the script to exit 0:
                         k, each class against its own reference;
                         on these lossless links no timeout, fallback round
                         or dropped frame; wire bytes and frames printed;
+               remote - the cluster phase's 8 sessions on 2 worker
+                        processes (this script in worker mode, below) behind
+                        a Router of RemoteReplicas: streams equal to the
+                        cluster phase's up to near ties, >= 1 migration
+                        across processes, the paged bf16 kernel launched in
+                        each worker; control-channel bytes and frames, each
+                        worker's peak memory and times printed;
+               remote spawned - System.build of
+                        examples/specs/cluster_remote.json (its model
+                        swapped for reduced mamba2-370m, see
+                        serve_remote_spawned) spawning and placing 2 workers
+                        on the cluster and transport backends: each serve
+                        equal to the in-process cluster, no worker process
+                        or socket directory left after close();
                every kernel of a path must be launched in its run (counters
                reset just before, read just after; "launches" is a kernel's
                main path's count, "launches_by_path" every path's), some
@@ -59,6 +73,8 @@ Phases, each of which must pass for the script to exit 0:
                tie; for mamba2 also where a target-only replay on each
                stream's own commit boundaries and batch shapes gives back
                both streams (see check()).
+``python3 chip_smoke.py --worker --counts FILE --listen ADDR`` is the
+worker mode the remote phase starts (see worker_main).
 The line before the last is a JSON object with one record per kernel entry;
 the last line is {"ok": true, "device": {...}}. A kernel's "ms" (and
 "library_ms", "plain_ms") is the mean of 50 back-to-back calls from Python,
@@ -956,7 +972,9 @@ def serve_cluster(label: str, records: dict, bundle, prompts, *, kv_dtype: str,
     for d, toks in outputs.items():
         if len(toks) != budgets[d] or not all(0 <= t < vocab for t in toks):
             raise AssertionError(f"{label}: device {d}: bad output {toks}")
-    return {"outputs": outputs, "rounds": rounds, "tokens_per_s": total / wall}
+    return {"outputs": outputs, "rounds": rounds, "tokens_per_s": total / wall,
+            "rounds_total": st.rounds, "migrations": router.migrations,
+            "fill": st.mean_batch_fill}
 
 
 def _wire_checks(label: str, res, total: int) -> None:
@@ -1062,6 +1080,239 @@ def serve_transport_fleet(records: dict, bundle, prompts, *, engine_tps: float) 
     check_fleet("transport fleet", bundles, prompts, served, spec=spec)
 
 
+def _same_streams(label: str, bundle, prompts, got: dict, want: dict, kv_dtype="bf16") -> None:
+    """``got`` equals ``want`` device for device, or first departs from it
+    at a near tie of the target (a top-2 gap under LOGIT_TOL, printed)."""
+    for d, w in want.items():
+        p = _first_difference(got[d], w)
+        if p is None and len(got[d]) == len(w):
+            continue
+        if p is None:
+            raise AssertionError(f"{label}: device {d}: {len(got[d])} tokens, want {len(w)}")
+        gap = _top2_gap(bundle, prompts[d], w[:p], kv_dtype)
+        print(f"{label}: device {d} diverges at token {p} ({got[d][p]} against {w[p]}); "
+              f"top-2 logit gap {gap:.4g}", flush=True)
+        if gap >= LOGIT_TOL:
+            raise AssertionError(f"{label}: device {d}: divergence at token {p} with top-2 gap "
+                                 f"{gap} >= {LOGIT_TOL}")
+
+
+def _gpu_compute_mode() -> str:
+    """The card's compute mode; worker processes need one that lets several
+    processes open a context (not Exclusive_Process)."""
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"card compute mode: {mode}", flush=True)
+    if mode == "Exclusive_Process":
+        raise AssertionError("the card is in Exclusive_Process mode: worker processes cannot "
+                             "open their own contexts")
+    return mode
+
+
+def remote_spec():
+    """The cluster phase's fleet: 8 devices, 2 replicas x 4 slots,
+    round-robin (each replica a worker process in the remote phase)."""
+    from repro_torch.api.spec import ClusterSpec
+
+    return serve_spec("cluster", devices=8,
+                      cluster=ClusterSpec(replicas=2, placement="round-robin"))
+
+
+def worker_main(argv) -> int:
+    """Worker mode, ``chip_smoke.py --worker --counts FILE --listen ADDR``:
+    the full-width bundle (the parent's weights: the seeded init is
+    deterministic), one engine replica of the remote spec on the card, and
+    a ReplicaWorker serving it on ADDR. Its kernel launch counters restart
+    after each Warmup, and the Drain writes them and the peak device memory
+    to FILE."""
+    import argparse
+    import asyncio
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --worker")
+    ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--counts", required=True)
+    ap.add_argument("--listen", required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.api import System
+    from repro_torch.transport import codec
+    from repro_torch.transport.worker import ReplicaWorker, WorkerCore
+
+    class CountingCore(WorkerCore):
+        def handle(self, msg):
+            reply = super().handle(msg)
+            if isinstance(msg, codec.WarmupRequest):
+                torch.cuda.synchronize()
+                _reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+            elif isinstance(msg, codec.Drain):
+                torch.cuda.synchronize()
+                Path(args.counts).write_text(json.dumps(
+                    {"launches": _launches(), "peak_bytes": torch.cuda.max_memory_allocated()}))
+            return reply
+
+    spec = remote_spec()
+    one = spec.with_backend("engine", scheduler=dataclasses.replace(
+        spec.scheduler, slots=spec.slots_per_replica))
+    engine = System.build(one, models=full_width_bundle("qwen2-1.5b")).engine
+    worker = ReplicaWorker(args.listen, engine=engine)
+    worker.core = CountingCore(engine)
+    asyncio.run(worker.serve())
+    return 0
+
+
+def serve_remote(records: dict, bundle, prompts, *, cluster: dict) -> dict:
+    """The cluster phase's 8 sessions on 2 worker processes of 4 slots each,
+    every worker this script in worker mode holding the full-width model on
+    the card, behind a Router of RemoteReplicas (round-robin, migration on
+    retire). Streams equal to the in-process cluster phase's (``cluster``)
+    up to near ties; >= 1 migration across processes; the paged bf16
+    kernel launched in each worker. The workers are drained and reaped in
+    a ``finally``, so none outlives a failing run."""
+    import tempfile
+
+    from repro_torch.api import System
+    from repro_torch.cluster.remote import RemoteReplica, kill_worker_proc, spawn_worker
+    from repro_torch.cluster.router import Router
+
+    _gpu_compute_mode()
+    torch.cuda.empty_cache()  # earlier phases' cached blocks go back to the card
+    spec = remote_spec()
+    budgets = [8 if i % 2 == 0 else 32 for i in range(len(prompts))]
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-remote-"))
+    counts = [tmp / f"worker{i}.json" for i in range(spec.cluster.n_replicas)]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--worker"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(counts)) as pool:
+        futures = [pool.submit(spawn_worker, cmd=[*cmd, "--counts", str(c)],
+                               startup_timeout=600.0) for c in counts]
+        spawned = [f.exception() or f.result() for f in futures]
+    remotes = []
+    try:
+        for item in spawned:
+            if isinstance(item, BaseException):
+                raise item
+        print(f"serve remote: {len(spawned)} workers up in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        for proc, addr in spawned:
+            r = RemoteReplica.dial(addr, timeout=600.0)
+            r.proc, r.spawned = proc, True
+            r.adopt(n_slots=spec.slots_per_replica, k_max=spec.k_max, max_len=spec.max_len,
+                    greedy=spec.greedy)
+            remotes.append(r)
+        router = Router(remotes, placement=spec.cluster.placement,
+                        migrate_on_retire=spec.cluster.migrate_on_retire)
+        kit = System.build(spec.with_backend("reference"), models=bundle).kit
+        system = System(spec, bundle, router, kit,
+                        torch.device("cuda", torch.cuda.current_device()))
+        t0 = time.perf_counter()
+        system.warmup()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        rounds = {d: [] for d in range(len(prompts))}
+        rpc_s = [-r.channel.seconds for r in remotes]
+        _reset_launches()
+        t0 = time.perf_counter()
+        outputs = _drive_sessions(system, prompts, budgets, _round_sink(rounds))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parent = _launches()
+        rpc_s = [s + r.channel.seconds for s, r in zip(rpc_s, remotes)]  # the serve's RPCs
+        per_worker = router.replica_stats()
+        st = router.stats()
+        wire = {k: sum(getattr(r.channel, k) for r in remotes)
+                for k in ("bytes_tx", "bytes_rx", "frames_tx", "frames_rx")}
+        migrations = router.migrations
+    finally:
+        for r in remotes:
+            r.drain()
+        for item in spawned:
+            if not isinstance(item, BaseException):
+                kill_worker_proc(item[0])
+    workers = [json.loads(c.read_text()) for c in counts]
+    total = sum(len(t) for t in outputs.values())
+    print(f"serve remote: cluster backend, 2 worker processes x 4 slots (bf16 pools), "
+          f"8 devices, {total} tokens in {wall:.3f} s ({total / wall:.1f} tokens/s; the "
+          f"in-process cluster of this call {cluster['tokens_per_s']:.1f}, rounds "
+          f"{cluster['rounds_total']}, migrations {cluster['migrations']}, fill "
+          f"{cluster['fill']:.2f}), rounds {st.rounds}, migrations {migrations}, mean fill "
+          f"{st.mean_batch_fill:.2f}, acceptance {st.acceptance_rate:.3f}, warmup "
+          f"{warm_s:.2f} s", flush=True)
+    print(f"serve remote: control channels {wire['bytes_tx']} bytes / {wire['frames_tx']} "
+          f"frames out, {wire['bytes_rx']} bytes / {wire['frames_rx']} frames in; parent "
+          f"launches {parent}", flush=True)
+    for i, w in enumerate(workers):
+        ws = per_worker[i]
+        verify_s = ws.server_busy_frac * ws.rounds / max(ws.server_rounds_per_s, 1e-9)
+        print(f"serve remote: worker {i} peak device memory {w['peak_bytes'] / 2**30:.2f} GiB, "
+              f"{ws.rounds} rounds, verify steps {verify_s:.3f} s, the parent's time in its "
+              f"RPCs of the serve {rpc_s[i]:.3f} s, launches {w['launches']}", flush=True)
+        if w["launches"]["verify_attention_paged"] <= 0:
+            raise AssertionError(f"remote: worker {i} never launched the paged bf16 kernel")
+    combined = {n: parent[n] + sum(w["launches"][n] for w in workers) for n in parent}
+    _record_launches("remote", records, BF16_PATH, combined)
+    if migrations < 1:
+        raise AssertionError("remote: no stream migrated between the worker processes")
+    _same_streams("remote", bundle, prompts, outputs, cluster["outputs"])
+    print("serve remote: streams == the in-process cluster's on 8 devices (up to the "
+          "divergences printed above)", flush=True)
+    return {"outputs": outputs, "rounds": rounds, "tokens_per_s": total / wall}
+
+
+def serve_remote_spawned() -> None:
+    """The front door: System.build of examples/specs/cluster_remote.json
+    (2 remote replicas) spawns and places two ``python -m
+    repro_torch.transport.worker`` processes on the card, on the cluster
+    and the transport backends. Each serve equals the in-process cluster of
+    build_models(spec.model) up to near ties; after close() no worker
+    process and no socket directory is left. The spec's reduced qwen2 has
+    head_dim 16, which the attention kernel does not take (64 or 128), so
+    the spec is served with its model's family swapped for mamba2-370m,
+    whose reduced shapes (P 16, N 16, chunk 16) the SSD scan kernel takes;
+    the deployment (replicas, slots, placement, devices, budgets) is the
+    spec's."""
+    import os
+
+    from repro_torch.api import ServeSpec, System, build_models
+    from repro_torch.cluster.remote import worker_sock_dir
+
+    _gpu_compute_mode()
+    spec = ServeSpec.from_json((Path(__file__).resolve().parent / "examples" / "specs"
+                                / "cluster_remote.json").read_text())
+    spec = dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, arch="mamba2-370m", draft_arch="mamba2-370m"))
+    models = build_models(spec.model)
+    inproc = System.build(dataclasses.replace(spec, cluster=dataclasses.replace(
+        spec.cluster, replicas=spec.cluster.n_replicas)), models=models)
+    prompts = inproc.prompts()
+    want = inproc.serve(prompts).outputs
+    for backend in ("cluster", "transport"):
+        t0 = time.perf_counter()
+        system = System.build(dataclasses.replace(spec, backend=backend))
+        procs = dirs = []
+        try:
+            procs = [r.proc for r in system.engine.replicas]
+            dirs = [worker_sock_dir(r.address) for r in system.engine.replicas]
+            up_s = time.perf_counter() - t0
+            system.warmup()
+            t0 = time.perf_counter()
+            res = system.serve(prompts)
+            wall = time.perf_counter() - t0
+        finally:
+            system.close()
+        print(f"serve remote spawned: {backend} backend, {len(procs)} spawned workers "
+              f"(build and place {up_s:.2f} s), {res.total_tokens} tokens in {wall:.3f} s, "
+              f"rounds {res.engine.rounds}, migrations {system.engine.migrations}", flush=True)
+        left = [p.pid for p in procs if p.poll() is None] + [d for d in dirs if os.path.exists(d)]
+        if len(procs) != 2 or None in dirs or left:
+            raise AssertionError(f"remote spawned {backend}: after close(): {left or dirs}")
+        _same_streams(f"remote spawned {backend}", models, prompts, res.outputs, want)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -1139,6 +1390,8 @@ def main() -> int:
     for label, kv_dtype in (("cluster", "bf16"), ("cluster int8", "int8")):
         served = _phase(f"serve {label}", lambda: serve_cluster(
             label, records, qwen, prompts8, kv_dtype=kv_dtype, engine_tps=engine_tps[kv_dtype]))
+        if label == "cluster":
+            cluster = served  # the remote phase's yardstick
         _phase(f"check {label}", lambda: check(
             label, qwen, prompts8, served, spec=serve_spec("reference", kv_dtype=kv_dtype,
                                                            devices=8)))
@@ -1149,6 +1402,8 @@ def main() -> int:
                                             spec=serve_spec("reference")))
     _phase("serve transport fleet", lambda: serve_transport_fleet(
         records, qwen, prompts, engine_tps=engine_tps["bf16"]))
+    _phase("serve remote", lambda: serve_remote(records, qwen, prompts8, cluster=cluster))
+    _phase("serve remote spawned", serve_remote_spawned)
     del qwen
     torch.cuda.empty_cache()
 
@@ -1170,4 +1425,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(worker_main(sys.argv[1:]) if "--worker" in sys.argv[1:] else main())

@@ -12,11 +12,12 @@ over loopback or simulated links) backends::
 CPU) and an optional prebuilt ``ModelBundle``, which is how a caller serves
 a model at full width: build the bundle from the full config and pass it
 in. Sampling (``greedy=False``), quantized targets (``model.bits`` 8 and
-4) and heterogeneous fleets (one drafting kit per device class) are served
-as the JAX package serves them. Specs that need a later slice (remote
-replicas, fault schedules and policies, ``paged_attention=False``, the
-families other than dense and ssm) raise ``NotImplementedError`` naming the
-ROADMAP.md item.
+4), heterogeneous fleets (one drafting kit per device class) and remote
+replicas (worker processes behind the Router, on the cluster and
+transport backends) are served as the JAX package serves them. Specs that
+need a later slice (fault schedules and non-default fault policies,
+``paged_attention=False``, the families other than dense and ssm) raise
+``NotImplementedError`` naming the ROADMAP.md item.
 
 Sessions on the engine and cluster backends interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
@@ -41,7 +42,7 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.api.events import DoneEvent, Event, RoundEvent, ServeResult, SessionResult, TokenEvent
-from repro_torch.api.spec import FaultPolicy, ServeSpec
+from repro_torch.api.spec import FaultPolicy, FaultSpec, ServeSpec
 from repro_torch.cluster.router import ClassAffinityPlacement, Router
 from repro_torch.configs.base import get_config
 from repro_torch.core import engine_loop
@@ -252,15 +253,19 @@ class System:
         Systems."""
         dev = resolve_device(device)
         spec.validate()
-        # remote workers, and the supervision that survives their death
-        if spec.cluster.has_remote:
-            raise _not_ported("remote replicas (cluster.replicas flavor 'remote')",
-                              "Remote workers and faults")
+        # the supervision that survives a worker's death
         if spec.faults.active:
-            raise _not_ported("a fault schedule (spec.faults)", "Remote workers and faults")
+            raise _not_ported("a fault schedule (spec.faults)",
+                              "Remote workers and faults, part 1b")
         if spec.cluster.faults != FaultPolicy():
             raise _not_ported("a fault policy other than the default (cluster.faults)",
-                              "Remote workers and faults")
+                              "Remote workers and faults, part 1b")
+        if spec.backend == "transport" and not spec.greedy and spec.transport.qmode == "none":
+            # the clients would send no q and the server's admission refuses
+            # a sampled round without one (a departure: the JAX package
+            # builds this spec and its serve hangs)
+            raise ValueError("a sampled transport serve (greedy=False) needs a draft-q "
+                             "payload: set transport.qmode to 'f32', 'f16' or 'int8'")
         if spec.backend == "transport" and spec.transport.codec_version != codec.VERSION:
             # the spec can describe other protocol versions; this runtime
             # speaks the current one only
@@ -272,6 +277,13 @@ class System:
             raise _not_ported("paged_attention=False", "Other model families")
         if spec.telemetry:
             telemetry.enable(True)  # enable-only, as in the JAX package
+        if models is not None and spec.cluster.has_remote:
+            log.warning(
+                "a shared ModelBundle cannot ship to remote workers: each "
+                "worker rebuilds params from the spec's model seed, so a "
+                "bundle that differs from build_models(spec.model) would "
+                "break cross-process token identity"
+            )
         models = models or build_models(spec.model, device=dev)
         if spec.kv_dtype == "int8" and not supports_paged_attention(models.target_cfg):
             # loud: a silently-bf16 pool would report double the capacity
@@ -296,7 +308,9 @@ class System:
                 straggler_timeout=spec.scheduler.straggler_timeout, greedy=spec.greedy,
                 attn_chunk=spec.attn_chunk, kv_dtype=spec.kv_dtype, device=dev,
             )
-            if spec.backend == "engine" or (
+            if spec.cluster.has_remote:
+                engine = cls._build_remote_cluster(spec, models, engine_kw, dev)
+            elif spec.backend == "engine" or (
                 spec.backend == "transport" and spec.cluster.n_replicas == 1
             ):
                 # one replica: the bare engine (the transport server fronts an
@@ -335,6 +349,56 @@ class System:
 
             return ClassAffinityPlacement(class_index)
         return spec.cluster.placement
+
+    @classmethod
+    def _build_remote_cluster(cls, spec: ServeSpec, models: ModelBundle, engine_kw: dict,
+                              dev: torch.device) -> Router:
+        """A Router over the spec's replica list. A remote replica DIALS the
+        worker its ReplicaSpec addresses, or SPAWNS one on ``dev`` on a
+        private unix socket (reaped by ``close()``), and is then PLACED: the
+        worker receives this spec as one engine replica (same model seed,
+        its pool's slots) and rebuilds the weights from the seed. An
+        in-process entry builds its ServerEngine here. Every worker is
+        drained when any step fails."""
+        from repro_torch.cluster.remote import (DEFAULT_TIMEOUT, RemoteReplica,
+                                                cleanup_worker_dir, kill_worker_proc,
+                                                spawn_worker)
+
+        policy = spec.cluster.faults
+        rpc_timeout = policy.rpc_timeout_s if policy.rpc_timeout_s > 0 else DEFAULT_TIMEOUT
+        worker_base = spec.with_backend("engine", faults=FaultSpec())
+        replicas: list = []
+        try:
+            for rs in spec.cluster.replica_specs:
+                slots = rs.slots or spec.slots_per_replica
+                if rs.flavor == "inproc":
+                    replicas.append(ServerEngine(models.target, models.target_params,
+                                                 n_slots=slots, **engine_kw))
+                    continue
+                worker_spec = dataclasses.replace(
+                    worker_base,
+                    scheduler=dataclasses.replace(worker_base.scheduler, slots=slots))
+                if rs.address:
+                    remote = RemoteReplica.dial(rs.address, timeout=rpc_timeout)
+                else:
+                    proc, addr = spawn_worker(device=dev)
+                    try:
+                        remote = RemoteReplica.dial(addr, timeout=rpc_timeout)
+                    except BaseException:
+                        kill_worker_proc(proc)
+                        cleanup_worker_dir(addr)
+                        raise
+                    remote.proc, remote.spawned = proc, True
+                replicas.append(remote)
+                remote.retry_rpcs = policy.retry_rpcs
+                remote.place(worker_spec)
+        except BaseException:
+            for r in replicas:
+                if getattr(r, "flavor", "local") == "remote":
+                    r.drain()
+            raise
+        return Router(replicas, placement=cls._placement(spec),
+                      migrate_on_retire=spec.cluster.migrate_on_retire)
 
     @classmethod
     def _build_class_kits(cls, spec: ServeSpec, models: ModelBundle, cache: Optional[KitCache],
@@ -394,9 +458,11 @@ class System:
         return self.engine.warmup()
 
     def close(self) -> None:
-        """Release what outlives a serve. The in-process backends hold
-        nothing of the kind (remote workers, drained here in the JAX
-        package, are not ported yet); safe to call twice."""
+        """Release what outlives a serve: drain every remote worker (and
+        reap the ones this System spawned). The in-process backends hold
+        nothing of the kind; safe to call twice."""
+        if isinstance(self.engine, Router):
+            self.engine.drain()
 
     def __enter__(self) -> "System":
         return self
@@ -702,7 +768,21 @@ class System:
             s._trace = client.trace  # the client's attribution, wire_s included
             s._finish(tokens, client=client.stats)
 
-        await asyncio.gather(*(run_one(i, s, c) for i, s, c in runs))
+        clients = asyncio.gather(*(run_one(i, s, c) for i, s, c in runs))
+        watch = asyncio.ensure_future(server.raise_on_error())
+        try:
+            await asyncio.wait({clients, watch}, return_when=asyncio.FIRST_COMPLETED)
+            if watch.done():  # a server task raised: fail the serve, do not hang
+                clients.cancel()
+                await asyncio.gather(clients, return_exceptions=True)
+                await server.stop()
+                watch.result()
+            await clients
+        finally:
+            watch.cancel()
+            if not clients.done():  # this serve was cancelled: so are its clients
+                clients.cancel()
+                clients.add_done_callback(lambda f: f.cancelled() or f.exception())
         for _ in range(500):  # let in-flight Close frames retire their streams
             if not self.engine.streams:
                 break

@@ -1,18 +1,28 @@
 """Replica-sharded serving cluster, the port of ``repro.cluster``.
 
-  router.py - Router: N in-process replicas behind a placement policy
-              (least-loaded / affinity / round-robin / class-affinity),
-              bit-exact stream migration on retire, cluster-merged
-              EngineStats.
+  router.py - Router: N replicas (in-process, or worker processes)
+              behind a placement policy (least-loaded / affinity /
+              round-robin / class-affinity), bit-exact stream migration on
+              retire, eviction of dead workers, cluster-merged EngineStats.
+  remote.py - RemoteReplica: a worker process behind the replica surface,
+              over a blocking ControlChannel; spawn_worker starts one.
   faults.py - the seeded Backoff (the edge client's reconnect pacing).
 
 The router exposes the admit/submit/step/retire surface of one
 ``ServerEngine``, so the in-process pump and the transport server serve a
-replica fleet by holding it instead. Remote replicas and the chaos harness
-come with the next slices (ROADMAP.md Queue A).
+replica fleet by holding it instead. Supervision beyond eviction (respawn,
+stream recovery, heartbeats) and the chaos harness come with the next
+slice (ROADMAP.md Queue A).
 """
 
 from repro_torch.cluster.faults import Backoff
+from repro_torch.cluster.remote import (
+    ControlChannel,
+    RemoteReplica,
+    ReplicaGone,
+    WorkerError,
+    spawn_worker,
+)
 from repro_torch.cluster.router import (
     PLACEMENT_POLICIES,
     AffinityPlacement,
@@ -31,11 +41,16 @@ __all__ = [
     "AffinityPlacement",
     "Backoff",
     "ClassAffinityPlacement",
+    "ControlChannel",
     "LeastLoadedPlacement",
     "LocalReplica",
     "MigrationError",
     "PlacementPolicy",
+    "RemoteReplica",
+    "ReplicaGone",
     "RoundRobinPlacement",
     "Router",
+    "WorkerError",
     "make_placement",
+    "spawn_worker",
 ]

@@ -30,6 +30,12 @@ later can never force-extend a stream whose round was already verified.
 
 Single-process, single event loop: engine steps and device drafting
 interleave at await points rather than truly overlapping.
+
+A connection or step task that raises records its error in ``error`` and
+wakes :meth:`TransportServer.raise_on_error`, which a serve awaits beside
+its clients, so the serve fails with that error instead of waiting for
+ever on a task nothing awaits (a departure from the JAX package, whose
+serve hangs there).
 """
 from __future__ import annotations
 
@@ -61,6 +67,8 @@ class TransportServer:
         self._t0: Optional[float] = None
         self.late_verdicts_resent = 0
         self.fallback_acks = 0
+        self.error: Optional[BaseException] = None  # the first task failure
+        self._errored = asyncio.Event()
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -74,9 +82,46 @@ class TransportServer:
         """Register a device channel; starts its connection task (and the
         engine stepper, on first attach)."""
         self._endpoints.append(endpoint)
-        self._tasks.append(asyncio.get_running_loop().create_task(self._serve_conn(endpoint)))
+        self._tasks.append(self._spawn(self._serve_conn(endpoint)))
+        self._start_stepper()
+
+    def _start_stepper(self) -> None:
         if self._stepper is None:
-            self._stepper = asyncio.get_running_loop().create_task(self._step_loop())
+            self._stepper = self._spawn(self._step_loop())
+
+    def _spawn(self, coro) -> asyncio.Task:
+        task = asyncio.get_running_loop().create_task(coro)
+        task.add_done_callback(self._task_done)
+        return task
+
+    def _task_done(self, task: asyncio.Task) -> None:
+        if not task.cancelled() and task.exception() is not None:
+            self.fail(task.exception())
+
+    def fail(self, exc: BaseException) -> None:
+        """Record a task's failure; the first one is what the serve raises."""
+        if self.error is None:
+            self.error = exc
+        self._errored.set()
+
+    async def raise_on_error(self) -> None:
+        """Wait until a connection or step task fails, then raise its error."""
+        await self._errored.wait()
+        raise self.error
+
+    async def serve_endpoint(self, ep: Endpoint, first) -> None:
+        """Serve a connection whose first frame, ``first``, was already read
+        (a worker hands over a connection that opened with a data-plane
+        frame). Its task belongs to the caller: an error is recorded here
+        and raised again."""
+        self._endpoints.append(ep)  # wire stats: this connection counts in stats()
+        try:
+            await self._dispatch(first, ep)
+            self._start_stepper()
+            await self._serve_conn(ep, device_id=getattr(first, "device_id", None))
+        except Exception as e:
+            self.fail(e)
+            raise
 
     async def stop(self) -> None:
         tasks = [*self._tasks, *([self._stepper] if self._stepper else [])]
@@ -91,8 +136,7 @@ class TransportServer:
 
     # -- connection handling -------------------------------------------------
 
-    async def _serve_conn(self, ep: Endpoint) -> None:
-        device_id = None
+    async def _serve_conn(self, ep: Endpoint, device_id: Optional[int] = None) -> None:
         while True:
             frame = await ep.recv()
             if frame is None:

@@ -5,6 +5,7 @@ bytes, and each side decodes the other's frames; a Hypothesis property
 covers the strategies of tests/test_transport.py, empty token vectors
 included. An int8 packet with no tokens has no scale: the JAX encoder fails
 with a ValueError there and the port raises CodecError, also a ValueError.
+The control plane's frames are held in tests/test_torch_worker.py.
 """
 import dataclasses
 
@@ -141,11 +142,14 @@ def test_every_truncation_yields_no_frame():
 
 
 def test_control_plane_frames_are_refused():
-    """Type ids 8-34 (the JAX package's control plane) decode to a
-    CodecError naming the missing port; the JAX codec's Ping is one."""
+    """Type ids 8-34 (the JAX package's control plane) were refused until
+    the control plane was ported; now the JAX codec's Ping decodes to the
+    port's, and only type ids past 34 are refused, as unknown
+    (tests/test_torch_worker.py holds every control frame)."""
     frame = jcodec.encode_frame(jcodec.Ping(seq=1, t=0.5))
-    with pytest.raises(codec.CodecError, match="control plane"):
-        codec.decode_frame(frame)
-    bad = frame[:3] + bytes([99]) + frame[4:]
-    with pytest.raises(codec.CodecError, match="unknown message type"):
-        codec.decode_frame(bad)
+    msg, used = codec.decode_frame(frame)
+    assert isinstance(msg, codec.Ping) and (msg.seq, msg.t, used) == (1, 0.5, len(frame))
+    for mtype in (35, 99):
+        bad = frame[:3] + bytes([mtype]) + frame[4:]
+        with pytest.raises(codec.CodecError, match="unknown message type"):
+            codec.decode_frame(bad)

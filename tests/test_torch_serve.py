@@ -45,11 +45,13 @@ from repro_torch.api.spec import (
     FleetSpec,
     ReplicaSpec,
 )
+from repro_torch.cluster.remote import spawn_worker
 from repro_torch.cluster.router import Router
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine_loop, verification
 from repro_torch.core.server_engine import EdgeDeviceKit, ServerEngine
 from repro_torch.models.model_zoo import build_model
+from repro_torch.transport import worker
 
 ROOT = Path(__file__).resolve().parents[1]
 TIE_TOL = 1e-3
@@ -257,6 +259,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.api, repro_torch.bridge, repro_torch.kernels.ops\n"
         "import repro_torch.kernels.build, repro_torch.kernels.verify_attn\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba2\n"
+        "import repro_torch.cluster.remote, repro_torch.transport.worker\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -266,14 +269,21 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("entry", ["System.build", "build_models", "ServerEngine", "EdgeDeviceKit",
-                                   "bridge.params_from_jax", "build_draft_variant"])
+                                   "bridge.params_from_jax", "build_draft_variant",
+                                   "spawn_worker", "worker.main"])
 def test_entry_points_default_to_the_card(entry):
-    """With no card and no explicit device="cpu", every entry point raises."""
+    """With no card and no explicit device="cpu", every entry point raises
+    (spawn_worker before it starts a process, a worker's main before it
+    listens)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     spec = ServeSpec.from_json(SPEC_JSON)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        if entry == "System.build":
+        if entry == "spawn_worker":
+            spawn_worker(startup_timeout=5.0)
+        elif entry == "worker.main":
+            worker.main(["--listen", "tcp:127.0.0.1:0"])
+        elif entry == "System.build":
             System.build(spec)
         elif entry == "build_models":
             build_models(spec.model)
@@ -293,13 +303,15 @@ def test_entry_points_default_to_the_card(entry):
 
 _FLEET = FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))
 _REMOTE = ReplicaSpec(flavor="remote", address="tcp:127.0.0.1:7001")
+_REMOTES = ClusterSpec(replicas=(ReplicaSpec(flavor="remote"), _REMOTE))
 _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 
 
 @pytest.mark.parametrize("change", [
     {"paged_attention": False},
-    {"backend": "cluster", "cluster": ClusterSpec(replicas=(ReplicaSpec(flavor="remote"),))},
-    {"backend": "transport", "cluster": ClusterSpec(replicas=(ReplicaSpec(), _REMOTE))},
+    {"backend": "cluster", "cluster": _REMOTES, "faults": _KILL},
+    {"backend": "transport",
+     "cluster": dataclasses.replace(_REMOTES, faults=FaultPolicy(respawn=True))},
     {"backend": "cluster", "cluster": ClusterSpec(replicas=2), "faults": _KILL},
     {"backend": "transport", "faults": _KILL},
     {"backend": "cluster", "cluster": ClusterSpec(replicas=2, faults=FaultPolicy(respawn=True))},
@@ -307,9 +319,10 @@ _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
     {"backend": "cluster", "cluster": ClusterSpec(faults=FaultPolicy(heartbeat_interval_s=1.0))},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (remote replicas, fault schedules and
-    non-default fault policies, paged_attention=False) is refused; the
-    cluster and transport backends with in-process replicas, sampling,
+    """What a later slice serves (fault schedules and non-default fault
+    policies, with remote replicas too, and paged_attention=False) is
+    refused before any worker is spawned or dialed; the cluster and
+    transport backends with in-process or remote replicas, sampling,
     quantized targets and fleets are served."""
     spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
