@@ -65,6 +65,26 @@ Phases, each of which must pass for the script to exit 0:
                         on the cluster and transport backends: each serve
                         equal to the in-process cluster, no worker process
                         or socket directory left after close();
+               remote chaos - the remote phase's setup under a respawn and
+                        recovery FaultPolicy, worker 1 SIGKILLed at Router
+                        step CHAOS_KILL_STEP (it then holds >= 2 streams
+                        with committed tokens) and revived through a
+                        channel_factory that starts a fresh worker: 1
+                        eviction, 1 respawn, nothing shed, every stream of
+                        worker 1 recovered by device replay, streams equal
+                        to the in-process cluster phase's up to near ties,
+                        the revived worker launching the dense and paged
+                        bf16 kernels; respawn and recovery seconds, tokens
+                        replayed, the flight dump and tokens/s printed;
+               chaos spawned - examples/specs/chaos.json (its own reduced
+                        qwen2, head_dim 16) on 2 spawned workers, four runs
+                        each held to its fault-free in-process serve: the
+                        spec's kill with respawn and recovery; a hang found
+                        by heartbeat or RPC timeout, evicted and revived
+                        (time to eviction printed); a flap absorbed by
+                        retried RPCs (through repro_torch.launch.chaos
+                        --check); the kill under the default policy, whose
+                        lost sessions end shed;
                every kernel of a path must be launched in its run (counters
                reset just before, read just after; "launches" is a kernel's
                main path's count, "launches_by_path" every path's), some
@@ -314,6 +334,19 @@ def check_attention(records: dict) -> None:
         # kv_valid < Sq: the first queries see no position and give 0
         ("bf16", 2, 5, 12, 2, 128, 64, [3, 5], None, 1),
         ("int8", 3, 5, 12, 2, 128, 200, [2, 130, 4], [2, 0, 1], 1),
+        # head_dim 16, the reduced qwen2 of examples/specs/chaos.json (Hq 4,
+        # Hkv 2, max_len 128, k_max 4, 2 slots a replica and the scratch
+        # row): engine verify, with a scratch row, a replayed force_extend
+        # run (B=1), the slot prefill of an 8-token prompt, the draft's
+        # decode, two splits
+        ("bf16", 2, 5, 4, 2, 16, 128, [21, 30], [0, 1], 2),
+        ("bf16", 2, 5, 4, 2, 16, 128, [27, 5], [1, 2], 2),
+        ("bf16", 1, 5, 4, 2, 16, 128, [19], [1], 2),
+        ("bf16", 1, 8, 4, 2, 16, 128, [8], None, 2),
+        ("bf16", 1, 1, 4, 2, 16, 128, [14], None, 1),
+        ("bf16", 2, 5, 4, 2, 16, 128, [70, 128], [1, 0], 2),
+        ("int8", 2, 5, 4, 2, 16, 128, [21, 30], [0, 1], 2),
+        ("int8", 1, 8, 4, 2, 16, 128, [8], None, 2),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -1313,6 +1346,290 @@ def serve_remote_spawned() -> None:
         _same_streams(f"remote spawned {backend}", models, prompts, res.outputs, want)
 
 
+# the Router step at which the remote chaos phase kills worker 1: after two
+# verify rounds, before any stream of worker 1 retires or migrates (its 4
+# streams are the odd ids, budget 32)
+CHAOS_KILL_STEP = 3
+
+
+def _spawn_counting_worker(counts: Path):
+    """This script in worker mode on the card, its counts going to ``counts``:
+    ``(proc, address)``."""
+    from repro_torch.cluster.remote import spawn_worker
+
+    return spawn_worker(cmd=[sys.executable, str(Path(__file__).resolve()), "--worker",
+                             "--counts", str(counts)], startup_timeout=600.0)
+
+
+def serve_remote_chaos(records: dict, bundle, prompts, *, cluster: dict, remote: dict) -> None:
+    """The remote phase's 8 sessions on 2 worker processes (full-width
+    qwen2-1.5b, bf16 pools, budgets 8 and 32, round-robin, migration on
+    retire) under FaultPolicy(respawn, recover_streams, backoff 0.05-0.5 s):
+    worker 1 is SIGKILLed at Router step CHAOS_KILL_STEP, where it must
+    hold at least 2 running streams with committed tokens. Its revive goes
+    through a channel_factory that starts a fresh worker with its own
+    counts file. Must hold: 1 eviction, 1 respawn, nothing shed, every
+    stream of worker 1 at the kill recovered, the streams equal to the
+    in-process cluster phase's (``cluster``) up to near ties, and the
+    revived worker's counts showing the dense (replayed prefill) and paged
+    (replayed force_extend runs, verify) bf16 kernels. Every worker is
+    drained and reaped in a ``finally``."""
+    import tempfile
+
+    from repro_torch.api import System
+    from repro_torch.api.spec import FaultPolicy, FaultSpec
+    from repro_torch.cluster.faults import ChaosInjector
+    from repro_torch.cluster.remote import ControlChannel, RemoteReplica, kill_worker_proc
+    from repro_torch.cluster.router import Router
+
+    _gpu_compute_mode()
+    torch.cuda.empty_cache()
+    spec = remote_spec()
+    policy = FaultPolicy(respawn=True, recover_streams=True, backoff_base_s=0.05,
+                         backoff_max_s=0.5)
+    budgets = [8 if i % 2 == 0 else 32 for i in range(len(prompts))]
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-chaos-"))
+    counts = [tmp / f"worker{i}.json" for i in range(spec.cluster.n_replicas)]
+    revived_counts = tmp / "worker1-revived.json"
+    shape = dict(n_slots=spec.slots_per_replica, k_max=spec.k_max, max_len=spec.max_len,
+                 greedy=spec.greedy)
+    procs, remotes, timing = [], [], {}
+    try:
+        with ThreadPoolExecutor(len(counts)) as pool:
+            spawned = list(pool.map(_spawn_counting_worker, counts))
+        for proc, addr in spawned:
+            procs.append(proc)
+            r = RemoteReplica.dial(addr, timeout=600.0)
+            r.proc, r.spawned, r.retry_rpcs = proc, True, policy.retry_rpcs
+            r.adopt(**shape)
+            remotes.append(r)
+
+        def respawn() -> ControlChannel:
+            t0 = time.perf_counter()
+            proc, addr = _spawn_counting_worker(revived_counts)
+            procs.append(proc)
+            t1 = time.perf_counter()
+            channel = ControlChannel(addr, timeout=600.0)
+            channel.connect()
+            timing.update(spawn_s=t1 - t0, dial_s=time.perf_counter() - t1)
+            return channel
+
+        remotes[1].channel_factory = respawn
+        router = Router(remotes, placement=spec.cluster.placement,
+                        migrate_on_retire=spec.cluster.migrate_on_retire, faults=policy)
+        router.chaos = ChaosInjector(FaultSpec(events=(
+            {"kind": "kill", "replica": 1, "round": CHAOS_KILL_STEP},)), router)
+        at_kill: dict = {}
+        kill, readmit = remotes[1].chaos_kill, router._readmit
+
+        def recorded_kill():
+            at_kill.update(step=router.steps_taken, t=time.perf_counter(), committed={
+                d: len(router._committed.get(d, ())) for d in remotes[1].streams})
+            kill()
+
+        def timed_readmit(dev):  # router_recovery_seconds' span: the replays
+            t0 = time.perf_counter()
+            try:
+                return readmit(dev)
+            finally:
+                timing["recovery_s"] = timing.get("recovery_s", 0.0) + time.perf_counter() - t0
+
+        remotes[1].chaos_kill, router._readmit = recorded_kill, timed_readmit
+        kit = System.build(spec.with_backend("reference"), models=bundle).kit
+        system = System(spec, bundle, router, kit,
+                        torch.device("cuda", torch.cuda.current_device()))
+        system.warmup()
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        outputs = _drive_sessions(system, prompts, budgets, lambda ev: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        parent = _launches()
+        longest = max(r.channel.longest_s for r in remotes)
+    finally:
+        for r in remotes:
+            r.drain()
+        for proc in procs:
+            kill_worker_proc(proc)
+    workers = [json.loads(c.read_text()) for c in (counts[0], revived_counts)]
+    total = sum(len(t) for t in outputs.values())
+    replayed = sum(at_kill.get("committed", {}).values())
+    print(f"serve remote chaos: worker 1 SIGKILLed at Router step {at_kill.get('step')} holding "
+          f"streams {sorted(at_kill.get('committed', {}))} with {replayed} committed tokens; "
+          f"evictions {router.evictions}, respawns {router.respawns}, recovered "
+          f"{router.recovered_streams}, shed {router.shed_streams}; respawn: spawn "
+          f"{timing.get('spawn_s', 0.0):.2f} s, dial {timing.get('dial_s', 0.0):.3f} s (shape "
+          f"adopted, no placement); recovery (device replay, router_recovery_seconds' span) "
+          f"{timing.get('recovery_s', 0.0):.3f} s, {replayed} tokens replayed in force_extend "
+          f"runs of <= {spec.k_max + 1} after 200-token prefills; flight dump of worker 1 "
+          f"{len(router.flight_dumps.get(1, []))} rounds; longest RPC {longest:.3f} s",
+          flush=True)
+    print(f"serve remote chaos: {total} tokens in {wall:.3f} s ({total / wall:.1f} tokens/s; "
+          f"the fault-free serve remote of this call {remote['tokens_per_s']:.1f}), "
+          f"migrations {router.migrations}; parent launches {parent}, worker 0 "
+          f"{workers[0]['launches']}, revived worker 1 {workers[1]['launches']}", flush=True)
+    streams_at_kill = at_kill.get("committed", {})
+    if at_kill.get("step") != CHAOS_KILL_STEP or sum(n > 0 for n in streams_at_kill.values()) < 2:
+        raise AssertionError(f"remote chaos: at the kill worker 1 held {streams_at_kill}; "
+                             "it must hold >= 2 streams with committed tokens")
+    counters = (router.evictions, router.respawns, router.shed_streams)
+    if counters != (1, 1, 0) or router.recovered_streams != len(streams_at_kill):
+        raise AssertionError(f"remote chaos: evictions, respawns, shed {counters}, recovered "
+                             f"{router.recovered_streams} of {len(streams_at_kill)}")
+    revived = workers[1]["launches"]
+    if revived["verify_attention_packed"] <= 0 or revived["verify_attention_paged"] <= 0:
+        raise AssertionError(f"remote chaos: the revived worker launched {revived}")
+    combined = {n: parent[n] + sum(w["launches"][n] for w in workers) for n in parent}
+    _record_launches("remote chaos", records, BF16_PATH, combined)
+    for d, toks in outputs.items():
+        if len(toks) != budgets[d]:
+            raise AssertionError(f"remote chaos: device {d}: {len(toks)} tokens")
+    _same_streams("remote chaos", bundle, prompts, outputs, cluster["outputs"])
+    print("serve remote chaos: streams == the in-process cluster's on 8 devices (up to the "
+          "divergences printed above)", flush=True)
+
+
+def _chaos_run(label: str, spec, prompts) -> tuple:
+    """System.build of ``spec`` (remote replicas it spawns) and one serve;
+    the result, the Router and the seconds from each fault firing to the
+    eviction that followed. After close() no worker process or socket
+    directory may be left."""
+    import os
+
+    from repro_torch.api import System
+    from repro_torch.cluster.remote import worker_sock_dir
+
+    t0 = time.perf_counter()
+    procs, dirs, fired, to_evict = [], [], {}, []
+    with System.build(spec) as system:
+        router = system.engine
+        for r in router.replicas:
+            for kind in ("kill", "hang"):
+                act = getattr(r, f"chaos_{kind}")
+
+                def timed(act=act):
+                    fired["t"] = time.perf_counter()
+                    act()
+
+                setattr(r, f"chaos_{kind}", timed)
+        evict = router._evict
+
+        def timed_evict(i):
+            if "t" in fired and not router.replicas[i].dead:
+                to_evict.append(time.perf_counter() - fired["t"])
+            evict(i)
+
+        router._evict = timed_evict
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = system.serve(prompts)
+        wall = time.perf_counter() - t0
+        procs = [r.proc for r in router.replicas]
+        dirs = [worker_sock_dir(r.address) for r in router.replicas]
+        longest = max(r.channel.longest_s for r in router.replicas)
+    left = [p.pid for p in procs if p.poll() is None] + [d for d in dirs if os.path.exists(d)]
+    print(f"serve chaos spawned {label}: build and place {up_s:.2f} s, {res.total_tokens} "
+          f"tokens in {wall:.3f} s, fired {router.chaos.fired}, evictions {router.evictions}, "
+          f"respawns {router.respawns}, recovered {router.recovered_streams}, shed "
+          f"{router.shed_streams} {res.lost_devices}, retried RPCs "
+          f"{sum(r.retries for r in router.replicas)}, seconds from fault to eviction "
+          f"{[round(x, 3) for x in to_evict]}, longest RPC {longest:.3f} s", flush=True)
+    if None in dirs or left:
+        raise AssertionError(f"chaos spawned {label}: after close(): {left or dirs}")
+    return res, router
+
+
+def serve_chaos_spawned(records: dict) -> None:
+    """examples/specs/chaos.json with its own model (reduced qwen2, head_dim
+    16: the attention kernel's D = 16 instantiation) on 2 spawned workers
+    (``{"flavor": "remote"}``), four runs, each held to the fault-free
+    in-process serve of the same spec (weights rebuilt from the spec's
+    seed in every process):
+      1. the spec's kill of replica 1 at round 5 with respawn and recovery:
+         1 eviction, 1 respawn, nothing shed, the fault-free streams (a
+         near tie printed if any);
+      2. a hang (SIGSTOP) of replica 1 at round 5 with heartbeats every
+         0.2 s (3 misses of 1 s) and a 2 s RPC timeout: evicted and
+         revived, nothing shed, the seconds to eviction printed;
+      3. a flap of replica 1 at round 5, through ``python -m
+         repro_torch.launch.chaos --spec ... --check``: retried RPCs >= 1,
+         no eviction, its check passing, the fault-free streams;
+      4. the kill under the default FaultPolicy: the lost sessions end
+         ``shed=True`` with prefixes of their fault-free streams, the
+         others complete, and the serve returns."""
+    import tempfile
+
+    from repro_torch.api import ServeSpec, System, build_models
+    from repro_torch.api.spec import FaultPolicy, FaultSpec
+    from repro_torch.launch import chaos as chaos_cli
+
+    _gpu_compute_mode()
+    spec = ServeSpec.from_json((Path(__file__).resolve().parent / "examples" / "specs"
+                                / "chaos.json").read_text())
+    models = build_models(spec.model)
+    inproc = System.build(dataclasses.replace(spec, faults=FaultSpec()), models=models)
+    prompts = inproc.prompts()
+    _reset_launches()
+    want = inproc.serve(prompts).outputs
+    _record_launches("chaos in-process", records, BF16_PATH, _launches())
+    remote = dataclasses.replace(spec, cluster=dataclasses.replace(
+        spec.cluster, replicas=[{"flavor": "remote"}] * spec.cluster.n_replicas))
+    at5 = {"replica": 1, "round": 5}
+
+    def with_faults(policy, kind):
+        return dataclasses.replace(
+            remote, cluster=dataclasses.replace(remote.cluster, faults=policy),
+            faults=FaultSpec(events=({"kind": kind, **at5},)))
+
+    def same(label, res) -> None:
+        same_all = res.outputs == want
+        print(f"serve chaos spawned {label}: streams identical to the fault-free in-process "
+              f"serve: {same_all}", flush=True)
+        if not same_all:
+            _same_streams(f"chaos spawned {label}", models, prompts, res.outputs, want)
+
+    _reset_launches()
+    res, router = _chaos_run("kill", remote, prompts)
+    if (router.evictions, router.respawns, router.shed_streams, res.lost_devices) != (1, 1, 0, []):
+        raise AssertionError("chaos spawned kill: supervision did not recover every stream")
+    same("kill", res)
+    hang_policy = dataclasses.replace(spec.cluster.faults, heartbeat_interval_s=0.2,
+                                      heartbeat_timeout_s=1.0, heartbeat_misses=3,
+                                      rpc_timeout_s=2.0)
+    res, router = _chaos_run("hang", with_faults(hang_policy, "hang"), prompts)
+    if (router.evictions, router.respawns, router.shed_streams) != (1, 1, 0):
+        raise AssertionError("chaos spawned hang: the hung worker was not evicted and revived")
+    same("hang", res)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-flap-") as tmp:
+        spec_path, out_path = Path(tmp) / "flap.json", Path(tmp) / "flap-record.json"
+        spec_path.write_text(with_faults(spec.cluster.faults, "flap").to_json_str())
+        rc = chaos_cli.main(["--spec", str(spec_path), "--check", "--json", str(out_path)])
+        record = json.loads(out_path.read_text())
+    report = record["chaos"]
+    got = {s["device_id"]: s["tokens"] for s in record["result"]["sessions"]}
+    print(f"serve chaos spawned flap (repro_torch.launch.chaos): rc {rc}, {report}", flush=True)
+    if rc != 0 or report["retries"] < 1 or report["evictions"] != 0:
+        raise AssertionError("chaos spawned flap: the retried RPCs did not absorb the flap")
+    if got != want:
+        _same_streams("chaos spawned flap", models, prompts, got, want)
+    res, router = _chaos_run("kill, default policy", with_faults(FaultPolicy(), "kill"), prompts)
+    launches = _launches()
+    shed = {s.device_id for s in res.sessions if s.shed}
+    if router.respawns or not res.lost_devices or shed != set(res.lost_devices):
+        raise AssertionError(f"chaos spawned default policy: lost {res.lost_devices}, shed {shed}")
+    for s in res.sessions:
+        w = want[s.device_id]
+        if (s.tokens != w[:len(s.tokens)]) if s.shed else (s.tokens != w):
+            raise AssertionError(f"chaos spawned default policy: device {s.device_id}: "
+                                 f"{s.tokens} against the fault-free {w} (shed {s.shed})")
+    print(f"serve chaos spawned kill, default policy: sessions {sorted(shed)} ended shed with "
+          f"their fault-free prefixes, the others complete; the parent's draft launches over "
+          f"the four runs {launches}", flush=True)
+    _record_launches("chaos spawned (parent drafts)", records,
+                     {"verify_attention_packed": None}, launches)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -1402,8 +1719,12 @@ def main() -> int:
                                             spec=serve_spec("reference")))
     _phase("serve transport fleet", lambda: serve_transport_fleet(
         records, qwen, prompts, engine_tps=engine_tps["bf16"]))
-    _phase("serve remote", lambda: serve_remote(records, qwen, prompts8, cluster=cluster))
+    remote = _phase("serve remote", lambda: serve_remote(records, qwen, prompts8,
+                                                         cluster=cluster))
     _phase("serve remote spawned", serve_remote_spawned)
+    _phase("serve remote chaos", lambda: serve_remote_chaos(records, qwen, prompts8,
+                                                            cluster=cluster, remote=remote))
+    _phase("serve chaos spawned", lambda: serve_chaos_spawned(records))
     del qwen
     torch.cuda.empty_cache()
 

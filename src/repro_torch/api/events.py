@@ -60,6 +60,10 @@ class SessionResult:
     fallback_rounds: int = 0
     fallback_tokens: int = 0
     wall_seconds: float = 0.0
+    # the stream went down with an evicted replica and could not be
+    # re-placed: ``tokens`` holds what was committed before the loss, and
+    # the session ended with an explicit rejection instead of a hang
+    shed: bool = False
     client: Optional[ClientStats] = None  # transport backend only
     # per-round TraceEvents of a transport session's client (telemetry on)
     trace: List = dataclasses.field(default_factory=list)
@@ -81,6 +85,8 @@ class SessionResult:
             "fallback_tokens": self.fallback_tokens,
             "wall_seconds": self.wall_seconds,
         }
+        if self.shed:
+            d["shed"] = True
         if self.client is not None:
             d["client"] = self.client.to_json()
         if self.trace:
@@ -97,10 +103,12 @@ class ServeResult:
     engine: EngineStats
     clients: Optional[ClientStats] = None  # ClientStats.merge over the fleet
     wall_seconds: float = 0.0
-    # devices whose streams went down with a replica; stays empty until the
-    # Router's supervision is ported (ROADMAP.md Queue A, faults)
+    # devices whose streams were shed with an evicted replica (the Router's
+    # supervision); empty on fault-free runs and when recovery re-placed
+    # every stream
     lost_devices: List[int] = dataclasses.field(default_factory=list)
-    # metrics snapshot; None unless telemetry was enabled for the run
+    # metrics snapshot and flight-recorder rows; None unless telemetry was
+    # enabled for the run
     telemetry: Optional[dict] = None
 
     @property

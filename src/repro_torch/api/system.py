@@ -12,12 +12,17 @@ over loopback or simulated links) backends::
 CPU) and an optional prebuilt ``ModelBundle``, which is how a caller serves
 a model at full width: build the bundle from the full config and pass it
 in. Sampling (``greedy=False``), quantized targets (``model.bits`` 8 and
-4), heterogeneous fleets (one drafting kit per device class) and remote
+4), heterogeneous fleets (one drafting kit per device class), remote
 replicas (worker processes behind the Router, on the cluster and
-transport backends) are served as the JAX package serves them. Specs that
-need a later slice (fault schedules and non-default fault policies,
-``paged_attention=False``, the families other than dense and ssm) raise
-``NotImplementedError`` naming the ROADMAP.md item.
+transport backends), fault policies (respawn, device-replay recovery,
+heartbeats) and chaos schedules (``spec.faults``) are served as the JAX
+package serves them. A stream shed with an evicted replica ends its
+session with ``SessionResult.shed`` and is listed in
+``ServeResult.lost_devices``; on the transport backend it fails the serve
+instead (the JAX package's client waits out its retries there). Specs
+that need a later slice (``paged_attention=False``, the families other
+than dense and ssm) raise ``NotImplementedError`` naming the ROADMAP.md
+item.
 
 Sessions on the engine and cluster backends interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
@@ -42,7 +47,8 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.api.events import DoneEvent, Event, RoundEvent, ServeResult, SessionResult, TokenEvent
-from repro_torch.api.spec import FaultPolicy, FaultSpec, ServeSpec
+from repro_torch.api.spec import FaultSpec, ServeSpec
+from repro_torch.cluster.faults import ChaosInjector, FaultyChannel
 from repro_torch.cluster.router import ClassAffinityPlacement, Router
 from repro_torch.configs.base import get_config
 from repro_torch.core import engine_loop
@@ -200,7 +206,7 @@ class Session:
         else:
             self._accepted += int(n_accepted)
 
-    def _finish(self, tokens, client: Optional[ClientStats] = None) -> None:
+    def _finish(self, tokens, client: Optional[ClientStats] = None, shed: bool = False) -> None:
         tokens = [int(t) for t in tokens][: self.max_new]
         self.result = SessionResult(
             device_id=self.device_id, tokens=tokens, rounds=self._rounds,
@@ -208,7 +214,7 @@ class Session:
             fallback_rounds=self._fallback_rounds, fallback_tokens=self._fallback_tokens,
             wall_seconds=(client.wall_seconds if client is not None
                           else time.time() - self._t_open),
-            client=client, trace=self._trace,
+            shed=shed, client=client, trace=self._trace,
         )
         self._system._waiting.pop(self.device_id, None)
         self._system._running.pop(self.device_id, None)
@@ -253,13 +259,6 @@ class System:
         Systems."""
         dev = resolve_device(device)
         spec.validate()
-        # the supervision that survives a worker's death
-        if spec.faults.active:
-            raise _not_ported("a fault schedule (spec.faults)",
-                              "Remote workers and faults, part 1b")
-        if spec.cluster.faults != FaultPolicy():
-            raise _not_ported("a fault policy other than the default (cluster.faults)",
-                              "Remote workers and faults, part 1b")
         if spec.backend == "transport" and not spec.greedy and spec.transport.qmode == "none":
             # the clients would send no q and the server's admission refuses
             # a sampled round without one (a departure: the JAX package
@@ -312,17 +311,22 @@ class System:
                 engine = cls._build_remote_cluster(spec, models, engine_kw, dev)
             elif spec.backend == "engine" or (
                 spec.backend == "transport" and spec.cluster.n_replicas == 1
+                and not spec.faults.active
             ):
                 # one replica: the bare engine (the transport server fronts an
-                # engine or a Router alike)
+                # engine or a Router alike); a chaos schedule needs the
+                # Router's supervision, so a chaos run keeps it
                 engine = ServerEngine(models.target, models.target_params,
                                       n_slots=spec.slots_per_replica, **engine_kw)
             else:  # cluster, or transport fronting a replica set
                 engine = Router.build(
                     models.target, models.target_params, replicas=spec.cluster.n_replicas,
                     n_slots=spec.slots_per_replica, placement=cls._placement(spec),
-                    migrate_on_retire=spec.cluster.migrate_on_retire, **engine_kw,
+                    migrate_on_retire=spec.cluster.migrate_on_retire,
+                    faults=spec.cluster.faults, **engine_kw,
                 )
+            if spec.faults.active and isinstance(engine, Router):
+                engine.chaos = ChaosInjector(spec.faults, engine)
         kit = EdgeDeviceKit(
             models.draft, models.draft_params, k_max=spec.k_max, c_th=spec.c_th,
             greedy=spec.greedy, attn_chunk=spec.attn_chunk, device=dev,
@@ -353,19 +357,22 @@ class System:
     @classmethod
     def _build_remote_cluster(cls, spec: ServeSpec, models: ModelBundle, engine_kw: dict,
                               dev: torch.device) -> Router:
-        """A Router over the spec's replica list. A remote replica DIALS the
-        worker its ReplicaSpec addresses, or SPAWNS one on ``dev`` on a
-        private unix socket (reaped by ``close()``), and is then PLACED: the
-        worker receives this spec as one engine replica (same model seed,
-        its pool's slots) and rebuilds the weights from the seed. An
-        in-process entry builds its ServerEngine here. Every worker is
-        drained when any step fails."""
-        from repro_torch.cluster.remote import (DEFAULT_TIMEOUT, RemoteReplica,
-                                                cleanup_worker_dir, kill_worker_proc,
-                                                spawn_worker)
+        """A Router over the spec's replica list, under the spec's
+        FaultPolicy. A remote replica DIALS the worker its ReplicaSpec
+        addresses, or SPAWNS one on ``dev`` on a private unix socket (reaped
+        by ``close()``; a revive spawns its successor on ``dev`` too), and
+        is then PLACED: the worker receives this spec as one engine replica
+        (same model seed, its pool's slots, no chaos schedule: the Router
+        runs that) and rebuilds the weights from the seed. Its control
+        channel is a FaultyChannel when the schedule drops, delays or flaps
+        RPCs. An in-process entry builds its ServerEngine here. Every worker
+        is drained when any step fails."""
+        from repro_torch.cluster.remote import DEFAULT_TIMEOUT, RemoteReplica
 
         policy = spec.cluster.faults
         rpc_timeout = policy.rpc_timeout_s if policy.rpc_timeout_s > 0 else DEFAULT_TIMEOUT
+        # drop, delay and flap act on the control channel
+        wrap_channels = any(e.kind in ("drop", "delay", "flap") for e in spec.faults.events)
         worker_base = spec.with_backend("engine", faults=FaultSpec())
         replicas: list = []
         try:
@@ -381,16 +388,11 @@ class System:
                 if rs.address:
                     remote = RemoteReplica.dial(rs.address, timeout=rpc_timeout)
                 else:
-                    proc, addr = spawn_worker(device=dev)
-                    try:
-                        remote = RemoteReplica.dial(addr, timeout=rpc_timeout)
-                    except BaseException:
-                        kill_worker_proc(proc)
-                        cleanup_worker_dir(addr)
-                        raise
-                    remote.proc, remote.spawned = proc, True
+                    remote = RemoteReplica.spawn(device=dev, timeout=rpc_timeout)
                 replicas.append(remote)
                 remote.retry_rpcs = policy.retry_rpcs
+                if wrap_channels:
+                    remote.channel = FaultyChannel(remote.channel)
                 remote.place(worker_spec)
         except BaseException:
             for r in replicas:
@@ -398,7 +400,7 @@ class System:
                     r.drain()
             raise
         return Router(replicas, placement=cls._placement(spec),
-                      migrate_on_retire=spec.cluster.migrate_on_retire)
+                      migrate_on_retire=spec.cluster.migrate_on_retire, faults=policy)
 
     @classmethod
     def _build_class_kits(cls, spec: ServeSpec, models: ModelBundle, cache: Optional[KitCache],
@@ -547,6 +549,7 @@ class System:
                        else {"snapshot": telemetry.registry().snapshot(), "flight": []})
         return ServeResult(backend=self.spec.backend, sessions=[s.result for s in sessions],
                            engine=stats, clients=clients, wall_seconds=time.time() - t0,
+                           lost_devices=sorted(getattr(self.engine, "lost_devices", ())),
                            telemetry=payload)
 
     def _generate(self, session: Session) -> Iterator[Event]:
@@ -653,8 +656,14 @@ class System:
                 # the JAX package's in-process pump submits no q, so its
                 # engine backend refuses greedy=False; the port submits the
                 # q row as the JAX transport client does
-                self.engine.submit(s.device_id, toks, time.time() - self._t0,
-                                   draft_q=None if self.spec.greedy else s._device.pending_q)
+                try:
+                    self.engine.submit(s.device_id, toks, time.time() - self._t0,
+                                       draft_q=None if self.spec.greedy else s._device.pending_q)
+                except ConnectionError:
+                    # the replica died and the stream could not be placed
+                    # again: the sweep below ends its session as shed
+                    if s.device_id in self.engine.streams:
+                        raise
         finished = []
         for v in self.engine.step(time.time() - self._t0) or []:
             s = self._running[v.device_id]
@@ -666,6 +675,19 @@ class System:
             self.engine.retire(s.device_id)
             del self._running[s.device_id]
             s._finish(s._device.committed)
+        self._sweep_lost()
+
+    def _sweep_lost(self) -> None:
+        """Sessions whose streams were shed with an evicted replica end with
+        an explicit rejection (``SessionResult.shed``) and what they had
+        committed, never with a serve loop that waits for ever."""
+        lost = set(getattr(self.engine, "lost_devices", ()))
+        for dev in [d for d in self._running if d in lost]:
+            s = self._running.pop(dev)
+            log.warning("session %d was shed with its replica; ending it", dev)
+            s._finish(s._device.committed, shed=True)
+        for dev in [d for d in self._waiting if d in lost]:
+            self._waiting.pop(dev)._finish([], shed=True)
 
     # -- reference backend ---------------------------------------------------
 

@@ -6,16 +6,17 @@
               retire, eviction of dead workers, cluster-merged EngineStats.
   remote.py - RemoteReplica: a worker process behind the replica surface,
               over a blocking ControlChannel; spawn_worker starts one.
-  faults.py - the seeded Backoff (the edge client's reconnect pacing).
+  faults.py - supervision and chaos: the seeded Backoff, the armable
+              FaultyChannel wrapper, and the ChaosInjector that runs a
+              ServeSpec's FaultSpec schedule against a live Router.
 
 The router exposes the admit/submit/step/retire surface of one
 ``ServerEngine``, so the in-process pump and the transport server serve a
-replica fleet by holding it instead. Supervision beyond eviction (respawn,
-stream recovery, heartbeats) and the chaos harness come with the next
-slice (ROADMAP.md Queue A).
+replica fleet by holding it instead. Its FaultPolicy decides what follows
+an eviction: respawn, device-replay stream recovery, heartbeats.
 """
 
-from repro_torch.cluster.faults import Backoff
+from repro_torch.cluster.faults import Backoff, ChaosInjector, FaultyChannel
 from repro_torch.cluster.remote import (
     ControlChannel,
     RemoteReplica,
@@ -40,8 +41,10 @@ __all__ = [
     "PLACEMENT_POLICIES",
     "AffinityPlacement",
     "Backoff",
+    "ChaosInjector",
     "ClassAffinityPlacement",
     "ControlChannel",
+    "FaultyChannel",
     "LeastLoadedPlacement",
     "LocalReplica",
     "MigrationError",

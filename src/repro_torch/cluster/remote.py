@@ -19,8 +19,12 @@ once over a fresh connection. Side-effectful RPCs carry a per-channel
 they too get one reconnect-and-resend, which the worker's replay cache
 answers with the original reply if the first copy landed. A failure that
 outlives the retry raises :class:`ReplicaGone`, and the Router evicts the
-replica. A worker-side handler error arrives as an ErrorReply and raises
-:class:`WorkerError`: the worker is alive, the request was refused.
+replica and, if its FaultPolicy says so, revives it (:meth:`RemoteReplica.revive`:
+a fresh worker spawned with the first spawn's arguments, or the address
+dialed again, its spec placed again). A worker-side handler error arrives
+as an ErrorReply and raises :class:`WorkerError`: the worker is alive,
+the request was refused. :meth:`RemoteReplica.ping` probes the worker on
+a connection of its own, for the Router's heartbeat.
 
 Workers are started with ``subprocess`` (a fresh interpreter), never by
 forking: a process that has touched CUDA cannot fork a child that uses it.
@@ -31,13 +35,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
 import tempfile
 import time
 import uuid
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -64,8 +69,10 @@ class ControlChannel:
     """Blocking request/reply frame channel to one worker (TCP or UDS).
 
     ``bytes_tx``/``bytes_rx`` and ``frames_tx``/``frames_rx`` count what
-    crossed this channel, over every reconnect, and ``seconds`` the time
-    spent in ``request`` (encode, wire, the worker's work, decode)."""
+    crossed this channel, over every reconnect, ``seconds`` the time spent
+    in ``request`` (encode, wire, the worker's work, decode) and
+    ``longest_s`` the longest request (a heartbeat's timeout must sit above
+    it: the worker answers a Ping after the request it is handling)."""
 
     def __init__(self, address: str, *, timeout: float = DEFAULT_TIMEOUT):
         self.address = address
@@ -74,7 +81,7 @@ class ControlChannel:
         self._decoder = codec.FrameDecoder()
         self._seq = 0  # per-channel RPC seq (the worker's replay keys); 0 = none
         self.bytes_tx = self.bytes_rx = self.frames_tx = self.frames_rx = 0
-        self.seconds = 0.0
+        self.seconds = self.longest_s = 0.0
 
     def next_seq(self) -> int:
         """Monotonic non-zero seq for a side-effectful RPC; it survives
@@ -151,7 +158,9 @@ class ControlChannel:
         self.bytes_rx += len(raw)
         self.frames_rx += 1
         reply, _ = codec.decode_frame(raw)
-        self.seconds += time.perf_counter() - t0
+        took = time.perf_counter() - t0
+        self.seconds += took
+        self.longest_s = max(self.longest_s, took)
         if isinstance(reply, codec.ErrorReply):
             raise WorkerError(reply.message)
         return reply
@@ -262,10 +271,14 @@ class RemoteReplica:
         self.address = address or channel.address
         self.proc = proc  # set when this replica spawned its worker
         self.spawned = proc is not None
+        # spawn_worker's keyword arguments of the first spawn, which a revive
+        # repeats (the device above all: a CPU fleet respawns on the CPU)
+        self.spawn_kw: dict = {}
         self.dead = False
+        self.suspect = False  # the heartbeat monitor: the worker stopped answering
         self.retry_rpcs = False  # FaultPolicy.retry_rpcs: one resend over a reconnect
         self.retries = 0
-        self.spec = None  # the placed ServeSpec
+        self.spec = None  # the placed ServeSpec (a revive places it again)
         self._n_slots = 0
         self.k_max = 0
         self.max_len = 0
@@ -275,12 +288,31 @@ class RemoteReplica:
         self._pending: Dict[int, int] = {}  # device -> tokens in flight
         self._hint: Optional[float] = None
         self.last_telemetry: Optional[dict] = None  # the worker's payload from stats()
+        self._hb_channel: Optional[ControlChannel] = None  # heartbeat probes
+        # how revive() gets a fresh channel (a test's or chip_smoke.py's);
+        # None: respawn the worker, or dial the address again
+        self.channel_factory: Optional[Callable[[], ControlChannel]] = None
 
     @classmethod
     def dial(cls, address: str, *, timeout: float = DEFAULT_TIMEOUT) -> "RemoteReplica":
         channel = ControlChannel(address, timeout=timeout)
         channel.connect()
         return cls(channel, address=address)
+
+    @classmethod
+    def spawn(cls, *, timeout: float = DEFAULT_TIMEOUT, **spawn_kw) -> "RemoteReplica":
+        """Start a worker (``spawn_worker(**spawn_kw)``) and dial it; the
+        arguments are kept for a revive. A worker that cannot be dialed is
+        reaped."""
+        proc, addr = spawn_worker(**spawn_kw)
+        try:
+            remote = cls.dial(addr, timeout=timeout)
+        except BaseException:
+            kill_worker_proc(proc)
+            cleanup_worker_dir(addr)
+            raise
+        remote.proc, remote.spawned, remote.spawn_kw = proc, True, dict(spawn_kw)
+        return remote
 
     def adopt(self, *, n_slots: int, k_max: int, max_len: int, greedy: bool,
               paged_attention: bool = True) -> None:
@@ -316,6 +348,96 @@ class RemoteReplica:
             self.retries += 1
             self.channel.reconnect()
             return self.channel.request(msg, timeout=timeout)
+
+    # -- supervision: heartbeat, chaos hooks, revive -------------------------
+
+    def ping(self, *, timeout: float = 2.0) -> bool:
+        """Heartbeat probe on a connection of its own (the main channel
+        belongs to the router's thread). False on any failure (a refused
+        dial, a timeout, a wrong reply); the failed connection is closed,
+        so the next probe dials afresh."""
+        try:
+            if self._hb_channel is None:
+                self._hb_channel = ControlChannel(self.address, timeout=timeout)
+                self._hb_channel.connect()
+            reply = self._hb_channel.request(
+                codec.Ping(seq=self._hb_channel.next_seq(), t=time.monotonic()), timeout=timeout)
+            return isinstance(reply, codec.Pong)
+        except Exception:
+            ch, self._hb_channel = self._hb_channel, None
+            if ch is not None:
+                ch.close()
+            return False
+
+    def chaos_kill(self) -> None:
+        """Fault injection: make the worker unreachable as a crash would
+        (SIGKILL a spawned process, or sever the control link of a dialed
+        or fake one). The Router finds out at its next RPC, as it would of
+        a real failure."""
+        self._kill_proc()
+        kill = getattr(self.channel, "kill", None)
+        if kill is not None:
+            kill()  # a FaultyChannel or a test's channel: its killed flag
+        else:
+            self.channel.close()
+
+    def _kill_proc(self) -> None:
+        """SIGKILL a spawned worker and reap it (a stopped one too, which
+        SIGTERM would not end)."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            try:
+                self.proc.wait(timeout=10.0)
+            except subprocess.TimeoutExpired:
+                pass
+
+    def chaos_hang(self) -> None:
+        """SIGSTOP a spawned worker: connected but silent (as a partition
+        looks); only the heartbeat or an RPC timeout notices."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGSTOP)
+        else:
+            hang = getattr(self.channel, "hang", None)
+            if hang is not None:
+                hang()
+
+    def can_revive(self) -> bool:
+        return self.channel_factory is not None or self.spawned or bool(self.address)
+
+    def revive(self) -> None:
+        """Bring a dead replica back: a fresh channel (``channel_factory``,
+        or a worker respawned with the first spawn's arguments, or the
+        address dialed again), the stored spec placed again and warmed up.
+        The new engine rebuilds its weights from the spec's seed, so
+        recovered streams keep their tokens; a replica shaped by
+        :meth:`adopt` keeps its shape. Raises ReplicaGone or RuntimeError
+        on failure; the caller owns the backoff and the retry budget."""
+        if self.spec is None and self.channel_factory is None:
+            raise ReplicaGone(f"replica at {self.address} was never placed")
+        self.channel.close()
+        if self._hb_channel is not None:
+            self._hb_channel.close()
+            self._hb_channel = None
+        if self.channel_factory is not None:
+            self.channel = self.channel_factory()
+        else:
+            if self.spawned:
+                self._kill_proc()
+                cleanup_worker_dir(self.address)
+                self.proc, self.address = spawn_worker(**self.spawn_kw)
+            self.channel = ControlChannel(self.address, timeout=self.channel.timeout)
+            self.channel.connect()
+        self._streams.clear()
+        self._pending.clear()
+        self._hint = None
+        if self.spec is not None:
+            try:
+                self.place(self.spec)
+                self.warmup()
+            except WorkerError as e:
+                raise ReplicaGone(f"revived worker refused placement: {e}") from e
+        self.dead = False
+        self.suspect = False
 
     @property
     def fingerprint(self) -> tuple:
@@ -455,6 +577,8 @@ class RemoteReplica:
         except (ReplicaGone, WorkerError):
             pass
         self.close()
+        if self.dead:  # an evicted worker (killed, stopped or cut off) gets no say
+            self._kill_proc()
         if self.proc is not None:
             try:
                 self.proc.wait(timeout=10.0)
@@ -464,5 +588,8 @@ class RemoteReplica:
 
     def close(self) -> None:
         self.channel.close()
+        if self._hb_channel is not None:
+            self._hb_channel.close()
+            self._hb_channel = None
         if self.spawned:
             cleanup_worker_dir(self.address)

@@ -37,23 +37,40 @@ retire / cancel_request / force_extend / stats / warmup), so the in-process
 pump and the transport server drive a replica fleet by holding a Router
 where they held an engine.
 
-Failures follow the default FaultPolicy, evict only: a replica whose
-worker is unreachable is marked dead, its streams go to ``lost_devices``
-and the survivors keep serving; with no replica left the router raises.
-Respawn, stream recovery, heartbeats and flight recorders come with the
-next slice (ROADMAP.md Queue A).
+**Supervision** follows a :class:`~repro_torch.api.spec.FaultPolicy`
+(the default: evict only; a dead replica is marked dead, its streams go to
+``lost_devices``, the survivors keep serving, and with no replica left the
+router raises). With ``respawn`` on, an evicted replica is revived in
+place (respawn the worker, or redial a dial-only address, place its spec
+again, warm it up) under a capped, seeded-jitter
+:class:`~repro_torch.cluster.faults.Backoff` and a ``max_respawns``
+budget; dead replicas are also redialed from the step loop, and an
+all-dead fleet keeps trying until ``all_dead_deadline_s``. With
+``recover_streams`` on, the streams that went down with a replica are
+admitted again to a live (or revived) replica by DEVICE REPLAY: the router
+shadows each stream's prompt, committed tokens and last unanswered submit,
+so recovery is an admit, ``force_extend`` of the committed history in runs
+of at most k_max+1, and the submit again; a greedy stream goes on with the
+fault-free tokens. Only streams beyond the live capacity are shed into
+``lost_devices``. ``heartbeat_interval_s`` > 0 starts a background Ping
+monitor that marks a silent worker ``suspect`` within seconds instead of
+the control RPC's timeout. Each replica has a flight ring of its last
+rounds, fed from the verdicts the router merges, dumped at its eviction.
 """
 
 from __future__ import annotations
 
 import logging
+import threading
+import time
 from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
 
 from repro_torch import telemetry
+from repro_torch.cluster.faults import Backoff
 from repro_torch.core.admission import DeviceStream
 from repro_torch.core.engine import EngineStats, Verdict
 from repro_torch.core.server_engine import ServerEngine
@@ -78,6 +95,8 @@ class LocalReplica:
     def __init__(self, engine: ServerEngine):
         self.engine = engine
         self.dead = False
+        self.suspect = False
+        self._killed = False  # chaos: delegated calls fail as a dead worker's do
 
     @property
     def n_free(self) -> int:
@@ -94,6 +113,26 @@ class LocalReplica:
         # pool (or the reverse) would be cast and corrupt the cache
         return (e.k_max, e.pool.max_len, e.greedy, e.paged_attention, e.kv_dtype)
 
+    def chaos_kill(self) -> None:
+        """Fault injection: every delegated call now raises ConnectionError,
+        which is what a crashed worker looks like to the Router, so the
+        in-process path runs the same evict and recover code."""
+        self._killed = True
+
+    def can_revive(self) -> bool:
+        return self._killed  # only a chaos-killed local replica comes back
+
+    def revive(self) -> None:
+        """Undo a chaos kill. The engine was never broken, so reviving
+        clears the flag and retires the dead incarnation's streams (a
+        respawned worker starts with an empty pool too)."""
+        self._killed = False
+        for dev in list(self.engine.streams):
+            self.engine.cancel_request(dev)
+            self.engine.retire(dev)
+        self.dead = False
+        self.suspect = False
+
     def drain(self) -> None:  # lifecycle parity with RemoteReplica
         pass
 
@@ -101,6 +140,8 @@ class LocalReplica:
         pass
 
     def __getattr__(self, name: str):
+        if self.__dict__.get("_killed"):
+            raise ConnectionError(f"local replica is chaos-killed ({name!r})")
         return getattr(self.engine, name)
 
 
@@ -229,6 +270,7 @@ class Router:
         *,
         placement: Union[str, PlacementPolicy] = "least-loaded",
         migrate_on_retire: bool = True,
+        faults: Optional[Any] = None,
     ):
         if not replicas:
             raise ValueError("Router needs at least one replica")
@@ -240,17 +282,46 @@ class Router:
                 f"replicas must be homogeneous for migration: k_max {k_maxes}, "
                 f"max_len {max_lens}"
             )
+        if faults is None:
+            from repro_torch.api.spec import FaultPolicy  # api sits above cluster
+
+            faults = FaultPolicy()
         self.replicas: List[Any] = wrapped
         self.placement = (
             placement if isinstance(placement, PlacementPolicy) else make_placement(placement)
         )
         self.migrate_on_retire = migrate_on_retire
+        self.faults = faults
+        self.chaos: Optional[Any] = None  # a ChaosInjector, attached by System or a test
         self.migrations = 0
         self.evictions = 0
+        self.respawns = 0
+        self.recovered_streams = 0
         self.shed_streams = 0
-        self.lost_devices: List[int] = []  # streams lost with evicted replicas
+        self.steps_taken = 0  # the cluster's step counter (the chaos schedule's clock)
+        self.lost_devices: List[int] = []  # streams shed with evicted replicas
         self._where: Dict[int, int] = {}  # device_id -> replica index
         self._pool: Optional[ThreadPoolExecutor] = None  # remote step fan-out
+        # one flight ring per replica, fed from the verdicts the router
+        # merges, so a post-mortem survives a worker that died without
+        # answering another RPC
+        self.flight: Dict[int, telemetry.FlightRecorder] = {
+            i: telemetry.FlightRecorder() for i in range(len(wrapped))}
+        self.flight_dumps: Dict[int, List[dict]] = {}  # idx -> its ring at eviction
+        self._round_seq: Dict[int, int] = {}  # device_id -> round seq
+        self._last_k: Dict[int, int] = {}  # device_id -> last submitted length
+        # device-replay shadows: what rebuilds a stream on another replica
+        # after its worker dies (the prompt, the committed history, and the
+        # round in flight, if any)
+        self._prompts: Dict[int, np.ndarray] = {}
+        self._admit_now: Dict[int, float] = {}
+        self._committed: Dict[int, List[int]] = {}
+        self._last_submit: Dict[int, Tuple] = {}  # dev -> (tokens, now, draft_q)
+        # respawn bookkeeping
+        self._backoff: Dict[int, Backoff] = {}
+        self._respawn_count: Dict[int, int] = {}
+        self._redial_at: Dict[int, float] = {}
+        self._hb: Optional[_HeartbeatMonitor] = None
 
     @classmethod
     def build(
@@ -262,6 +333,7 @@ class Router:
         n_slots: int,
         placement: Union[str, PlacementPolicy] = "least-loaded",
         migrate_on_retire: bool = True,
+        faults: Optional[Any] = None,
         **engine_kw,
     ) -> "Router":
         """N homogeneous in-process replicas of ``n_slots`` rows each. They
@@ -272,13 +344,18 @@ class Router:
             raise ValueError(f"need at least 1 replica, got {replicas}")
         engines = [ServerEngine(model, params, n_slots=n_slots, **engine_kw)
                    for _ in range(replicas)]
-        return cls(engines, placement=placement, migrate_on_retire=migrate_on_retire)
+        return cls(engines, placement=placement, migrate_on_retire=migrate_on_retire,
+                   faults=faults)
 
     # -- introspection -------------------------------------------------------
 
     @property
     def alive(self) -> List[Any]:
         return [r for r in self.replicas if not r.dead]
+
+    @property
+    def k_max(self) -> int:
+        return self.replicas[0].k_max
 
     @property
     def streams(self) -> Mapping:
@@ -293,18 +370,28 @@ class Router:
         return self._where[device_id]
 
     def loads(self) -> List[int]:
-        """Active stream count per replica."""
-        return [len(r.streams) for r in self.replicas]
+        """Active stream count per replica (0 for a chaos-killed local one)."""
+        out = []
+        for r in self.replicas:
+            try:
+                out.append(len(r.streams))
+            except ConnectionError:
+                out.append(0)
+        return out
 
     def _replica(self, device_id: int):
         return self.replicas[self._where[device_id]]
 
-    # -- failures (the default FaultPolicy: evict only) ----------------------
+    # -- supervision ---------------------------------------------------------
 
     def _evict(self, idx: int) -> None:
-        """Replica ``idx``'s worker is unreachable: mark it dead, record the
-        streams that went down with it in ``lost_devices`` and keep serving
-        on the survivors; with none left, raise."""
+        """Replica ``idx``'s worker is unreachable: mark it dead, collect the
+        streams that went down with it and keep serving on the survivors.
+        Under the default FaultPolicy that is all (a one-shot RPC retry
+        happens below this layer, behind the worker's replay cache); with
+        ``respawn`` or ``recover_streams`` on, the replica is revived in
+        place and its streams re-placed by device replay, and only what
+        exceeds the live capacity is shed."""
         replica = self.replicas[idx]
         if replica.dead:
             return
@@ -313,20 +400,169 @@ class Router:
         for d in lost:
             del self._where[d]
         self.evictions += 1
-        log.warning("evicting replica %d (%s): streams down %s", idx, replica.flavor, lost)
+        # the worker may be gone without a word: the router's own ring holds
+        # the replica's last rounds
+        dump = self.flight[idx].dump()
+        self.flight_dumps[idx] = dump
+        log.warning("evicting replica %d (%s): streams down %s; flight recorder holds %d "
+                    "round(s)", idx, replica.flavor, lost, len(dump))
+        for row in dump[-8:]:
+            log.warning("  flight[replica %d]: %s", idx, row)
         telemetry.count("router_evictions_total")
         replica.close()
+        if self.faults.respawn or self.faults.recover_streams:
+            recovered = self._recover(idx, lost)
+            lost = [d for d in lost if d not in recovered]
         for d in lost:
             self._shed(d)
         if not self.alive:
             raise RuntimeError(
                 f"all {len(self.replicas)} replicas evicted; cluster has no capacity")
 
+    def _drop_shadows(self, dev: int) -> None:
+        for shadow in (self._prompts, self._admit_now, self._committed,
+                       self._last_submit, self._round_seq, self._last_k):
+            shadow.pop(dev, None)
+
     def _shed(self, dev: int) -> None:
-        """Give up on one stream: record the loss."""
+        """Give up on one stream: record the loss and drop its shadows."""
         self.lost_devices.append(dev)
         self.shed_streams += 1
+        self._drop_shadows(dev)
         telemetry.count("router_shed_streams_total")
+
+    # -- recovery: respawn and device replay -----------------------------------
+
+    def _recover(self, idx: int, lost: List[int]) -> Set[int]:
+        """After an eviction: revive the dead replica (if the policy says
+        so), then re-place each lost stream by device replay. Returns the
+        devices that made it back."""
+        p = self.faults
+        if p.respawn:
+            self._try_revive(idx)
+        if not self.alive:
+            if not p.respawn:
+                return set()
+            self._revive_until_deadline()  # raises when the fleet is gone
+        if not p.recover_streams or not lost:
+            return set()
+        recovered: Set[int] = set()
+        with telemetry.span("router_recovery_seconds"):
+            for dev in lost:
+                if self._readmit(dev):
+                    recovered.add(dev)
+                    self.recovered_streams += 1
+                    telemetry.count("router_recovered_streams_total")
+                else:
+                    log.warning("device %d could not be re-placed; shedding", dev)
+        log.info("recovered %d/%d stream(s) after evicting replica %d",
+                 len(recovered), len(lost), idx)
+        return recovered
+
+    def _readmit(self, dev: int) -> bool:
+        """Re-place one orphaned stream by DEVICE REPLAY: admit the original
+        prompt, ``force_extend`` the committed history in runs of at most
+        k_max+1 (the engine's fallback-run ceiling), then submit the round
+        that was in flight again. The rebuilt state is the fault-free
+        stream's, so a greedy stream goes on with the same tokens."""
+        prompt = self._prompts.get(dev)
+        if prompt is None:
+            return False
+        committed = list(self._committed.get(dev, ()))
+        if self.admit(dev, prompt, self._admit_now.get(dev, 0.0)) is None:
+            return False  # every live pool is full: shed
+        run = self.k_max + 1
+        try:
+            idx = self._where[dev]
+            for i in range(0, len(committed), run):
+                with self._guard(idx):
+                    self.replicas[idx].force_extend(dev, np.asarray(committed[i:i + run],
+                                                                    np.int32))
+            pending = self._last_submit.get(dev)
+            if pending is not None:
+                tokens, t_sub, draft_q = pending
+                with self._guard(idx):
+                    self.replicas[idx].submit(dev, tokens, t_sub, draft_q=draft_q)
+        except ConnectionError:
+            # the new home died mid-replay; its eviction recovered in turn,
+            # so the stream is either re-placed in full or lost
+            return dev in self._where
+        return True
+
+    def _try_revive(self, idx: int, *, wait: bool = True) -> bool:
+        """One supervised revive: a seeded-jitter backoff (skipped on the
+        periodic redial, which ``redial_interval_s`` paces), the
+        ``max_respawns`` budget, and the replica's own ``revive()`` (respawn
+        or redial, place again, warm up)."""
+        replica = self.replicas[idx]
+        if not replica.dead:
+            return True
+        if not replica.can_revive():
+            return False
+        p = self.faults
+        n = self._respawn_count.get(idx, 0)
+        if n >= p.max_respawns:
+            return False
+        bo = self._backoff.get(idx)
+        if bo is None:
+            bo = self._backoff[idx] = Backoff(p.backoff_base_s, p.backoff_max_s,
+                                              p.backoff_jitter, seed=idx)
+        if wait:
+            time.sleep(bo.attempt())
+        self._respawn_count[idx] = n + 1
+        try:
+            with telemetry.span("router_respawn_seconds"):
+                replica.revive()
+        except Exception as e:  # a failed attempt counts against the budget
+            log.warning("revive of replica %d failed (attempt %d/%d): %s",
+                        idx, n + 1, p.max_respawns, e)
+            return False
+        bo.reset()
+        self.respawns += 1
+        telemetry.count("router_respawns_total")
+        log.info("replica %d revived (respawn %d/%d)", idx, n + 1, p.max_respawns)
+        return True
+
+    def _revivable(self, i: int) -> bool:
+        r = self.replicas[i]
+        return (r.dead and r.can_revive()
+                and self._respawn_count.get(i, 0) < self.faults.max_respawns)
+
+    def _revive_until_deadline(self) -> None:
+        """Every replica is dead but respawn is on: keep trying to bring one
+        back until ``all_dead_deadline_s`` runs out, then raise."""
+        p = self.faults
+        deadline = time.monotonic() + p.all_dead_deadline_s
+        while time.monotonic() < deadline:
+            eligible = [i for i in range(len(self.replicas)) if self._revivable(i)]
+            if not eligible:
+                break
+            if any(self._try_revive(i) for i in eligible):
+                return
+        raise RuntimeError(
+            f"all {len(self.replicas)} replicas evicted and none revived within "
+            f"{p.all_dead_deadline_s:.1f}s; cluster has no capacity")
+
+    def _maybe_redial(self) -> None:
+        """The step loop's supervision tick: now and then retry the dead
+        replicas that can come back (a dial-only peer whose partition may
+        have healed, a spawned worker under its respawn budget)."""
+        if not self.faults.respawn:
+            return
+        t = time.monotonic()
+        for i in range(len(self.replicas)):
+            if not self._revivable(i) or t < self._redial_at.get(i, 0.0):
+                continue
+            self._redial_at[i] = t + self.faults.redial_interval_s
+            self._try_revive(i, wait=False)
+
+    def _check_suspects(self) -> None:
+        """Evict the replicas the heartbeat monitor marked suspect (they
+        stopped answering Pings); eviction runs the recovery path."""
+        for i, r in enumerate(self.replicas):
+            if not r.dead and r.suspect:
+                log.warning("replica %d failed heartbeat; evicting", i)
+                self._evict(i)
 
     def _guard(self, idx: int):
         """``with router._guard(idx):`` one replica RPC; a transport failure
@@ -355,12 +591,16 @@ class Router:
             if stream is None:  # the policy saw a free slot the replica lacks
                 return None
             self._where[device_id] = idx
+            self._prompts[device_id] = np.asarray(prompt, np.int32).reshape(-1)
+            self._admit_now[device_id] = now
+            self._committed.setdefault(device_id, [])
             log.info("placed device %d on replica %d (%s, %d free slot(s) left)",
                      device_id, idx, self.replicas[idx].flavor, self.replicas[idx].n_free)
             return stream
 
     def retire(self, device_id: int) -> DeviceStream:
         idx = self._where.pop(device_id)
+        self._drop_shadows(device_id)
         with self._guard(idx):
             stream = self.replicas[idx].retire(device_id)
         if self.migrate_on_retire:
@@ -430,20 +670,49 @@ class Router:
 
     def submit(self, device_id: int, draft_tokens: np.ndarray, now: float,
                draft_q: Optional[np.ndarray] = None) -> None:
+        tokens = np.asarray(draft_tokens)
+        self._last_k[device_id] = int(tokens.shape[0])
+        self._last_submit[device_id] = (tokens, now, draft_q)
         idx = self._where[device_id]
-        with self._guard(idx):
-            self.replicas[idx].submit(device_id, np.asarray(draft_tokens), now, draft_q=draft_q)
+        try:
+            self.replicas[idx].submit(device_id, tokens, now, draft_q=draft_q)
+        except ConnectionError:
+            self._evict(idx)
+            if device_id not in self._where:
+                raise  # the stream was shed with the replica
+            # recovery re-placed the stream and submitted this round again
+            # (it was in _last_submit already): the caller's submit stands
 
     def cancel_request(self, device_id: int) -> bool:
         idx = self._where[device_id]
-        with self._guard(idx):
-            return self.replicas[idx].cancel_request(device_id)
+        try:
+            ok = self.replicas[idx].cancel_request(device_id)
+        except ConnectionError:
+            self._evict(idx)
+            if device_id not in self._where:
+                raise
+            # recovered elsewhere with its round submitted again: cancel that
+            with self._guard(self._where[device_id]):
+                ok = self.replicas[self._where[device_id]].cancel_request(device_id)
+        if ok:
+            self._last_submit.pop(device_id, None)
+        return ok
 
     def force_extend(self, device_id: int, tokens: np.ndarray) -> int:
+        toks = np.asarray(tokens, np.int32).reshape(-1)
         idx = self._where[device_id]
-        with self._guard(idx):
-            return self.replicas[idx].force_extend(
-                device_id, np.asarray(tokens, np.int32).reshape(-1))
+        try:
+            prev = self.replicas[idx].force_extend(device_id, toks)
+        except ConnectionError:
+            self._evict(idx)
+            if device_id not in self._where:
+                raise
+            # recovered: the committed shadow does not hold these tokens yet,
+            # so the replay stopped short of them; apply them on the new home
+            with self._guard(self._where[device_id]):
+                prev = self.replicas[self._where[device_id]].force_extend(device_id, toks)
+        self._committed.setdefault(device_id, []).extend(int(t) for t in toks)
+        return prev
 
     def has_inflight(self, device_id: int) -> bool:
         return device_id in self._where and self._replica(device_id).has_inflight(device_id)
@@ -462,7 +731,19 @@ class Router:
         worker. A replica that fails mid-step is evicted after every step
         has resolved, and the survivors' verdicts are still returned. Each
         verdict's queue-depth feedback stays replica-local: the congestion
-        signal of the streams riding that replica."""
+        signal of the streams riding that replica.
+
+        This is also the supervision tick: the chaos schedule fires on the
+        step counter, suspect (heartbeat-silent) replicas are evicted, and
+        dead replicas get their periodic redial."""
+        self.steps_taken += 1
+        if self.chaos is not None:
+            self.chaos.on_step(self.steps_taken)
+        if self._hb is None and self.faults.heartbeat_interval_s > 0:
+            self._hb = _HeartbeatMonitor(self, self.faults)
+            self._hb.start()
+        self._check_suspects()
+        self._maybe_redial()
         remote_idx = [i for i, r in enumerate(self.replicas)
                       if not r.dead and r.flavor == "remote"]
         futures = {}
@@ -486,13 +767,30 @@ class Router:
                     results[i] = fut.result()
                 except ConnectionError:
                     failed.append(i)
-            # evict only once every step has resolved: a channel is not
-            # thread-safe, and eviction closes one
+            # evict only once every step has resolved: recovery may admit
+            # streams to the survivors, whose channels must be idle first
+            # (a channel is not thread-safe)
             for i in failed:
                 self._evict(i)
         verdicts: List[Verdict] = []
         for i in sorted(results):
-            verdicts.extend(results[i] or ())
+            out = results[i] or ()
+            ring = self.flight[i]
+            for v in out:
+                # the ring records every round, telemetry on or off, so an
+                # eviction always has its post-mortem (a deque append each)
+                seq = self._round_seq.get(v.device_id, 0)
+                self._round_seq[v.device_id] = seq + 1
+                ring.record(telemetry.TraceEvent(
+                    device_id=v.device_id, round=seq, t=now,
+                    k=self._last_k.get(v.device_id, 0), n_accepted=v.n_accepted,
+                    n_commit=len(v.tokens), queue_s=v.queue_s, verify_s=v.verify_s,
+                    replica=i))
+                # device-replay shadow: the verdict's tokens are committed
+                # history now, and its round is no longer in flight
+                self._committed.setdefault(v.device_id, []).extend(int(t) for t in v.tokens)
+                self._last_submit.pop(v.device_id, None)
+            verdicts.extend(out)
         return verdicts or None
 
     def warmup(self) -> Dict[int, float]:
@@ -512,8 +810,12 @@ class Router:
         return out
 
     def drain(self) -> None:
-        """Ask every live worker to exit (reaping spawned processes); local
-        replicas do nothing. Safe to call twice."""
+        """Stop the heartbeat and ask every live worker to exit (reaping
+        spawned processes); local replicas do nothing. Safe to call twice."""
+        if self._hb is not None:
+            self._hb.stop()
+            self._hb.join(timeout=10.0)
+            self._hb = None
         for r in self.replicas:
             if not r.dead:
                 r.drain()
@@ -540,14 +842,17 @@ class Router:
 
     def telemetry_payload(self) -> dict:
         """Cluster-level telemetry record, the keys of
-        ``ServerEngine.telemetry_payload`` plus each live replica's pool
-        capacity (a worker's from the gauges of its last ReplicaStats
-        payload), the workers' payloads and the evictions; empty while
-        telemetry is off. ``flight`` stays empty until the flight recorder
-        is ported (ROADMAP.md Queue A, faults)."""
+        ``ServerEngine.telemetry_payload`` (``flight``: every replica's ring,
+        each event tagged with its replica, in time order) plus each live
+        replica's pool capacity (a worker's from the gauges of its last
+        ReplicaStats payload), the workers' payloads, the rings dumped at
+        evictions (``evicted``) and the supervision counters; empty while
+        telemetry is off."""
         if not telemetry.enabled():
             return {}
-        out = {"snapshot": telemetry.registry().snapshot(), "flight": []}
+        flight = [ev.to_json() for ring in self.flight.values() for ev in ring.events()]
+        flight.sort(key=lambda e: e["t"])
+        out = {"snapshot": telemetry.registry().snapshot(), "flight": flight}
         pools, workers = {}, {}
         for i, r in enumerate(self.replicas):
             if r.dead:
@@ -572,10 +877,56 @@ class Router:
             out["pools"] = pools
         if workers:
             out["workers"] = workers
-        if self.evictions:
-            out["supervision"] = {"evictions": self.evictions, "shed_streams": self.shed_streams,
-                                  "lost_devices": list(self.lost_devices)}
+        if self.flight_dumps:
+            out["evicted"] = {str(i): d for i, d in self.flight_dumps.items()}
+        if self.evictions or self.respawns or self.shed_streams:
+            out["supervision"] = {
+                "evictions": self.evictions, "respawns": self.respawns,
+                "recovered_streams": self.recovered_streams,
+                "shed_streams": self.shed_streams, "lost_devices": list(self.lost_devices),
+            }
         return out
+
+
+class _HeartbeatMonitor(threading.Thread):
+    """Background Ping loop over every remote replica's own heartbeat
+    channel: ``heartbeat_misses`` Pings in a row unanswered mark the replica
+    ``suspect``, and the Router evicts suspects at the top of its next step,
+    so a partitioned or stopped worker is found in seconds, not after the
+    control RPC's timeout. A worker answers a Ping after the request it is
+    handling, so the timeout must sit above its longest RPC. Replicas
+    without ``ping`` (in-process ones) are skipped."""
+
+    def __init__(self, router: Router, policy: Any):
+        super().__init__(daemon=True, name="router-heartbeat")
+        self.router = router
+        self.policy = policy
+        self.misses: Dict[int, int] = {}
+        self._stopped = threading.Event()
+
+    def stop(self) -> None:
+        self._stopped.set()
+
+    def run(self) -> None:
+        while not self._stopped.wait(self.policy.heartbeat_interval_s):
+            self.sweep()
+
+    def sweep(self) -> None:
+        """One pass over the fleet (apart from run(), for tests)."""
+        for i, r in enumerate(self.router.replicas):
+            ping = getattr(r, "ping", None)
+            if r.dead or r.suspect or ping is None:
+                continue
+            if ping(timeout=self.policy.heartbeat_timeout_s):
+                self.misses[i] = 0
+                continue
+            self.misses[i] = self.misses.get(i, 0) + 1
+            telemetry.count("router_heartbeat_misses_total")
+            if self.misses[i] >= self.policy.heartbeat_misses:
+                log.warning("replica %d missed %d heartbeat(s) in a row; marking suspect",
+                            i, self.misses[i])
+                r.suspect = True
+                self.misses[i] = 0
 
 
 class _EvictOnGone:

@@ -82,6 +82,9 @@ class ServerEngine:
         self.kv_dtype = kv_dtype
         self._batch_cap = cap
         self.round_log: List[RoundStats] = []
+        # telemetry on: the last rounds, for crash, eviction and drain reports
+        self.flight = telemetry.FlightRecorder()
+        self._round_seq: Dict[int, int] = {}  # device_id -> next round seq
         self._t0: Optional[float] = None
         self._t_last = 0.0
         self._committed_total = 0
@@ -185,8 +188,17 @@ class ServerEngine:
         self._committed_total += toks.size
         self._fallback_tokens += toks.size
         self._fallback_rounds += 1
-        telemetry.count("engine_fallback_rounds_total")
+        if telemetry.enabled():
+            telemetry.count("engine_fallback_rounds_total")
+            self.flight.record(telemetry.TraceEvent(
+                device_id=device_id, round=self._next_round(device_id), t=self._t_last,
+                k=0, n_accepted=0, n_commit=int(toks.size), fallback=True))
         return stream.prev_token
+
+    def _next_round(self, device_id: int) -> int:
+        seq = self._round_seq.get(device_id, 0)
+        self._round_seq[device_id] = seq + 1
+        return seq
 
     def has_inflight(self, device_id: int) -> bool:
         return self.admission.has_inflight(device_id)
@@ -246,6 +258,10 @@ class ServerEngine:
                 verify_s=step_seconds,
             ))
             if telemetry.enabled():
+                self.flight.record(telemetry.TraceEvent(
+                    device_id=req.device_id, round=self._next_round(req.device_id), t=now,
+                    k=int(lens[i]), n_accepted=n_acc, n_commit=n, queue_s=queue_s,
+                    verify_s=step_seconds))
                 telemetry.observe("engine_round_latency_seconds", queue_s + step_seconds)
                 telemetry.observe("engine_k", int(lens[i]), buckets=telemetry.K_BUCKETS)
         self._busy_seconds += step_seconds
@@ -285,14 +301,13 @@ class ServerEngine:
     def telemetry_payload(self) -> dict:
         """This replica's telemetry as one JSON-shaped record, empty while
         telemetry is off: the metrics snapshot, with the pool gauges read
-        now. ``flight`` stays empty: the flight recorder is not ported yet
-        (ROADMAP.md Queue A, faults)."""
+        now, and the flight recorder's last rounds."""
         if not telemetry.enabled():
             return {}
         reg = telemetry.registry()
         reg.gauge("engine_kv_pool_bytes").set(float(self.pool.pool_bytes()))
         reg.gauge("engine_bytes_per_slot").set(float(self.pool.bytes_per_slot()))
-        return {"snapshot": reg.snapshot(), "flight": []}
+        return {"snapshot": reg.snapshot(), "flight": self.flight.dump()}
 
 
 # ---------------------------------------------------------------------------

@@ -49,9 +49,10 @@
 //     mma.sync the tensor cores sum in their own order, a few P values per
 //     call round the other way, and outputs above 0.5 move by a bf16 ulp
 //     (0.0039). The products run as register tiles (4 rows x 4 positions,
-//     4 rows x D/16 columns a thread) on f32 tiles in shared memory, and the
-//     softmax on the score tile in registers (a row's 64 positions across
-//     the 16 lanes of a half-warp).
+//     and for P.V 4 rows x D/16 columns at D >= 64, 1 row x 4 columns at
+//     D = 16: PvLayout) on f32 tiles in shared memory, and the softmax on
+//     the score tile in registers (a row's 64 positions across the 16
+//     lanes of a half-warp).
 //   - cp.async: the K rows of both 32-position chunks of a split go out in
 //     one group and the V rows in a second, so the scores are computed while
 //     V is still in flight. Positions past the tile's limit are zero-filled.
@@ -89,6 +90,23 @@ constexpr int kBlockK = 32;               // KV positions per chunk
 constexpr int kSplit = 64;                // KV positions per split (a plain version's chunk)
 constexpr int kChunks = kSplit / kBlockK; // chunks per split, each with its own buffer
 constexpr float kNegInf = -1e30f;
+
+// P.V's thread tile: kCols groups of kDC adjacent output columns (a
+// multiple of 4: float4 reads, stores and partials) by kRowGroups groups of
+// rows, kRows rows a thread (rows rp + kRowGroups*i, thread tid =
+// rp*kCols + cp). At D >= 64 it is the scores' tile: 16 column groups and
+// 8 row groups of 4 rows (rp, cp = the score tile's rq, cq). At D = 16 (the
+// reduced configs' head_dim) there are 4 columns for 16 groups, so it is 4
+// groups of 4 columns by 32 row groups of 1 row. Each output is one f32 FMA
+// chain over positions in order at every D.
+template <int D>
+struct PvLayout {
+  static constexpr int kCols = D >= 64 ? 16 : D / 4;
+  static constexpr int kDC = D / kCols;
+  static constexpr int kRowGroups = kThreads / kCols;
+  static constexpr int kRows = kTileRows / kRowGroups;
+  static_assert(kDC % 4 == 0 && kRowGroups * kRows == kTileRows, "P.V tile");
+};
 
 // Shared memory of one block (dynamic). The copies land in bf16 (or raw
 // int8) tiles; K and then V are widened to f32 in kv (V once the scores are
@@ -223,13 +241,14 @@ __device__ __forceinline__ void qk_rows(const float (*q)[D + 4], const float (*k
   }
 }
 
-// acc += P.V for rows r, r + 8, ... (NV of them) and columns cq*DC ..
-// cq*DC + DC over positions c < nc: each output one f32 FMA chain over c in
-// order.
+// acc += P.V for rows r + RG*i (i < NV; RG the row groups) and columns
+// cq*DC .. cq*DC + DC over positions c < nc: each output one f32 FMA chain
+// over c in order.
 template <int NV, int D>
 __device__ __forceinline__ void pv_rows(const float (*p)[kSplit + 1], const float (*v)[D + 4],
-                                        int r, int cq, int nc, float (&acc)[4][D / 16]) {
-  constexpr int DC = D / 16;
+                                        int r, int cq, int nc,
+                                        float (&acc)[PvLayout<D>::kRows][PvLayout<D>::kDC]) {
+  constexpr int DC = PvLayout<D>::kDC, RG = PvLayout<D>::kRowGroups;
 #pragma unroll 4
   for (int c = 0; c < nc; ++c) {
     float vr[DC], pr[NV];
@@ -242,11 +261,29 @@ __device__ __forceinline__ void pv_rows(const float (*p)[kSplit + 1], const floa
       vr[e + 3] = x.w;
     }
 #pragma unroll
-    for (int vv = 0; vv < NV; ++vv) pr[vv] = p[r + 8 * vv][c];
+    for (int vv = 0; vv < NV; ++vv) pr[vv] = p[r + RG * vv][c];
 #pragma unroll
     for (int vv = 0; vv < NV; ++vv) {
 #pragma unroll
       for (int e = 0; e < DC; ++e) acc[vv][e] = fmaf(pr[vv], vr[e], acc[vv][e]);
+    }
+  }
+}
+
+// P.V for a thread's nv row groups (nv a template argument inside, so the
+// inner loops carry no branch).
+template <int D>
+__device__ __forceinline__ void pv_tile(const float (*p)[kSplit + 1], const float (*v)[D + 4],
+                                        int r, int cq, int nc, int nv,
+                                        float (&acc)[PvLayout<D>::kRows][PvLayout<D>::kDC]) {
+  if constexpr (PvLayout<D>::kRows == 1) {
+    pv_rows<1, D>(p, v, r, cq, nc, acc);
+  } else {
+    switch (nv) {
+      case 1: pv_rows<1, D>(p, v, r, cq, nc, acc); break;
+      case 2: pv_rows<2, D>(p, v, r, cq, nc, acc); break;
+      case 3: pv_rows<3, D>(p, v, r, cq, nc, acc); break;
+      default: pv_rows<4, D>(p, v, r, cq, nc, acc); break;
     }
   }
 }
@@ -261,15 +298,16 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ kv_valid,
                    const int* __restrict__ slots,
                    __nv_bfloat16* __restrict__ out,
-                   float* __restrict__ part_acc,  // [tile, split][thread][4][D/16]
+                   float* __restrict__ part_acc,  // [tile, split][thread][kRows][kDC]
                    float* __restrict__ part_ml,   // [tile, split][row] (m, l)
                    float* __restrict__ part_lm,   // [tile, split][row] local max
                    int* __restrict__ sync,        // block counter, then [tile][split] flags
                    int n_split, int n_tiles, int sq, int hq, int hkv, int skv,
                    long long s_row, long long s_seq, long long s_head,
                    long long sc_row, float scale) {
+  using PV = PvLayout<D>;
   constexpr int D2 = D / 2;
-  constexpr int DC = D / 16;  // output columns per thread in P.V
+  constexpr int DC = PV::kDC;  // output columns per thread in P.V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D, KV>& sm = *reinterpret_cast<Smem<D, KV>*>(smem_raw);
   __shared__ int bid_s;
@@ -414,19 +452,18 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();  // P and the row sums are in shared memory
 
   // acc = P V, each output one f32 FMA chain over the split's positions in
-  // order (the plain version's order within its chunk). Columns: cq*DC..
-  float acc[4][DC];
+  // order (the plain version's order within its chunk). The thread's rows
+  // rp + RG*i and columns cp*DC.. (PvLayout; rq and cq at D >= 64)
+  constexpr int RG = PV::kRowGroups;
+  const int rp = tid / PV::kCols, cp = tid % PV::kCols;
+  const int nvp = (rn + RG - 1) / RG;
+  float acc[PV::kRows][DC];
 #pragma unroll
-  for (int vv = 0; vv < 4; ++vv) {
+  for (int vv = 0; vv < PV::kRows; ++vv) {
 #pragma unroll
     for (int e = 0; e < DC; ++e) acc[vv][e] = 0.f;
   }
-  switch (nv) {
-    case 1: pv_rows<1, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
-    case 2: pv_rows<2, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
-    case 3: pv_rows<3, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
-    default: pv_rows<4, D>(sm.qs.s, sm.kv, rq, cq, n_chunks * kBlockK, acc); break;
-  }
+  pv_tile<D>(sm.qs.s, sm.kv, rp, cp, n_chunks * kBlockK, nvp, acc);
 
   // Merge in split order as the plain version's online softmax does: per
   // split, acc = acc * e^{m_prev - m} + acc_s and l = l * e^{m_prev - m} + l_s
@@ -434,12 +471,12 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   // partial to device memory; the last merges them and its own.
   float4* pacc = reinterpret_cast<float4*>(part_acc);
   float2* pml = reinterpret_cast<float2*>(part_ml);
-  constexpr int F4 = 4 * DC / 4;  // float4 of accumulators per thread
+  constexpr int F4 = PV::kRows * DC / 4;  // float4 of accumulators per thread
   if (n_live > 1 && !last) {
     float4* dst = &pacc[((part0 + split) * kThreads + tid) * F4];
 #pragma unroll
-    for (int vv = 0; vv < 4; ++vv) {
-      if (vv >= nv) continue;  // rows the tile does not have
+    for (int vv = 0; vv < PV::kRows; ++vv) {
+      if (vv >= nvp) continue;  // rows the tile does not have
 #pragma unroll
       for (int e = 0; e < DC; e += 4) {
         dst[(vv * DC + e) / 4] =
@@ -459,21 +496,21 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   // per split, every row's loads go out together: one round trip a split
-  float o[4][DC], lt[4], m_prev[4];
+  float o[PV::kRows][DC], lt[PV::kRows], m_prev[PV::kRows];
 #pragma unroll
-  for (int vv = 0; vv < 4; ++vv) {
+  for (int vv = 0; vv < PV::kRows; ++vv) {
     lt[vv] = 0.f;
     m_prev[vv] = kNegInf;
 #pragma unroll
     for (int e = 0; e < DC; ++e) o[vv][e] = 0.f;
   }
   for (int sp = 0; sp <= split; ++sp) {
-    float2 ml[4];
-    float x[4][DC];
+    float2 ml[PV::kRows];
+    float x[PV::kRows][DC];
 #pragma unroll
-    for (int vv = 0; vv < 4; ++vv) {
-      const int r = min(rq + 8 * vv, rn - 1);  // rows past rn: any real row
-      if (sp < split && vv < nv) {
+    for (int vv = 0; vv < PV::kRows; ++vv) {
+      const int r = min(rp + RG * vv, rn - 1);  // rows past rn: any real row
+      if (sp < split && vv < nvp) {
         ml[vv] = __ldcg(&pml[(part0 + sp) * kTileRows + r]);
         const float4* src = &pacc[((part0 + sp) * kThreads + tid) * F4 + vv * DC / 4];
 #pragma unroll
@@ -491,7 +528,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 #pragma unroll
-    for (int vv = 0; vv < 4; ++vv) {
+    for (int vv = 0; vv < PV::kRows; ++vv) {
       const float corr = expf(m_prev[vv] - ml[vv].x);
       lt[vv] = __fadd_rn(__fmul_rn(lt[vv], corr), ml[vv].y);
 #pragma unroll
@@ -500,11 +537,11 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 #pragma unroll
-  for (int vv = 0; vv < 4; ++vv) {
-    const int r = rq + 8 * vv;
+  for (int vv = 0; vv < PV::kRows; ++vv) {
+    const int r = rp + RG * vv;
     if (r >= rn) continue;
     const float den = fmaxf(lt[vv], 1e-30f);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + row_of(r) + cq * DC);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + row_of(r) + cp * DC);
 #pragma unroll
     for (int e = 0; e < DC; e += 2) dst[e / 2] = mma::pack_bf16(o[vv][e] / den, o[vv][e + 1] / den);
   }
@@ -558,6 +595,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              long long s_head, long long sc_layer, long long sc_row, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 16:
+      return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+                            sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
+                            sc_row, scale, st);
     case 64:
       return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,

@@ -2,7 +2,8 @@
 
 Off by default; ``System.build`` turns it on when the spec says
 ``telemetry: true``. Spans wrap host-side boundaries only. ``TraceEvent``
-is the per-round record the transport client keeps.
+is the per-round record; a ``FlightRecorder`` keeps the last rounds of an
+engine or of each replica behind a Router.
 """
 
 from repro_torch.telemetry.metrics import (
@@ -17,10 +18,11 @@ from repro_torch.telemetry.metrics import (
     registry,
     span,
 )
-from repro_torch.telemetry.trace import TraceEvent
+from repro_torch.telemetry.trace import FlightRecorder, TraceEvent
 
 __all__ = [
     "C_TH_BUCKETS",
+    "FlightRecorder",
     "K_BUCKETS",
     "LATENCY_BUCKETS_S",
     "MetricsRegistry",

@@ -35,7 +35,9 @@ A connection or step task that raises records its error in ``error`` and
 wakes :meth:`TransportServer.raise_on_error`, which a serve awaits beside
 its clients, so the serve fails with that error instead of waiting for
 ever on a task nothing awaits (a departure from the JAX package, whose
-serve hangs there).
+serve hangs there). A stream a Router shed with an evicted replica fails
+the serve the same way: its device would wait for a verdict that never
+comes (the JAX package's client waits out its retries, 64 timeouts).
 """
 from __future__ import annotations
 
@@ -251,6 +253,10 @@ class TransportServer:
         while True:
             now = self.now()
             verdicts = self.engine.step(now)
+            shed = [d for d in getattr(self.engine, "lost_devices", ()) if d in self._conns]
+            if shed:
+                raise RuntimeError(f"the streams of devices {shed} were shed with an evicted "
+                                   "replica; their clients would wait out every retry")
             if verdicts:
                 # encode + record with NO awaits in between: once anything
                 # else runs, every verdict of this round must be authoritative

@@ -96,6 +96,50 @@ def test_cuda_kernels_match_plain_versions(paged, kv):
                                rtol=ATTN_TOL, atol=ATTN_TOL)
 
 
+# the reduced qwen2's attention (Hq 4, Hkv 2, head_dim 16, max_len 128):
+# (B, Sq, Skv, kv_valid, pool slots or None for a dense cache)
+_D16_SHAPES = [
+    (4, 5, 128, [40, 17, 128, 5], [1, 0, 3, 3]),  # engine verify, k_max 4, a scratch row
+    (1, 8, 128, [8], None),                          # slot prefill of an 8-token prompt
+    (1, 1, 128, [23], None),                         # draft decode
+    (2, 5, 128, [70, 65], [2, 1]),                   # two splits
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", range(len(_D16_SHAPES)))
+def test_cuda_head_dim_16_matches_plain_version(shape, kv):
+    """head_dim 16, the reduced configs' (its P.V tile: 4 column groups of
+    4 by 32 row groups), dense and paged, bf16 and int8 caches, against
+    the plain version."""
+    dev = _card()
+    B, Sq, Skv, kvv, slots = _D16_SHAPES[shape]
+    rng = np.random.default_rng(29 + shape)
+    rows = B if slots is None else max(slots) + 1
+    q = _bf16(rng.standard_normal((B, Sq, 4, 16)), dev)
+    kf = rng.standard_normal((rows, Skv, 2, 16)).astype(np.float32)
+    vf = rng.standard_normal((rows, Skv, 2, 16)).astype(np.float32)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    sc = {}
+    if kv == "int8":
+        (k, ks), (v, vs) = _quantize(kf), _quantize(vf)
+        k, v, ks, vs = (torch.from_numpy(a).to(dev) for a in (k, v, ks, vs))
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = _bf16(kf, dev), _bf16(vf, dev)
+    if slots is None:
+        got = verify_attn.verify_attention_packed(q, k, v, kv_valid, **sc)
+        want = ref.verify_attention_ref(q, k, v, kv_valid, **sc)
+    else:
+        sl = torch.tensor(slots, dtype=torch.int32, device=dev)
+        got = verify_attn.verify_attention_paged(q, k, v, sl, kv_valid, **sc)
+        want = ref.verify_attention_paged_ref(q, k, v, sl, kv_valid, **sc)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(1, 199, 32, 64, 128, 256), (2, 300, 4, 16, 32, 64)])
 def test_cuda_ssd_scan_matches_plain_version(shape):

@@ -45,7 +45,7 @@ from repro_torch.api.spec import (
     FleetSpec,
     ReplicaSpec,
 )
-from repro_torch.cluster.remote import spawn_worker
+from repro_torch.cluster.remote import ReplicaGone, spawn_worker
 from repro_torch.cluster.router import Router
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import engine_loop, verification
@@ -260,6 +260,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.build, repro_torch.kernels.verify_attn\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba2\n"
         "import repro_torch.cluster.remote, repro_torch.transport.worker\n"
+        "import repro_torch.cluster.faults, repro_torch.launch.chaos\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -303,30 +304,50 @@ def test_entry_points_default_to_the_card(entry):
 
 _FLEET = FleetSpec(classes=(DeviceClassSpec(profile="jetson-orin-nano", count=3),))
 _REMOTE = ReplicaSpec(flavor="remote", address="tcp:127.0.0.1:7001")
-_REMOTES = ClusterSpec(replicas=(ReplicaSpec(flavor="remote"), _REMOTE))
 _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 
 
 @pytest.mark.parametrize("change", [
     {"paged_attention": False},
-    {"backend": "cluster", "cluster": _REMOTES, "faults": _KILL},
+])
+def test_unported_specs_raise_not_implemented(change):
+    """What a later slice serves (paged_attention=False) is refused; the
+    cluster and transport backends with in-process or remote replicas,
+    fault schedules and policies, sampling, quantized targets and fleets
+    are served."""
+    spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        System.build(spec, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    {"backend": "cluster", "cluster": ClusterSpec(replicas=(_REMOTE,)), "faults": _KILL},
     {"backend": "transport",
-     "cluster": dataclasses.replace(_REMOTES, faults=FaultPolicy(respawn=True))},
+     "cluster": ClusterSpec(replicas=(_REMOTE,), faults=FaultPolicy(respawn=True))},
     {"backend": "cluster", "cluster": ClusterSpec(replicas=2), "faults": _KILL},
     {"backend": "transport", "faults": _KILL},
     {"backend": "cluster", "cluster": ClusterSpec(replicas=2, faults=FaultPolicy(respawn=True))},
     {"backend": "transport", "cluster": ClusterSpec(faults=FaultPolicy(recover_streams=True))},
     {"backend": "cluster", "cluster": ClusterSpec(faults=FaultPolicy(heartbeat_interval_s=1.0))},
 ])
-def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (fault schedules and non-default fault
-    policies, with remote replicas too, and paged_attention=False) is
-    refused before any worker is spawned or dialed; the cluster and
-    transport backends with in-process or remote replicas, sampling,
-    quantized targets and fleets are served."""
+def test_fault_specs_build_as_in_the_jax_package(change):
+    """The fault schedules and policies the port refused until the faults
+    slice now build the JAX package's engine: a Router under the spec's
+    FaultPolicy, with a ChaosInjector when a schedule is active (one
+    transport replica under chaos keeps the Router; without a schedule it
+    is the bare engine). With a remote replica the build gets as far as
+    dialing its worker (nobody listens)."""
     spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System.build(spec, device="cpu")
+    if spec.cluster.has_remote:
+        with pytest.raises(ReplicaGone, match="cannot dial"):
+            System.build(spec, device="cpu")
+        return
+    engine = System.build(spec, device="cpu").engine
+    if spec.backend == "transport" and spec.cluster.n_replicas == 1 and not spec.faults.active:
+        assert type(engine) is ServerEngine
+        return
+    assert isinstance(engine, Router) and engine.faults == spec.cluster.faults
+    assert (engine.chaos is not None) == spec.faults.active
 
 
 @pytest.mark.parametrize("change,engine", [

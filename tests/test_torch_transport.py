@@ -301,7 +301,8 @@ def test_rate_for_scales_the_class_rate():
 def test_telemetry_traces_rounds_and_reads_the_pools():
     """With telemetry on, each transport session carries its client's
     per-round trace (one event per round, wire time attributed) and the
-    serve's payload holds the metrics snapshot and each replica's pool."""
+    serve's payload holds the metrics snapshot, each replica's pool and
+    the Router's flight rings (every round, tagged with its replica)."""
     spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), backend="transport",
                                cluster=ClusterSpec(replicas=2), telemetry=True)
     try:
@@ -313,5 +314,7 @@ def test_telemetry_traces_rounds_and_reads_the_pools():
         assert len(s.trace) == s.rounds > 0
         assert all(ev.wire_s >= 0 and ev.device_id == s.device_id for ev in s.trace)
     payload = res.telemetry
-    assert set(payload["pools"]) == {"0", "1"} and payload["flight"] == []
+    assert set(payload["pools"]) == {"0", "1"}
+    assert len(payload["flight"]) == sum(s.rounds for s in res.sessions)
+    assert {ev["replica"] for ev in payload["flight"]} <= {0, 1}
     assert "client_round_seconds" in payload["snapshot"]["histograms"]

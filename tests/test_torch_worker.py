@@ -439,8 +439,8 @@ def test_no_replica_left_is_fatal():
 
 def test_telemetry_payload_reads_the_workers_pool_gauges():
     """With telemetry on, a worker's ReplicaStats carries its metrics
-    snapshot (``flight`` empty until the flight recorder is ported), and
-    the cluster record takes each remote replica's pool from its gauges."""
+    snapshot and its flight ring (empty before any round), and the cluster
+    record takes each remote replica's pool from its gauges."""
     was = telemetry.enabled()
     telemetry.enable(True)
     try:
