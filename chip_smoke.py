@@ -85,6 +85,14 @@ Phases, each of which must pass for the script to exit 0:
                         retried RPCs (through repro_torch.launch.chaos
                         --check); the kill under the default policy, whose
                         lost sessions end shed;
+               paper  - the paper's pair at its published widths
+                        (llama-11b-target, 40 layers, 32 query heads on 8
+                        KV heads of 128, an untied head, verifying
+                        llama-1b-draft, each with its own seeded init): both
+                        bf16 kernels launched; acceptance printed, not
+                        required (two random models of different widths
+                        essentially never agree); held to the reference
+                        with the replay witness as mamba2 is (see check());
                every kernel of a path must be launched in its run (counters
                reset just before, read just after; "launches" is a kernel's
                main path's count, "launches_by_path" every path's), some
@@ -93,6 +101,16 @@ Phases, each of which must pass for the script to exit 0:
                tie; for mamba2 also where a target-only replay on each
                stream's own commit boundaries and batch shapes gives back
                both streams (see check()).
+  4. calibrate h100 - the 11B verify step per bucket (1, 2, 4, 8; median
+               of 5 after a warm one) beside its weight-stream bound, which
+               it must not beat, and the h100 ServerProfile's prediction;
+               prints the profile's launch overhead as measured here;
+  5. sim fig4 - serving.simulator on the h100 profile in the setting of the
+               JAX package's benchmarks/wstgr.py --quick (a prediction);
+  6. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
+               card with the h100 profile, its winner round-tripped through
+               JSON and served, the attention kernels launched; then the
+               tune CLI once in its own process.
 ``python3 chip_smoke.py --worker --counts FILE --listen ADDR`` is the
 worker mode the remote phase starts (see worker_main).
 The line before the last is a JSON object with one record per kernel entry;
@@ -347,6 +365,15 @@ def check_attention(records: dict) -> None:
         ("bf16", 2, 5, 4, 2, 16, 128, [70, 128], [1, 0], 2),
         ("int8", 2, 5, 4, 2, 16, 128, [21, 30], [0, 1], 2),
         ("int8", 1, 8, 4, 2, 16, 128, [8], None, 2),
+        # the paper pair (llama-11b-target verifying llama-1b-draft): 32
+        # query heads on 8 KV heads (G = 4); the draft's decode at head_dim
+        # 64 over 16 layers, the target's slot prefill and its engine verify
+        # (6 streams and 2 scratch rows, bucket 8) at head_dim 128 over 40
+        ("bf16", 1, 1, 32, 8, 64, 512, [230], None, 16),
+        ("bf16", 1, 199, 32, 8, 128, 512, [199], None, 40),
+        ("bf16", 8, 5, 32, 8, 128, 512, [205, 212, 233, 240, 219, 208, 5, 5],
+         [3, 0, 5, 1, 2, 4, 6, 6], 40),
+        ("bf16", 4, 5, 32, 8, 128, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -410,18 +437,19 @@ def check_attention(records: dict) -> None:
 
 def check_batch_invariance(gen) -> None:
     """The same rows attended alone (B=1) and in a batch of 6 give the same
-    bits: the kernel's splits and merge order do not depend on the batch."""
+    bits: the kernel's splits and merge order do not depend on the batch
+    (qwen2's 12 query heads on 2 KV heads, and the paper pair's 32 on 8)."""
     from repro_torch.kernels import verify_attn
 
     dev = torch.device("cuda")
     kvv = [205, 233, 240, 5, 5, 5]
-    for kv in ("bf16", "int8"):
-        k = torch.randn(2, 7, 512, 2, 128, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(2, 7, 512, 2, 128, generator=gen, device=dev).to(torch.bfloat16)
+    for kv, hq, hkv in (("bf16", 12, 2), ("int8", 12, 2), ("bf16", 32, 8)):
+        k = torch.randn(2, 7, 512, hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(2, 7, 512, hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
         if kv == "int8":
             (k, ks), (v, vs) = _quantize(k), _quantize(v)
-        q = torch.randn(6, 5, 12, 128, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn(6, 5, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
         slots = torch.tensor([3, 0, 5, 6, 6, 6], dtype=torch.int32, device=dev)
         sc = dict(layer=1, k_scale=ks, v_scale=vs)
@@ -440,8 +468,8 @@ def check_batch_invariance(gen) -> None:
             torch.cuda.synchronize()
             if not torch.equal(alone[0], paged[b]) or not torch.equal(alone_dense[0], dense[b]):
                 raise AssertionError(f"attention {kv}: row {b} alone differs from the batch of 6")
-        print(f"kernel batch invariance {kv}: rows of a batch of 6 (paged and dense, kv_valid "
-              f"{kvv}) equal the same rows alone, bit for bit", flush=True)
+        print(f"kernel batch invariance {kv} Hq={hq} Hkv={hkv}: rows of a batch of 6 (paged "
+              f"and dense, kv_valid {kvv}) equal the same rows alone, bit for bit", flush=True)
 
 
 def check_ssd(records: dict) -> None:
@@ -557,17 +585,19 @@ def prefix_draft(tcfg, target_params, n_layers: int):
 
 
 def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *,
-               bits: int = 16, **changes):
+               bits: int = 16, draft_arch: str = "", **changes):
     """The served fleet: 6 devices, prompt 200, 32 new tokens, greedy unless
-    ``changes`` says otherwise (``greedy``, ``fleet``)."""
+    ``changes`` says otherwise (``greedy``, ``fleet``). The draft is 1 layer
+    of ``arch``, or the whole of ``draft_arch``."""
     from repro_torch.api import ModelSpec, ServeSpec
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
+    draft_layers = get_config(draft_arch).num_layers if draft_arch else 1
     kw = dict(
         backend=backend,
-        model=ModelSpec(arch=arch, draft_arch=arch, vocab_size=cfg.vocab_size,
-                        target_layers=cfg.num_layers, draft_layers=1, bits=bits),
+        model=ModelSpec(arch=arch, draft_arch=draft_arch or arch, vocab_size=cfg.vocab_size,
+                        target_layers=cfg.num_layers, draft_layers=draft_layers, bits=bits),
         devices=6, prompt_len=200, max_len=512, max_new=32, k_max=4, c_th=0.3,
         greedy=True, paged_attention=True, kv_dtype=kv_dtype,
     )
@@ -597,11 +627,13 @@ def _round_sink(rounds: dict):
     return sink
 
 
-def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=None) -> dict:
+def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=None,
+          need_accepted: bool = True) -> dict:
     """The engine backend serves the fleet of ``spec``. ``path`` maps each
     kernel entry of this path to the launches it must show (None: at least
     one); a kernel record's ``launches`` is the count of the first path that
-    runs it (its main path), ``launches_by_path`` every path's. Returns the
+    runs it (its main path), ``launches_by_path`` every path's. Some drafts
+    must be accepted unless ``need_accepted`` is False. Returns the
     streams (``outputs``), each device's committed tokens per round
     (``rounds``) and the padded batch each of those rounds ran in
     (``rows``), and the pool's bytes per slot (``per_slot``)."""
@@ -639,7 +671,7 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
           f"launches {launches}", flush=True)
     print(f"serve {label}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    if st.acceptance_rate <= 0:
+    if need_accepted and st.acceptance_rate <= 0:
         raise AssertionError(f"{label}: no draft token was accepted: multi-token commits "
                              "went untested")
     if bundle.target_cfg.family == "ssm" and st.acceptance_rate >= 1:
@@ -694,7 +726,8 @@ def _replay(bundle, spec, prompt, tokens, rounds, rows, prefill_rows, what: str)
     return greedy.shape[0] >= n and worst < LOGIT_TOL
 
 
-def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0) -> None:
+def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0,
+          witness: bool = False) -> None:
     """The port's reference backend (``spec``) on the same bundle and
     prompts: the engine's tokens (devices ``lo`` on of the served fleet)
     must equal the reference's, or diverge first where the reference's
@@ -715,7 +748,10 @@ def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0) -> No
     of the reference stream, on its boundaries and shapes, gives back the
     reference's tokens too: both streams are then the target's greedy
     streams of their own schedules. A wrong rollback or commit fails the
-    engine's replay (tests/test_torch_serve.py rehearses one on the CPU)."""
+    engine's replay (tests/test_torch_serve.py rehearses one on the CPU).
+    ``witness`` holds a dense model to the same witness: the paper's 11B
+    (40 layers of d_model 4096) carries a last-bit difference of a product
+    further than qwen2-1.5b does (PERF.md §6)."""
     from repro_torch.api import System
 
     ref_rounds = {d: [] for d in range(len(prompts))}
@@ -723,11 +759,11 @@ def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0) -> No
     ref_out = System.build(spec, models=bundle).serve(
         prompts, on_event=_round_sink(ref_rounds)).outputs
     print(f"check {label}: reference backend {time.perf_counter() - t0:.3f} s", flush=True)
-    ssm = bundle.target_cfg.family == "ssm"
+    replay = witness or bundle.target_cfg.family == "ssm"
     outputs = served["outputs"]
     for dev_id, want in ref_out.items():
         got = outputs[lo + dev_id]
-        if ssm:
+        if replay:
             print(f"check {label}: device {lo + dev_id}", flush=True)
             if not _replay(bundle, spec, prompts[dev_id], got, served["rounds"][lo + dev_id],
                            served["rows"][lo + dev_id], 1, "engine stream"):
@@ -742,8 +778,8 @@ def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0) -> No
         if gap < LOGIT_TOL:
             continue
         n = len(prompts)
-        if not ssm or not _replay(bundle, spec, prompts[dev_id], want, ref_rounds[dev_id],
-                                  [n] * len(ref_rounds[dev_id]), n, "reference stream"):
+        if not replay or not _replay(bundle, spec, prompts[dev_id], want, ref_rounds[dev_id],
+                                     [n] * len(ref_rounds[dev_id]), n, "reference stream"):
             raise AssertionError(f"{label}: device {lo + dev_id}: divergence at token {p} with "
                                  f"top-2 gap {gap} >= {LOGIT_TOL}")
     print(f"check {label}: engine tokens == reference tokens on {len(ref_out)} devices "
@@ -1630,6 +1666,173 @@ def serve_chaos_spawned(records: dict) -> None:
                      {"verify_attention_packed": None}, launches)
 
 
+def paper_pair_bundle():
+    """The paper's pair at its published widths (configs/sled_paper.py):
+    llama-11b-target (40 layers, d_model 4096, 32 query heads on 8 KV heads
+    of 128, d_ff 14336, vocab 128256, an untied head) verifying
+    llama-1b-draft (16 layers, d_model 2048, heads of 64, a tied head),
+    each with its own seeded init on the card and its output projections
+    scaled by RESID_SCALE as in full_width_bundle. init_params draws one
+    tensor at a time, so the f32 temporaries stay one tensor's size."""
+    from repro_torch.api import ModelBundle
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    models = []
+    for seed, arch in enumerate(("llama-11b-target", "llama-1b-draft")):
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        with torch.no_grad():
+            for blk in params.layers:
+                blk.attn.wo.mul_(RESID_SCALE)
+                blk.mlp.wd.mul_(RESID_SCALE)
+        n = sum(p.numel() for p in params.parameters())
+        print(f"init {arch}: {n} parameters ({cfg.param_count()} by the config), tied head "
+              f"{cfg.tie_embeddings}", flush=True)
+        models.append((cfg, model, params))
+    (tcfg, target, tp), (dcfg, draft, dp) = models
+    torch.cuda.synchronize()
+    print(f"init llama pair: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
+
+
+def paper_spec(backend: str, **changes):
+    return serve_spec(backend, "llama-11b-target", draft_arch="llama-1b-draft", **changes)
+
+
+def _verify_bytes(params) -> int:
+    """The weight bytes one verify step must read: every layer's weights and
+    the final norm once, and the f32 head that lm_head streams (head_f32;
+    the bf16 table it was widened from is not read). The embedding rows
+    the step looks up are left out (B x 5 rows of d_model)."""
+    n = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+            if name not in ("embed", "lm_head_w"))
+    head = params.head_f32()
+    return n + head.numel() * head.element_size()
+
+
+def calibrate_h100(bundle) -> dict:
+    """The verify step of the full-width 11B on an engine of 8 slots
+    (buckets 1, 2, 4, 8): one warm step, then the median of 5, each ending
+    in a host read of the step's output (EngineCore.warmup). Each beside
+    the weight-stream bound and the H100 profile's verify_latency; a step
+    under its bound means the timing did not wait for the card. Prints the
+    profile's launch overhead as measured here: the B = 1 step less the
+    profile's memory term at the config's param_count() (not the tuner's
+    nominal 11e9)."""
+    from repro_torch.api import System
+    from repro_torch.api.spec import SchedulerSpec
+    from repro_torch.serving.devices import H100
+
+    spec = paper_spec("engine", scheduler=SchedulerSpec(slots=8))
+    system = System.build(spec, models=bundle)
+    system.warmup()
+    runs = [system.warmup() for _ in range(5)]
+    nbytes = _verify_bytes(bundle.target_params)
+    bound_s = nbytes / HBM_BYTES_PER_S
+    params = bundle.target_cfg.param_count()
+    out = {}
+    for b in sorted(runs[0]):
+        t = sorted(r[b] for r in runs)[2]
+        pred = H100.verify_latency(params, b, spec.k_max + 1)
+        out[b] = t
+        print(f"calibrate h100: bucket {b}: verify step {t * 1e3:.3f} ms (of 5: "
+              f"{[round(r[b] * 1e3, 3) for r in runs]}), weight-stream bound "
+              f"{bound_s * 1e3:.3f} ms ({nbytes} bytes), profile verify_latency "
+              f"{pred * 1e3:.3f} ms", flush=True)
+        if t < bound_s:
+            raise AssertionError(f"calibrate h100: bucket {b} step {t} s is under its "
+                                 f"weight-stream bound {bound_s} s: the timing did not wait")
+    mem = H100.verify_latency(params, 1, spec.k_max + 1) - H100.launch_overhead_s
+    print(f"calibrate h100: launch_overhead_s {out[1] - mem:.6f} (B = 1 step {out[1]:.6f} s "
+          f"less the profile's memory term {mem:.6f} s at param_count() {params}); the "
+          f"profile in serving/devices.py holds {H100.launch_overhead_s}", flush=True)
+    return out
+
+
+def sim_fig4() -> None:
+    """The simulator on the H100 profile in the setting of the JAX package's
+    benchmarks/wstgr.py run(quick=True) (paper Fig. 4): SLED against
+    centralized, 11B and 70B, batch 2, 8 and 32, RPi 5 drafting with the
+    int4 3B draft, acceptance 0.90, 64 x batch devices, 10 s. A prediction
+    of this card's profile, not a measurement; no bound."""
+    from repro_torch.serving.devices import H100, RPI5
+    from repro_torch.serving.simulator import SimConfig, simulate
+
+    for target_p, tname in ((11e9, "11B"), (70e9, "70B")):
+        for b in (2, 8, 32):
+            base = SimConfig(mode="sled", spec_len=4, acceptance=0.90,
+                             device_rate=RPI5.rate("llama-3b-draft", 4), target_params=target_p,
+                             server_batch=b, batch_policy="deadline", n_devices=64 * b,
+                             sim_time=10.0)
+            sled = simulate(base, H100)
+            cent = simulate(dataclasses.replace(base, mode="centralized"), H100)
+            print("sim fig4 (prediction, h100 profile) " + json.dumps({
+                "target": tname, "batch": b, "wstgr_sled": round(sled.wstgr, 1),
+                "wstgr_centralized": round(cent.wstgr, 1),
+                "ratio": round(sled.wstgr / max(cent.wstgr, 1e-9), 2),
+                "sled_busy": round(sled.server_busy_frac, 2)}), flush=True)
+
+
+def tune_on_card(records: dict) -> None:
+    """repro_torch.tuning.tune of examples/specs/fleet.json (the reduced
+    qwen2, head_dim 16) on the card with the H100 profile, at the settings
+    of the JAX package's tests/test_fleet.py::test_tune_quick_emits_valid_
+    winner; the winner must round-trip through JSON and serve on the card.
+    Then the CLI once, in its own process."""
+    import os
+    import tempfile
+
+    from repro_torch.api import ServeSpec, System
+    from repro_torch.tuning import TuneConfig, tune
+
+    spec_path = Path(__file__).resolve().parent / "examples" / "specs" / "fleet.json"
+    spec = ServeSpec.from_json(spec_path.read_text())
+    t0 = time.perf_counter()
+    _reset_launches()
+    res = tune(spec, TuneConfig(server="h100", quick=True, n_validate=1, sim_time=4.0, passes=1),
+               device="cuda")
+    launches = _launches()
+    cal = res.calibration
+    print(f"tune: calibration server_latency_scale {cal.server_latency_scale:.4g}, "
+          f"verify_s_mean {cal.verify_s_mean:.6f} s, per-class acceptance "
+          f"{[round(c.acceptance, 3) for c in cal.classes]}, deadline {res.deadline_s} s, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if cal.server_latency_scale <= 0:
+        raise AssertionError("tune: the profiled serve measured no verify span")
+    winner = ServeSpec.from_json(res.winner.to_json_str())
+    winner.validate()
+    if winner != res.winner:
+        raise AssertionError("tune: the winner does not round-trip through JSON")
+    print("tune: winner " + json.dumps([
+        {"profile": rc.spec.profile, "k": rc.k, "c_th": rc.c_th, "bits": rc.spec.bits}
+        for rc in winner.resolved_classes()]), flush=True)
+    _record_launches("tune", records, {"verify_attention_packed": None,
+                                       "verify_attention_paged": None}, launches)
+    with System.build(winner) as system:
+        out = system.serve()
+    if sorted(out.outputs) != list(range(winner.devices)) or not all(
+            len(t) == winner.max_new for t in out.outputs.values()):
+        raise AssertionError(f"tune: the winner's serve gave {out.outputs}")
+    print(f"tune: the winner serves {out.total_tokens} tokens on the card "
+          f"({out.engine.rounds} rounds)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        dest = Path(tmp) / "tuned.json"
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.tune", "--spec", str(spec_path),
+             "--quick", "--server", "h100", "--device", "cuda", "--out", str(dest)],
+            capture_output=True, text=True, timeout=400,
+            env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")})
+        tail = cli.stdout.strip().splitlines()[-3:]
+        if cli.returncode != 0:
+            raise AssertionError(f"tune CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+        ServeSpec.from_json(dest.read_text()).validate()
+        print(f"tune CLI: {time.perf_counter() - t0:.2f} s, {tail}", flush=True)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -1737,6 +1940,25 @@ def main() -> int:
         "ssm", records, m2, m2_prompts, spec=serve_spec("engine", "mamba2-370m"), path=path))
     _phase("check ssm", lambda: check("ssm", m2, m2_prompts, served,
                                       spec=serve_spec("reference", "mamba2-370m")))
+    del m2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    pair = _phase("init llama pair", paper_pair_bundle)
+    paper_prompts = np.random.default_rng(4).integers(
+        0, pair.target_cfg.vocab_size, size=(6, 200)).astype(np.int32)
+    # two random models of different widths essentially never agree, so
+    # this serve need not accept a draft (its acceptance is printed)
+    served = _phase("serve paper", lambda: serve(
+        "paper", records, pair, paper_prompts, spec=paper_spec("engine"), path=BF16_PATH,
+        need_accepted=False))
+    _phase("check paper", lambda: check("paper", pair, paper_prompts, served,
+                                        spec=paper_spec("reference"), witness=True))
+    _phase("calibrate h100", lambda: calibrate_h100(pair))
+    del pair
+    torch.cuda.empty_cache()
+    _phase("sim fig4", sim_fig4)
+    _phase("tune", lambda: tune_on_card(records))
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -168,7 +168,7 @@ class Session:
         self._fallback_tokens = 0
         self._committed = 0
         self._t_open = time.time()
-        self._trace: List = []  # a transport client's per-round TraceEvents
+        self._trace: List = []  # per-round TraceEvents (telemetry on)
 
     @property
     def done(self) -> bool:
@@ -665,9 +665,16 @@ class System:
                     if s.device_id in self.engine.streams:
                         raise
         finished = []
+        traced = telemetry.enabled()
         for v in self.engine.step(time.time() - self._t0) or []:
             s = self._running[v.device_id]
             s._device.on_verdict(v)
+            if traced:
+                s._trace.append(telemetry.TraceEvent(
+                    device_id=v.device_id, round=s._rounds, t=time.time() - self._t0,
+                    k=s._last_drafted, n_accepted=int(v.n_accepted), n_commit=len(v.tokens),
+                    queue_s=float(v.queue_s), verify_s=float(v.verify_s),
+                ))
             s._note_round(v.tokens, n_drafted=s._last_drafted, n_accepted=v.n_accepted)
             if len(s._device.committed) >= s.max_new:
                 finished.append(s)

@@ -172,6 +172,52 @@ def test_system_mamba2_engine_equals_reference_equals_jax_reference():
     assert 0 < eng.engine.acceptance_rate < 1
 
 
+@pytest.mark.parametrize("arch,draft_arch,noise", [
+    ("llama-11b-target", "llama-1b-draft", None),
+    ("llama-1b-draft", "llama-1b-draft", 0.08),
+])
+def test_paper_pairs_engine_equals_reference_equals_jax_reference(arch, draft_arch, noise):
+    """The paper's pairs (configs/sled_paper.py) reduced, on the default
+    spec: the untied 11B head under an independent 1B draft, and the 1B
+    drafting for itself with noise 0.08, which forces partial acceptance."""
+    jspec, pspec = JServeSpec.from_json(SPEC_JSON), ServeSpec.from_json(SPEC_JSON)
+    change = dict(arch=arch, draft_arch=draft_arch)
+    if noise is not None:
+        change["draft_noise"] = noise
+    jspec, pspec = (dataclasses.replace(s, model=dataclasses.replace(s.model, **change))
+                    for s in (jspec, pspec))
+    eng = _serve_three_ways(jspec, pspec)
+    if noise is not None:
+        assert 0 < eng.engine.acceptance_rate < 1
+
+
+def test_traced_inproc_sessions_record_the_jax_rounds():
+    """With telemetry on, each session of an engine serve carries one
+    TraceEvent per verdict, with the JAX pump's counts."""
+    from repro import telemetry as jax_telemetry
+    from repro_torch import telemetry
+
+    was = telemetry.enabled(), jax_telemetry.enabled()
+    try:
+        jspec = dataclasses.replace(JServeSpec.from_json(SPEC_JSON), telemetry=True)
+        pspec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), telemetry=True)
+        mb = jax_build_models(jspec.model)
+        prompts = np.random.default_rng(5).integers(
+            0, jspec.model.vocab_size, size=(jspec.devices, jspec.prompt_len)).astype(np.int32)
+        want = JSystem.build(jspec, models=mb).serve(prompts).sessions
+        got = System.build(pspec, models=_port_bundle(mb), device="cpu").serve(prompts).sessions
+    finally:
+        telemetry.enable(was[0])
+        jax_telemetry.enable(was[1])
+
+    def counts(s):
+        return [(e.device_id, e.round, e.k, e.n_accepted, e.n_commit) for e in s.trace]
+    assert [len(s.trace) for s in got] == [len(s.trace) for s in want]
+    assert [counts(s) for s in got] == [counts(s) for s in want]
+    assert all(len(s.trace) == s.rounds > 0 for s in got)
+    assert all(e.verify_s > 0 and e.queue_s >= 0 for s in got for e in s.trace)
+
+
 def _mamba2_specs():
     return tuple(dataclasses.replace(
         s, prompt_len=40, model=dataclasses.replace(
@@ -261,6 +307,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.ssd_scan, repro_torch.models.mamba2\n"
         "import repro_torch.cluster.remote, repro_torch.transport.worker\n"
         "import repro_torch.cluster.faults, repro_torch.launch.chaos\n"
+        "import repro_torch.configs.sled_paper, repro_torch.serving.simulator\n"
+        "import repro_torch.serving.cost_model, repro_torch.tuning, repro_torch.launch.tune\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
