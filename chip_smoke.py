@@ -12,7 +12,9 @@ Phases, each of which must pass for the script to exit 0:
                same row bit for bit at B=1 and B=6; the SSD scan within the
                JAX package's SSD tolerances (y in bf16 4e-2, the f32 state
                3e-3, relative and absolute), and its refusal of a P the
-               kernel does not slice;
+               kernel does not slice; since the hybrid family, attention at
+               G = 1 (32 query heads on 32 KV heads of 64) and the scan at
+               64 heads of 64 with state 64 (zamba2-1.2b);
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -22,6 +24,9 @@ Phases, each of which must pass for the script to exit 0:
                         kernels;
                int8   - the same model on an int8 pool (the int8 kernels),
                         with the pool's bytes per slot against bf16's;
+               dense gather - the bf16 fleet with paged_attention=False:
+                        the verify gathers and scatters pool rows, the dense
+                        kernel runs every attention call, the paged one none;
                sample - the same model sampled (greedy=False, temperature
                         1), after the sampler phase: speculative_verify at
                         B = 8192 copies of one real verify position, its
@@ -38,6 +43,12 @@ Phases, each of which must pass for the script to exit 0:
                ssm    - full-width mamba2-370m (48-layer target, 1-layer
                         draft): prefill through the SSD scan kernel, verify
                         by gather/scatter with state checkpoints;
+               hybrid - full-width zamba2-1.2b (38 SSD layers and 6
+                        applications of the weight-tied attention block; the
+                        draft its first 6 SSD layers, one application): the
+                        SSD scan in every prefill, the dense attention kernel
+                        in prefills, gathered verifies and draft steps;
+                        checked as mamba2 is;
                cluster, cluster int8 - 8 devices on the cluster backend, 2
                         in-process replicas x 4 slots (bf16, int8 pools),
                         round-robin; even ids stop after 8 tokens, odd after
@@ -110,7 +121,14 @@ Phases, each of which must pass for the script to exit 0:
   6. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
-               tune CLI once in its own process.
+               tune CLI once in its own process;
+  7. cli     - python -m repro_torch.cli in subprocesses on the card, each
+               with a timeout: serve --check of examples/specs/engine.json,
+               of a hybrid target from flags and of a hybrid pair from a
+               spec (the reference match printed OK), trace with the
+               Prometheus exposition (one row per session round), and top
+               --demo over two spawned workers (both with rounds in the
+               last frame, nothing left after).
 ``python3 chip_smoke.py --worker --counts FILE --listen ADDR`` is the
 worker mode the remote phase starts (see worker_main).
 The line before the last is a JSON object with one record per kernel entry;
@@ -184,6 +202,8 @@ SOURCES = {
 }
 SOURCE_OF = {name: SOURCES["ssd_scan" if name == "ssd_scan" else "verify_attn"]
              for name in REPLACES}
+# the families whose recurrent state rounds to bf16 at every commit (see check())
+RECURRENT = ("ssm", "hybrid")
 # the kernel entries a qwen2 serve on a bf16 / an int8 pool must launch
 BF16_PATH = {"verify_attention_packed": None, "verify_attention_paged": None}
 INT8_PATH = {"verify_attention_packed_int8": None, "verify_attention_paged_int8": None}
@@ -374,6 +394,14 @@ def check_attention(records: dict) -> None:
         ("bf16", 8, 5, 32, 8, 128, 512, [205, 212, 233, 240, 219, 208, 5, 5],
          [3, 0, 5, 1, 2, 4, 6, 6], 40),
         ("bf16", 4, 5, 32, 8, 128, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
+        # zamba2-1.2b's shared attention block: 32 query heads on 32 KV
+        # heads of 64 (G = 1) over a dense cache of one K/V slice per
+        # application (6 in the target, 1 in its 6-layer draft): the draft's
+        # decode, the target's slot prefill, the gathered verify (B 6)
+        ("bf16", 1, 1, 32, 32, 64, 512, [230], None, 1),
+        ("bf16", 1, 199, 32, 32, 64, 512, [199], None, 6),
+        ("bf16", 6, 5, 32, 32, 64, 512, [205, 212, 233, 240, 219, 208], None, 6),
+        ("bf16", 4, 5, 32, 32, 64, 512, [64, 65, 128, 129], None, 6),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -438,18 +466,20 @@ def check_attention(records: dict) -> None:
 def check_batch_invariance(gen) -> None:
     """The same rows attended alone (B=1) and in a batch of 6 give the same
     bits: the kernel's splits and merge order do not depend on the batch
-    (qwen2's 12 query heads on 2 KV heads, and the paper pair's 32 on 8)."""
+    (qwen2's 12 query heads on 2 KV heads, the paper pair's 32 on 8, and
+    zamba2's 32 on 32 at head_dim 64)."""
     from repro_torch.kernels import verify_attn
 
     dev = torch.device("cuda")
     kvv = [205, 233, 240, 5, 5, 5]
-    for kv, hq, hkv in (("bf16", 12, 2), ("int8", 12, 2), ("bf16", 32, 8)):
-        k = torch.randn(2, 7, 512, hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(2, 7, 512, hkv, 128, generator=gen, device=dev).to(torch.bfloat16)
+    for kv, hq, hkv, d in (("bf16", 12, 2, 128), ("int8", 12, 2, 128), ("bf16", 32, 8, 128),
+                           ("bf16", 32, 32, 64)):
+        k = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
         if kv == "int8":
             (k, ks), (v, vs) = _quantize(k), _quantize(v)
-        q = torch.randn(6, 5, hq, 128, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn(6, 5, hq, d, generator=gen, device=dev).to(torch.bfloat16)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
         slots = torch.tensor([3, 0, 5, 6, 6, 6], dtype=torch.int32, device=dev)
         sc = dict(layer=1, k_scale=ks, v_scale=vs)
@@ -468,12 +498,13 @@ def check_batch_invariance(gen) -> None:
             torch.cuda.synchronize()
             if not torch.equal(alone[0], paged[b]) or not torch.equal(alone_dense[0], dense[b]):
                 raise AssertionError(f"attention {kv}: row {b} alone differs from the batch of 6")
-        print(f"kernel batch invariance {kv} Hq={hq} Hkv={hkv}: rows of a batch of 6 (paged "
+        print(f"kernel batch invariance {kv} Hq={hq} Hkv={hkv} D={d}: rows of a batch of 6 (paged "
               f"and dense, kv_valid {kvv}) equal the same rows alone, bit for bit", flush=True)
 
 
 def check_ssd(records: dict) -> None:
-    """The SSD scan against its plain version at the mamba2-370m widths."""
+    """The SSD scan against its plain version at the mamba2-370m and
+    zamba2-1.2b widths."""
     from repro_torch.kernels import ref, ssd_scan
 
     dev = torch.device("cuda")
@@ -488,6 +519,8 @@ def check_ssd(records: dict) -> None:
         (1, 512, 32, 64, 128, 256),  # two full chunks
         (2, 300, 32, 64, 128, 256),  # a full and a ragged chunk, B = 2
         (2, 64, 4, 16, 32, 16),      # reduced widths, four chunks
+        (1, 199, 64, 64, 64, 256),   # zamba2-1.2b prefill: 64 heads, state 64
+        (2, 64, 8, 16, 16, 16),      # reduced zamba2 (and mamba2): N 16
     ]
     for idx, (B, S, H, P, N, chunk) in enumerate(cases):
         # x, B and C as the model hands them over: views of one conv output
@@ -537,14 +570,17 @@ def check_kernels(records: dict) -> None:
     check_ssd(records)
 
 
-def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE):
-    """``arch`` at its published widths: the full-depth target and a 1-layer
-    draft of the same architecture (ModelSpec.draft_layers=1), with the
-    port's seeded random init on the card.
+def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE,
+                      draft_layers: int = 1):
+    """``arch`` at its published widths: the full-depth target and a draft
+    of ``draft_layers`` layers of the same architecture, with the port's
+    seeded random init on the card.
 
     Every layer's output projections (qwen2: attention ``wo`` and MLP
-    ``wd``; mamba2: ``out_proj``) are scaled by ``resid_scale``, and the
-    draft is the target's tied embedding, layer 0 and final norm. With the
+    ``wd``; mamba2: ``out_proj``; zamba2: each SSD layer's ``out_proj`` and
+    the shared block's ``wo`` and ``wd``) are scaled by ``resid_scale``, and
+    the draft is the target's embedding, first layers (and zamba2's shared
+    block), final norm and head. With the
     init's own scale the qwen2 layers swamp the embedding: both models'
     logits are flat over 151936 tokens, the draft stops at one token
     (confidence < c_th) and never agrees with the target. With smaller
@@ -560,19 +596,21 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
     target = build_model(tcfg)
     tp = target.init_params(torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
-        for blk in tp.layers:
-            if tcfg.family == "ssm":
+        blocks = list(tp.layers) + ([tp.shared] if tcfg.family == "hybrid" else [])
+        for blk in blocks:
+            if hasattr(blk, "out_proj"):  # an SSD layer
                 blk.out_proj.mul_(resid_scale)
             else:
                 blk.attn.wo.mul_(resid_scale)
                 blk.mlp.wd.mul_(resid_scale)
-    dcfg, draft, dp = prefix_draft(tcfg, tp, 1)
+    dcfg, draft, dp = prefix_draft(tcfg, tp, draft_layers)
     return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
 
 
 def prefix_draft(tcfg, target_params, n_layers: int):
-    """A draft of ``n_layers`` layers: the target's tied embedding, its first
-    ``n_layers`` layers and its final norm, as ``(cfg, model, params)``."""
+    """A draft of ``n_layers`` layers: the target's embedding, its first
+    ``n_layers`` layers, every weight outside the layers (final norm, head,
+    a hybrid's shared block), as ``(cfg, model, params)``."""
     from repro_torch.models.model_zoo import build_model
 
     dcfg = dataclasses.replace(tcfg, name="edge-draft", num_layers=n_layers)
@@ -585,15 +623,17 @@ def prefix_draft(tcfg, target_params, n_layers: int):
 
 
 def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *,
-               bits: int = 16, draft_arch: str = "", **changes):
+               bits: int = 16, draft_arch: str = "", draft_layers: int = 1, **changes):
     """The served fleet: 6 devices, prompt 200, 32 new tokens, greedy unless
-    ``changes`` says otherwise (``greedy``, ``fleet``). The draft is 1 layer
-    of ``arch``, or the whole of ``draft_arch``."""
+    ``changes`` says otherwise (``greedy``, ``fleet``, ``paged_attention``).
+    The draft is ``draft_layers`` layers of ``arch``, or the whole of
+    ``draft_arch``."""
     from repro_torch.api import ModelSpec, ServeSpec
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    draft_layers = get_config(draft_arch).num_layers if draft_arch else 1
+    if draft_arch:
+        draft_layers = get_config(draft_arch).num_layers
     kw = dict(
         backend=backend,
         model=ModelSpec(arch=arch, draft_arch=draft_arch or arch, vocab_size=cfg.vocab_size,
@@ -674,7 +714,7 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
     if need_accepted and st.acceptance_rate <= 0:
         raise AssertionError(f"{label}: no draft token was accepted: multi-token commits "
                              "went untested")
-    if bundle.target_cfg.family == "ssm" and st.acceptance_rate >= 1:
+    if bundle.target_cfg.family in RECURRENT and st.acceptance_rate >= 1:
         raise AssertionError(f"{label}: every draft was accepted: state rollback went untested")
     _record_launches(label, records, path, launches)
     vocab = bundle.target_cfg.vocab_size
@@ -759,7 +799,7 @@ def check(label: str, bundle, prompts, served: dict, *, spec, lo: int = 0,
     ref_out = System.build(spec, models=bundle).serve(
         prompts, on_event=_round_sink(ref_rounds)).outputs
     print(f"check {label}: reference backend {time.perf_counter() - t0:.3f} s", flush=True)
-    replay = witness or bundle.target_cfg.family == "ssm"
+    replay = witness or bundle.target_cfg.family in RECURRENT
     outputs = served["outputs"]
     for dev_id, want in ref_out.items():
         got = outputs[lo + dev_id]
@@ -1833,6 +1873,104 @@ def tune_on_card(records: dict) -> None:
         print(f"tune CLI: {time.perf_counter() - t0:.2f} s, {tail}", flush=True)
 
 
+def serve_dense_gather(records: dict, bundle, prompts) -> dict:
+    """The bf16 qwen2 fleet with ``paged_attention=False``: the verify step
+    gathers the scheduled pool rows into a dense sub-cache and scatters
+    them back, so the dense kernel runs every attention call and the paged
+    one none."""
+    served = serve("dense gather", records, bundle, prompts,
+                   spec=serve_spec("engine", paged_attention=False),
+                   path={"verify_attention_packed": None})
+    paged = _launches()["verify_attention_paged"]
+    if paged:
+        raise AssertionError(f"dense gather: the paged kernel launched {paged} times")
+    return served
+
+
+def _procs_mentioning(text: str) -> list:
+    """Pids of live processes whose command line contains ``text``."""
+    import os
+
+    pids = []
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                if text.encode() in (d / "cmdline").read_bytes():
+                    pids.append(int(d.name))
+            except OSError:
+                pass
+    return [p for p in pids if p != os.getpid()]
+
+
+def cli_on_card() -> None:
+    """``python -m repro_torch.cli`` in subprocesses on the card, each with a
+    timeout and a TMPDIR of its own: serve with --check from a spec and from
+    flags (a hybrid target and its default dense draft; a hybrid pair from
+    a spec written here) and trace with the Prometheus exposition, the four
+    at once; then top --demo over two spawned workers, after which no
+    worker process and no socket directory may be left."""
+    import os
+    import tempfile
+
+    root = Path(__file__).resolve().parent
+    engine_json = root / "examples" / "specs" / "engine.json"
+    remote_json = root / "examples" / "specs" / "cluster_remote.json"
+
+    def run(args, tmp: str, timeout: float = 300.0) -> str:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "repro_torch.cli", *args], cwd=root,
+                             env={**os.environ, "PYTHONPATH": str(root / "src"), "TMPDIR": tmp},
+                             capture_output=True, text=True, timeout=timeout)
+        if out.returncode != 0:
+            raise AssertionError(f"cli {' '.join(args)} exited {out.returncode}:\n"
+                                 f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+        tail = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+        print(f"cli {' '.join(args)}: {time.perf_counter() - t0:.2f} s, {tail[:160]}", flush=True)
+        return out.stdout
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hybrid_json = Path(tmp) / "hybrid.json"
+        spec = json.loads(engine_json.read_text())
+        spec["model"].update(arch="zamba2-1.2b", draft_arch="zamba2-1.2b")
+        hybrid_json.write_text(json.dumps(spec))
+        trace = Path(tmp) / "trace.jsonl"
+        serves = (["--log-level", "info", "serve", "--spec", str(engine_json), "--check"],
+                  ["serve", "--arch", "zamba2-1.2b", "--devices", "3", "--max-new", "8",
+                   "--check"],
+                  ["serve", "--spec", str(hybrid_json), "--check"])
+        # the serves and the trace at once, each its own process on the card
+        with ThreadPoolExecutor(len(serves) + 1) as pool:
+            outs = list(pool.map(lambda args: run(args, tmp), [*serves, [
+                "trace", "--spec", str(engine_json), "--out", str(trace), "--exposition"]]))
+        for args, out in zip(serves, outs):
+            if "greedy lock-step reference match: OK" not in out:
+                raise AssertionError(f"cli {' '.join(args)}: no reference match line")
+        out = outs[-1]
+        rows = [json.loads(ln) for ln in trace.read_text().splitlines()]
+        per_dev: dict = {}
+        for r in rows:
+            per_dev.setdefault(r["device_id"], []).append(r["round"])
+        if not rows or any(sorted(v) != list(range(len(v))) for v in per_dev.values()):
+            raise AssertionError(f"trace: rows are not one per session round: {per_dev}")
+        if "repro_engine_verify_seconds_count" not in out:
+            raise AssertionError("trace: the exposition lacks repro_engine_verify_seconds_count")
+        print(f"cli trace: {len(rows)} rows, rounds per device "
+              f"{ {d: len(v) for d, v in sorted(per_dev.items())} }", flush=True)
+
+        out = run(["top", "--spec", str(remote_json), "--demo", "--iterations", "3",
+                   "--interval", "0.5", "--no-clear"], tmp)
+        frame = out.split("repro top — fleet control-plane poll")[-1].splitlines()
+        rows = [ln.split() for ln in frame if ln[:1].isdigit()]
+        if len(rows) != 2 or any(r[2] != "up" or int(r[4]) <= 0 for r in rows):
+            raise AssertionError(f"top: the last frame lacks two live replicas with rounds:\n"
+                                 + "\n".join(frame))
+        left = _procs_mentioning(tmp) + [str(d) for d in Path(tmp).glob("repro-worker-*")]
+        if left:
+            raise AssertionError(f"top --demo left workers or socket directories: {left}")
+        print(f"cli top: last frame rounds {[int(r[4]) for r in rows]}, nothing left after",
+              flush=True)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -1894,6 +2032,9 @@ def main() -> int:
     if ratio > 0.51:
         raise AssertionError(f"int8 pool holds {ratio:.4f} of bf16's bytes per slot (> 0.51)")
 
+    served = _phase("serve dense gather", lambda: serve_dense_gather(records, qwen, prompts))
+    _phase("check dense gather", lambda: check("dense gather", qwen, prompts, served,
+                                               spec=serve_spec("reference")))
     _phase("sampler", lambda: check_sampler(qwen, prompts[0]))
     _phase("serve sample", lambda: serve_sample(records, qwen, prompts))
     q8, _ = _phase("quantize 8", lambda: quantize_bundle(qwen, 8))
@@ -1944,6 +2085,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
 
+    # the draft: the target's first 6 SSD layers and its shared block (one
+    # application, so the draft attends too)
+    zb = _phase("init zamba2-1.2b", lambda: full_width_bundle("zamba2-1.2b", draft_layers=6))
+    zb_prompts = prompts % zb.target_cfg.vocab_size
+    path = {"verify_attention_packed": None,
+            "ssd_scan": 6 * zb.target_cfg.num_layers + 6 * zb.draft_cfg.num_layers}
+    served = _phase("serve hybrid", lambda: serve(
+        "hybrid", records, zb, zb_prompts, spec=serve_spec("engine", "zamba2-1.2b", draft_layers=6),
+        path=path))
+    _phase("check hybrid", lambda: check("hybrid", zb, zb_prompts, served,
+                                         spec=serve_spec("reference", "zamba2-1.2b",
+                                                         draft_layers=6)))
+    del zb
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
     pair = _phase("init llama pair", paper_pair_bundle)
     paper_prompts = np.random.default_rng(4).integers(
         0, pair.target_cfg.vocab_size, size=(6, 200)).astype(np.int32)
@@ -1959,6 +2116,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     _phase("sim fig4", sim_fig4)
     _phase("tune", lambda: tune_on_card(records))
+    _phase("cli", cli_on_card)
 
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

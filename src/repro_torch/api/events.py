@@ -120,6 +120,12 @@ class ServeResult:
     def total_tokens(self) -> int:
         return sum(len(s.tokens) for s in self.sessions)
 
+    @property
+    def trace(self) -> List:
+        """Fleet-wide per-round trace: every session's TraceEvents, in
+        session order (sort by ``.t`` for a global timeline)."""
+        return [ev for s in self.sessions for ev in s.trace]
+
     def to_json(self) -> dict:
         d = {
             "backend": self.backend,

@@ -19,10 +19,10 @@ heartbeats) and chaos schedules (``spec.faults``) are served as the JAX
 package serves them. A stream shed with an evicted replica ends its
 session with ``SessionResult.shed`` and is listed in
 ``ServeResult.lost_devices``; on the transport backend it fails the serve
-instead (the JAX package's client waits out its retries there). Specs
-that need a later slice (``paged_attention=False``, the families other
-than dense and ssm) raise ``NotImplementedError`` naming the ROADMAP.md
-item.
+instead (the JAX package's client waits out its retries there). The
+dense, ssm and hybrid families are served; ``paged_attention=False``
+selects the gather/scatter verify, which the ssm and hybrid families ride
+anyway (``System.build`` logs that fallback, as the JAX package does).
 
 Sessions on the engine and cluster backends interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
@@ -67,10 +67,6 @@ from repro_torch.transport.server import TransportServer
 log = logging.getLogger(__name__)
 
 PERTURB_SEED = 7  # the draft-noise stream (the JAX package's perturb default)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue A, {item!r})")
 
 
 @dataclasses.dataclass
@@ -272,8 +268,6 @@ class System:
                 f"this runtime speaks codec v{codec.VERSION} only; the spec declares "
                 f"codec_version={spec.transport.codec_version}"
             )
-        if not spec.paged_attention:
-            raise _not_ported("paged_attention=False", "Other model families")
         if spec.telemetry:
             telemetry.enable(True)  # enable-only, as in the JAX package
         if models is not None and spec.cluster.has_remote:
@@ -295,6 +289,13 @@ class System:
                 "have no quantized layout — serve this family with "
                 "kv_dtype='bf16'"
             )
+        if (spec.backend != "reference" and spec.paged_attention
+                and not supports_paged_attention(models.target_cfg)):
+            log.warning(
+                "paged attention is unavailable for model family %r (%s): "
+                "verification falls back to gather/scatter cache paging",
+                models.target_cfg.family, spec.model.arch,
+            )
         for name in ("target_params", "draft_params"):
             if getattr(models, name).device != dev:
                 raise ValueError(f"models.{name} live on {getattr(models, name).device}, "
@@ -305,7 +306,8 @@ class System:
                 max_len=spec.max_len, k_max=spec.k_max, policy=spec.scheduler.policy,
                 max_wait=spec.scheduler.max_wait,
                 straggler_timeout=spec.scheduler.straggler_timeout, greedy=spec.greedy,
-                attn_chunk=spec.attn_chunk, kv_dtype=spec.kv_dtype, device=dev,
+                attn_chunk=spec.attn_chunk, paged_attention=spec.paged_attention,
+                kv_dtype=spec.kv_dtype, device=dev,
             )
             if spec.cluster.has_remote:
                 engine = cls._build_remote_cluster(spec, models, engine_kw, dev)

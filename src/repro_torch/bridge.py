@@ -6,9 +6,12 @@ bf16 moves bit-exactly through a 16-bit integer view, as the JAX
 checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
 weight is a plain copy. The stacked ``(L, ...)`` leaves of
 ``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
-(dense family) or ``Mamba2.layers`` (ssm family). Caches move leaf by leaf
-in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves, or the
-ssm family's ``ssm``/``conv`` state. A leaf keeps its JAX dtype: a
+(dense family) or ``Mamba2.layers`` (ssm family); the hybrid family's
+``params["ssm_layers"]`` become ``Hybrid.layers`` and its
+``params["shared_attn"]`` the one ``Hybrid.shared`` block. Caches move leaf
+by leaf in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves,
+or the ssm and hybrid families' ``ssm``/``conv`` state (and the hybrid's
+per-application K/V). A leaf keeps its JAX dtype: a
 quantized bundle (``model.bits < 16``, dequantized at build time) carries
 bf16 norm scales and SSM parameters where a 16-bit one has f32.
 
@@ -22,12 +25,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.models.hybrid import Hybrid
 from repro_torch.models.mamba2 import Mamba2
 from repro_torch.models.transformer import CausalLM, Transformer
 from repro_torch.runtime import resolve_device
 
 # per family: port parameter name inside a layer -> path under the JAX
-# params["layers"]
+# stacked layers (params["layers"], the hybrid's params["ssm_layers"])
 _LAYER_PARAMS = {
     "dense": {
         "ln1.scale": ("ln1", "scale"),
@@ -43,7 +47,12 @@ _LAYER_PARAMS = {
                                        "gnorm", "out_proj")},
     },
 }
-_MODELS = {"dense": Transformer, "ssm": Mamba2}
+_LAYER_PARAMS["hybrid"] = _LAYER_PARAMS["ssm"]
+_STACK_KEY = {"dense": "layers", "ssm": "layers", "hybrid": "ssm_layers"}
+# the hybrid's shared block: port name under ``shared`` -> path under the
+# JAX params["shared_attn"] (the dense layer's names, without a stack axis)
+_SHARED_PARAMS = _LAYER_PARAMS["dense"]
+_MODELS = {"dense": Transformer, "ssm": Mamba2, "hybrid": Hybrid}
 
 
 def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
@@ -78,8 +87,8 @@ def _family(cfg) -> str:
 
 
 def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
-    """The family's module (``Transformer`` or ``Mamba2``) on ``device``
-    holding the JAX params pytree's weights."""
+    """The family's module (``Transformer``, ``Mamba2`` or ``Hybrid``) on
+    ``device`` holding the JAX params pytree's weights."""
     device = resolve_device(device)
     family = _family(cfg)
     model = _MODELS[family](cfg, device=device)
@@ -91,12 +100,17 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
         for name, path in _LAYER_PARAMS[family].items():
             if _dotted(model.layers[0], name) is None:
                 continue  # e.g. no QKV bias in this config
-            stacked = to_tensor(_get(tree["layers"], path), device)
+            stacked = to_tensor(_get(tree[_STACK_KEY[family]], path), device)
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(f"layers/{'/'.join(path)} has {stacked.shape[0]} layers, "
                                  f"config has {cfg.num_layers}")
             for li in range(cfg.num_layers):
                 _assign(model, f"layers.{li}.{name}", stacked[li])
+        if family == "hybrid":
+            for name, path in _SHARED_PARAMS.items():
+                if _dotted(model.shared, name) is not None:
+                    _assign(model, f"shared.{name}",
+                            to_tensor(_get(tree["shared_attn"], path), device))
     return model
 
 
@@ -115,8 +129,9 @@ def _assign(model: CausalLM, name: str, value: torch.Tensor) -> None:
 
 def params_to_jax(model: CausalLM) -> Dict[str, Any]:
     """The JAX params pytree layout, as numpy arrays (bf16 as uint16 bits)."""
+    family = _family(model.cfg)
     layers: Dict[str, Any] = {}
-    for name, path in _LAYER_PARAMS[_family(model.cfg)].items():
+    for name, path in _LAYER_PARAMS[family].items():
         if _dotted(model.layers[0], name) is None:
             continue
         stacked = torch.stack([_dotted(blk, name) for blk in model.layers])
@@ -127,8 +142,14 @@ def params_to_jax(model: CausalLM) -> Dict[str, Any]:
     tree: Dict[str, Any] = {
         "embed": to_numpy(model.embed),
         "final_norm": {"scale": to_numpy(model.final_norm.scale)},
-        "layers": layers,
+        _STACK_KEY[family]: layers,
     }
+    if family == "hybrid":
+        shared: Dict[str, Any] = {}
+        for name, path in _SHARED_PARAMS.items():
+            if _dotted(model.shared, name) is not None:
+                shared.setdefault(path[0], {})[path[1]] = to_numpy(_dotted(model.shared, name))
+        tree["shared_attn"] = shared
     if model.lm_head_w is not None:
         tree["lm_head"] = to_numpy(model.lm_head_w)
     return tree

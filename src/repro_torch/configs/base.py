@@ -220,11 +220,13 @@ def list_configs() -> List[str]:
 _LOADED = False
 
 # the configs this package carries so far (the dense family's qwen2-1.5b,
-# the ssm family's mamba2-370m, the paper's llama-shaped pairs); the other
-# families arrive with their model code (ROADMAP.md Queue A)
+# the ssm family's mamba2-370m, the hybrid family's zamba2-1.2b, the
+# paper's llama-shaped pairs); the other families arrive with their model
+# code (ROADMAP.md Queue A)
 _CONFIG_MODULES = [
     "qwen2_1_5b",
     "mamba2_370m",
+    "zamba2_1_2b",
     "sled_paper",
 ]
 

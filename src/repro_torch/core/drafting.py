@@ -10,9 +10,16 @@ each token from the caller's ``torch.Generator`` on the cache's device.
 
 Rollback: the draft KV cache rolls back by setting ``length = base + 1 +
 n_accepted``; stale entries past it are masked and later overwritten. An
-ssm draft's recurrent state cannot roll back by length, so the round keeps
-the committed cache after every step (a checkpoint) and the rollback
-selects the one at the acceptance boundary.
+ssm or hybrid draft's recurrent state cannot roll back by length, so the
+round keeps the committed state leaves after every step (a checkpoint) and
+the rollback selects the one at the acceptance boundary.
+
+A hybrid draft's K/V leaves are not checkpointed (the JAX package keeps a
+copy per step): they are written in place and roll back by length, like a
+dense draft's. The two agree on every position a later step reads: a
+checkpoint's K/V differ from the round's last cache only at positions the
+rolled-back steps wrote, which lie at or past the new length, so the next
+round writes each of them before attending to it.
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ import torch
 from repro_torch.core.speculative import sample_token
 
 
+# cache leaves a draft round does not checkpoint: written in place, rolled
+# back by length
+_ROLLED_BY_LENGTH = ("k", "v")
+
+
 @dataclasses.dataclass
 class DraftResult:
     tokens: torch.Tensor       # (B, K) drafted tokens (padding past length)
@@ -33,7 +45,8 @@ class DraftResult:
     confidence: torch.Tensor   # (B, K)
     cache: Any                 # cache after the drafting steps (uncommitted)
     base_length: torch.Tensor  # (B,) cache length before the round
-    # ssm: the cache after each step, leaves stacked on a leading K axis
+    # ssm, hybrid: the state leaves (and length) after each step, stacked
+    # on a leading K axis
     cache_ckpts: Optional[Dict[str, torch.Tensor]] = None
 
 
@@ -52,11 +65,7 @@ def draft_round(
     attn_chunk: int = 1024,
 ) -> DraftResult:
     """One drafting round: feed prev_token, then draft up to k_max tokens."""
-    if model.cfg.family == "hybrid":
-        raise NotImplementedError(
-            "hybrid drafting is not ported yet (ROADMAP.md Queue A, 'Other model families')"
-        )
-    is_ssm = model.cfg.family == "ssm"
+    is_ssm = model.cfg.family in ("ssm", "hybrid")
     B = prev_token.shape[0]
     dev = prev_token.device
     base_length = cache["length"]
@@ -68,7 +77,7 @@ def draft_round(
         h, ck = model.decode_forward(params, cache, tok[:, None], attn_chunk=attn_chunk)
         cache = model.commit(ck, ones)  # consume exactly this one token
         if is_ssm:
-            ckpts.append(cache)
+            ckpts.append({k: a for k, a in cache.items() if k not in _ROLLED_BY_LENGTH})
         logits = model.lm_head(params, h)[:, 0]
         nxt, q, dist = sample_token(logits, generator, temperature, greedy)
         conf = dist.max(dim=-1).values
@@ -90,7 +99,7 @@ def draft_round(
         confidence=torch.stack(confs, dim=1),
         cache=cache,
         base_length=base_length,
-        cache_ckpts={k: torch.stack([c[k] for c in ckpts]) for k in cache} if is_ssm else None,
+        cache_ckpts={k: torch.stack([c[k] for c in ckpts]) for k in ckpts[0]} if is_ssm else None,
     )
 
 
@@ -99,9 +108,10 @@ def resume_after_verify(draft: DraftResult, n_accepted: torch.Tensor) -> Dict[st
     length ``base + 1 + n_accepted`` (prev_token + accepted drafts); the next
     round feeds the server's correction/bonus token as ``prev_token``.
 
-    An ssm draft takes checkpoint ``n_accepted`` per row, the state after
-    prev_token and n_accepted drafts; with every draft accepted the index is
-    clamped to the last checkpoint, as the JAX package's gather clamps it."""
+    An ssm or hybrid draft takes checkpoint ``n_accepted`` per row, the
+    state after prev_token and n_accepted drafts; with every draft accepted
+    the index is clamped to the last checkpoint, as the JAX package's gather
+    clamps it. A hybrid draft keeps the round's K/V leaves."""
     n_accepted = n_accepted.to(draft.base_length.device, torch.int32)
     new_len = draft.base_length + 1 + n_accepted
     if draft.cache_ckpts is None:
@@ -110,4 +120,4 @@ def resume_after_verify(draft: DraftResult, n_accepted: torch.Tensor) -> Dict[st
     i = torch.clamp(n_accepted.long(), 0, K - 1)
     b = torch.arange(i.shape[0], device=i.device)
     cache = {k: a[i, :, b].movedim(0, 1) for k, a in draft.cache_ckpts.items() if k != "length"}
-    return {**cache, "length": new_len}
+    return {**draft.cache, **cache, "length": new_len}

@@ -146,7 +146,9 @@ def _pad_to(a: np.ndarray, n: int, fill=0) -> np.ndarray:
 class VerifySteps:
     """The step bundle for one (model, serving config): prefill, bucketed
     pool verify, force-extend. The pool steps run slot-indexed for the
-    attention families, gather/scatter for the ssm family."""
+    attention families with ``paged_attention``, gather/scatter otherwise
+    (``paged_attention=False``, the ssm and hybrid families);
+    ``self.paged_attention`` says which."""
 
     def __init__(
         self,
@@ -156,6 +158,7 @@ class VerifySteps:
         greedy: bool = True,
         attn_chunk: int = 32,
         kv_dtype: str = "bf16",
+        paged_attention: bool = True,
     ):
         self.model = model
         self.greedy = greedy
@@ -164,9 +167,12 @@ class VerifySteps:
         self.kv_dtype = _check_kv_dtype(kv_dtype, model.cfg)
         self.verify = verification.make_paged_verify_step(
             model, scratch_slot=scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
+            paged_attention=paged_attention,
         )
+        self.paged_attention = self.verify.paged_attention
         self.prefill = verification.make_prefill_step(model, attn_chunk=attn_chunk)
-        self.extend = verification.make_force_extend_step(model, attn_chunk=attn_chunk)
+        self.extend = verification.make_force_extend_step(model, attn_chunk=attn_chunk,
+                                                          paged_attention=paged_attention)
 
 
 class EngineCore:
@@ -191,6 +197,7 @@ class EngineCore:
         buckets: Optional[Sequence[int]] = None,
         batch_cap: Optional[int] = None,
         kv_dtype: str = "bf16",
+        paged_attention: bool = True,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -207,8 +214,10 @@ class EngineCore:
         self.pool = PagedKVCache(model, n_slots, max_len, device=self.device, **cache_kw)
         self.steps = VerifySteps(
             model, scratch_slot=self.pool.scratch_slot, greedy=greedy, attn_chunk=attn_chunk,
-            kv_dtype=self.kv_dtype,
+            kv_dtype=self.kv_dtype, paged_attention=paged_attention,
         )
+        # the verify step the engine really runs (False: gather/scatter)
+        self.paged_attention = self.steps.paged_attention
         if telemetry.enabled():
             reg = telemetry.registry()
             reg.gauge("engine_kv_pool_bytes").set(float(self.pool.pool_bytes()))

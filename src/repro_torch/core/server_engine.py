@@ -62,13 +62,14 @@ class ServerEngine:
         attn_chunk: int = 32,
         buckets: Optional[Sequence[int]] = None,
         kv_dtype: str = "bf16",
+        paged_attention: bool = True,
         device="cuda",
     ):
         cap = batch_size or n_slots
         self.core = EngineCore(
             model, params, n_slots=n_slots, max_len=max_len, k_max=k_max, greedy=greedy,
             attn_chunk=attn_chunk, buckets=buckets, batch_cap=cap,
-            kv_dtype=kv_dtype, device=device,
+            kv_dtype=kv_dtype, paged_attention=paged_attention, device=device,
         )
         self.admission = AdmissionControl(
             batch_size=cap, k_max=k_max, policy=policy, max_wait=max_wait,
@@ -76,9 +77,6 @@ class ServerEngine:
         )
         self.k_max = k_max
         self.greedy = greedy
-        # the port serves the slot-indexed pool only (paged_attention=False
-        # is refused by System.build); read by LocalReplica.fingerprint
-        self.paged_attention = True
         self.kv_dtype = kv_dtype
         self._batch_cap = cap
         self.round_log: List[RoundStats] = []
@@ -98,6 +96,13 @@ class ServerEngine:
     @property
     def pool(self):
         return self.core.pool
+
+    @property
+    def paged_attention(self) -> bool:
+        """The core's verify mode: False where the engine gathers and
+        scatters pool rows (``paged_attention=False``, the ssm and hybrid
+        families); read by ``LocalReplica.fingerprint``."""
+        return self.core.paged_attention
 
     @property
     def streams(self) -> Dict[int, DeviceStream]:

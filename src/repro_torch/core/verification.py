@@ -13,10 +13,12 @@ them). They update the cache's K/V buffers in place and return the cache
 dict with a new ``length``.
 
 Two dispatch modes serve a row pool, as in the JAX package: the pool-
-resident slot-indexed forward (the attention families), and gather/scatter,
-which copies the scheduled rows into a dense sub-cache, runs the dense
-forward and commit there, and writes the rows back (the ssm family, whose
-recurrent state is not position-indexed).
+resident slot-indexed forward (the attention families with
+``paged_attention=True``), and gather/scatter, which copies the scheduled
+rows into a dense sub-cache, runs the dense forward and commit there, and
+writes the rows back (``paged_attention=False``, and the ssm and hybrid
+families, whose recurrent state is not position-indexed). Each pool step
+carries the mode it runs as ``.paged_attention``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ import torch
 from repro_torch.core.speculative import VerifyResult, speculative_verify
 from repro_torch.models.kvcache import gather_slots, scatter_slots, supports_paged_attention
 from repro_torch.runtime import VERIFY_STREAM, seeded_generator
+
+
+def _use_paged(model, paged_attention: bool) -> bool:
+    """The slot-indexed mode: asked for, and every cache leaf position-indexed."""
+    return bool(paged_attention) and supports_paged_attention(model.cfg)
 
 
 def make_verify_batch(prev_token: torch.Tensor, draft_tokens: torch.Tensor,
@@ -72,16 +79,18 @@ def make_verify_step(model, *, greedy: bool = True, attn_chunk: int = 1024):
 
 
 def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
-                           attn_chunk: int = 1024):
+                           attn_chunk: int = 1024, paged_attention: bool = True):
     """Verify step for continuous batching over a row pool:
     ``verify_step(params, pool, slots, batch) -> (VerifyResult, pool)``.
 
-    Slot-indexed for the attention families: the forward runs straight
-    against the pool, the K+1 fresh K/V rows go into pool rows ``slots`` and
-    attention reads the rows out of the pool (the paged kernel on CUDA);
-    commit is a per-slot length bump. Gather/scatter for the ssm family:
-    the rows are copied out, run and committed densely (``model.commit``,
-    the state checkpoint at the acceptance boundary), and written back.
+    Slot-indexed for the attention families with ``paged_attention``: the
+    forward runs straight against the pool, the K+1 fresh K/V rows go into
+    pool rows ``slots`` and attention reads the rows out of the pool (the
+    paged kernel on CUDA); commit is a per-slot length bump. Gather/scatter
+    otherwise (``paged_attention=False``, the ssm and hybrid families): the
+    rows are copied out, run and committed densely (``model.commit``; for a
+    recurrent state the checkpoint at the acceptance boundary), and written
+    back.
 
     Padding entries point at ``scratch_slot`` with ``lengths = 0``; the step
     resets the scratch row's length so padding never walks it off the end.
@@ -108,10 +117,12 @@ def make_paged_verify_step(model, *, scratch_slot: int, greedy: bool = True,
         new_pool["length"][scratch_slot] = 0  # scatter_slots made a new length tensor
         return res, new_pool
 
-    return paged_verify_step if supports_paged_attention(model.cfg) else gather_verify_step
+    step = paged_verify_step if _use_paged(model, paged_attention) else gather_verify_step
+    step.paged_attention = step is paged_verify_step
+    return step
 
 
-def make_force_extend_step(model, *, attn_chunk: int = 1024):
+def make_force_extend_step(model, *, attn_chunk: int = 1024, paged_attention: bool = True):
     """Forced cache extension over a row pool (no verification):
     ``extend_step(params, pool, slots, tokens_in, n) -> pool`` appends
     ``n[i]`` tokens of ``tokens_in[i]`` to pool row ``slots[i]`` (the §III-A
@@ -132,7 +143,9 @@ def make_force_extend_step(model, *, attn_chunk: int = 1024):
         _, ck_sub = model.decode_forward(params, sub, tokens_in, attn_chunk=attn_chunk)
         return scatter_slots(pool, slots, model.commit(ck_sub, n.to(torch.int32)))
 
-    return paged_extend_step if supports_paged_attention(model.cfg) else gather_extend_step
+    step = paged_extend_step if _use_paged(model, paged_attention) else gather_extend_step
+    step.paged_attention = step is paged_extend_step
+    return step
 
 
 def make_prefill_step(model, *, attn_chunk: int = 1024):

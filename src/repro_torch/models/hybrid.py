@@ -1,0 +1,146 @@
+"""Zamba2-style hybrid: a Mamba2 backbone and one shared attention block.
+
+The port of ``repro.models.hybrid``. The shared block (ln1, attn, ln2,
+mlp) runs after every ``cfg.attn_every`` SSD layers; its weights are tied
+across the ``n_apps = L // attn_every`` applications, but each application
+has its own K/V slice of the cache. SSD layers past the last full group
+(the tail) run after it.
+
+Prefill runs each SSD layer's chunked scan (``kernels/ops.ssd_scan``: the
+Hopper kernel on CUDA) and the shared block's attention over a dense cache
+(``kernels/ops.verify_attention``); the verify step runs the SSD layers'
+O(1) recurrence token by token with per-position state checkpoints, as
+``models/mamba2.py`` does, and the shared block's attention over the
+cache. Speculative rollback: ``select_checkpoint`` commits the SSD states
+at the acceptance boundary (bf16 checkpoints widened to f32, as in the JAX
+package); the K/V leaves roll back by ``length`` like any KV cache.
+
+The cache is ``ssm`` (L, B, H, P, N) f32, ``conv`` (L, B, cw-1, C) bf16,
+``k``/``v`` (n_apps, B, max_len, Hkv, D) bf16 and ``length`` (B,): every
+leaf but ``length`` carries the batch on axis 1, so the pool's
+gather/scatter and a migrated row move it leaf by leaf. A draft of fewer
+layers than ``attn_every`` has ``n_apps`` 0 and empty K/V leaves.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import transformer as T
+from repro_torch.models.transformer import CausalLM, lm_head  # noqa: F401 - the family's head
+
+
+def n_apps(cfg) -> int:
+    return cfg.num_layers // cfg.attn_every
+
+
+class Hybrid(CausalLM):
+    """Weights of one hybrid model: the shared embedding, norm and head, the
+    per-layer SSD blocks (``layers``) and the weight-tied attention block
+    (``shared``)."""
+
+    def __init__(self, cfg, device=None):
+        if cfg.family != "hybrid":
+            raise ValueError(f"Hybrid holds the hybrid family, not {cfg.family!r}")
+        super().__init__(cfg, device=device)
+        self.layers = nn.ModuleList(M2.SSDLayer(cfg, device=device) for _ in range(cfg.num_layers))
+        self.shared = T.Block(cfg, device=device)
+
+
+def init_params(cfg, generator: torch.Generator) -> Hybrid:
+    """Seeded random weights with the JAX package's distributions (the draws
+    differ from ``jax.random``'s; tests bridge JAX weights in instead)."""
+    dev = generator.device
+    model = Hybrid(cfg, device=dev)
+    with torch.no_grad():
+        model.embed.copy_(torch.randn(model.embed.shape, generator=generator, device=dev) * 0.02)
+        for lp in model.layers:
+            M2.init_ssd_layer_(lp, cfg, generator)
+        L.init_attention_(model.shared.attn, cfg, generator)
+        L.init_mlp_(model.shared.mlp, cfg, generator)
+        if model.lm_head_w is not None:
+            model.lm_head_w.copy_(
+                torch.randn(model.lm_head_w.shape, generator=generator, device=dev) * 0.02)
+    return model
+
+
+def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
+               kv_dtype: str = "bf16", **_) -> Dict[str, torch.Tensor]:
+    """The SSD state leaves and one K/V slice per application, ``max_len``
+    rounded up to a multiple of the attention chunk. No quantized layout."""
+    if kv_dtype != "bf16":
+        raise ValueError(f"the hybrid family's cache has no {kv_dtype!r} layout")
+    max_len = -(-max_len // attn_chunk) * attn_chunk
+    shape = (n_apps(cfg), batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {
+        **M2.make_cache(cfg, batch, device=device),
+        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+    }
+
+
+def _run_cached(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
+                attn_chunk: int, decode: bool):
+    """Every layer in order over ``tokens``, the shared block after each
+    group. Prefill returns each SSD layer's final state (the conv window in
+    bf16); decode its per-position checkpoints. The fresh K/V rows go into
+    the cache's buffers in place."""
+    x = L.embed_lookup(params.embed, tokens)
+    S = tokens.shape[1]
+    cache_len = cache["length"]
+    positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    ck, cv = cache["k"], cache["v"]
+    kv_valid = cache_len + S
+    write = L.CacheWrite.dense(cache_len, S, ck.shape[2]) if n_apps(cfg) else None
+    states, convs = [], []
+    for li, lp in enumerate(params.layers):
+        h0, c0 = cache["ssm"][li], cache["conv"][li]
+        if decode:
+            x, h, c = M2.ssd_layer_decode(cfg, lp, x, h0, c0)
+        else:
+            x, (h, c) = M2.ssd_layer_forward(cfg, lp, x, h0=h0, conv0=c0, return_state=True)
+            c = c.to(torch.bfloat16)
+        states.append(h)
+        convs.append(c)
+        if (li + 1) % cfg.attn_every == 0:  # the end of a group: the shared block
+            x = T.block_forward(cfg, params.shared, x, positions, ck, cv, kv_valid, write,
+                                layer=(li + 1) // cfg.attn_every - 1, chunk=attn_chunk)
+    return L.apply_norm(x, params.final_norm, cfg.norm), torch.stack(states), torch.stack(convs)
+
+
+def prefill(cfg, params: Hybrid, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], *,
+            attn_chunk: int = 1024, **_):
+    """Fill the cache from a prompt; returns (last-position logits, cache)."""
+    x, ssm, conv = _run_cached(cfg, params, cache, tokens, attn_chunk, decode=False)
+    new_cache = {"ssm": ssm, "conv": conv, "k": cache["k"], "v": cache["v"],
+                 "length": cache["length"] + tokens.shape[1]}
+    return lm_head(params, x[:, -1:])[:, 0], new_cache
+
+
+def decode_forward(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
+                   attn_chunk: int = 1024, slots: Optional[torch.Tensor] = None, **_):
+    """Verify-style decode of K tokens: (hidden (B, K, d), cache with the
+    K/V rows written and ``ssm_ckpt``/``conv_ckpt`` checkpoints); commit
+    with ``select_checkpoint``."""
+    if slots is not None:
+        raise NotImplementedError(
+            "slot-indexed paged attention is not supported for the 'hybrid' "
+            "family: its recurrent state leaves (ssm, conv) are not position-"
+            "indexed K/V, so pool rows cannot be addressed in place.  Route "
+            "this model through the gather/scatter fallback instead "
+            "(paged_attention=False, or gate on "
+            "models.kvcache.supports_paged_attention(cfg))."
+        )
+    x, ssm_ck, conv_ck = _run_cached(cfg, params, cache, tokens, attn_chunk, decode=True)
+    return x, {**cache, "ssm_ckpt": ssm_ck, "conv_ckpt": conv_ck}
+
+
+def select_checkpoint(cache: Dict[str, torch.Tensor],
+                      n_commit: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Commit the SSD states after ``n_commit`` tokens per row (f32 again)
+    and keep the K/V leaves, whose rows past the new length are masked."""
+    return {**M2.select_checkpoint(cache, n_commit), "k": cache["k"], "v": cache["v"]}

@@ -5,8 +5,9 @@ token position and a per-row ``length`` marks how many entries are
 committed; rollback after verification only changes ``length``. The layout
 is the JAX package's: ``k``/``v`` are ``(L, B, S, Hkv, D)`` (bf16, or int8
 with ``k_scale``/``v_scale`` leaves of shape ``(L, B, Hkv)`` f32), the ssm
-family's ``ssm``/``conv`` state leaves are ``(L, B, ...)``, and ``length``
-is ``(B,)`` int32, so every leaf but ``length`` carries the batch on axis 1.
+and hybrid families' ``ssm``/``conv`` state leaves are ``(L, B, ...)`` (the
+hybrid's ``k``/``v`` are ``(n_apps, B, S, Hkv, D)``), and ``length`` is
+``(B,)`` int32, so every leaf but ``length`` carries the batch on axis 1.
 
 Unlike the JAX pytrees, the ``k``/``v`` buffers and the int8 scale leaves
 are updated in place (the forward writes its fresh rows into them;

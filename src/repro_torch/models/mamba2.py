@@ -169,25 +169,31 @@ def init_params(cfg, generator: torch.Generator) -> Mamba2:
     differ from ``jax.random``'s; tests bridge JAX weights in instead)."""
     dev = generator.device
     model = Mamba2(cfg, device=dev)
-    H = cfg.ssm_heads
+    with torch.no_grad():
+        model.embed.copy_(torch.randn(model.embed.shape, generator=generator, device=dev) * 0.02)
+        for lp in model.layers:
+            init_ssd_layer_(lp, cfg, generator)
+        if model.lm_head_w is not None:
+            model.lm_head_w.copy_(
+                torch.randn(model.lm_head_w.shape, generator=generator, device=dev) * 0.02)
+    return model
+
+
+def init_ssd_layer_(lp: SSDLayer, cfg, generator: torch.Generator) -> None:
+    """One SSD layer's seeded init, in place (the ssm and hybrid families)."""
+    dev = generator.device
     std, out_std = 0.02, 0.02 / math.sqrt(2 * max(cfg.num_layers, 1))
 
     def normal(w, s):
         w.copy_(torch.randn(w.shape, generator=generator, device=dev) * s)
 
-    with torch.no_grad():
-        normal(model.embed, std)
-        for lp in model.layers:
-            normal(lp.in_proj, std)
-            normal(lp.conv_w, 0.2)
-            lp.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, H, device=dev)))
-            lp.D.fill_(1.0)
-            lp.dt_bias.fill_(math.log(math.expm1(0.01)))
-            lp.gnorm.fill_(1.0)
-            normal(lp.out_proj, out_std)
-        if model.lm_head_w is not None:
-            normal(model.lm_head_w, std)
-    return model
+    normal(lp.in_proj, std)
+    normal(lp.conv_w, 0.2)
+    lp.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, cfg.ssm_heads, device=dev)))
+    lp.D.fill_(1.0)
+    lp.dt_bias.fill_(math.log(math.expm1(0.01)))
+    lp.gnorm.fill_(1.0)
+    normal(lp.out_proj, out_std)
 
 
 def make_cache(cfg, batch: int, max_len: int = 0, *, device, kv_dtype: str = "bf16",

@@ -1,9 +1,9 @@
 """Dispatch: one functional interface over the model families.
 
 ``build_model(cfg)`` returns a ``Model`` whose functions take the weights
-(``params``, a ``transformer.Transformer`` or ``mamba2.Mamba2`` module) as
-their first argument, as the JAX package's ``Model`` takes its parameter
-pytree:
+(``params``, a ``transformer.Transformer``, ``mamba2.Mamba2`` or
+``hybrid.Hybrid`` module) as their first argument, as the JAX package's
+``Model`` takes its parameter pytree:
 
   init_params(generator)                 -> params on the generator's device
   lm_head(params, hidden)                -> logits f32
@@ -12,7 +12,7 @@ pytree:
   decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
   commit(cache, n_commit)                -> cache  [speculative rollback]
 
-The dense and ssm families are ported so far.
+The dense, ssm and hybrid families are ported so far.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.models import hybrid as HY
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 
@@ -48,6 +49,8 @@ def build_model(cfg) -> Model:
         mod, commit = T, _attn_commit
     elif cfg.family == "ssm":
         mod, commit = M2, M2.select_checkpoint
+    elif cfg.family == "hybrid":
+        mod, commit = HY, HY.select_checkpoint
     else:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet "

@@ -163,16 +163,30 @@ def decode_forward(
     positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
     kv_valid = cache_len + S
     for li, blk in enumerate(params.layers):
-        h = L.apply_norm(x, blk.ln1, cfg.norm)
-        a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=li, chunk=attn_chunk, slots=slots,
-                     k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
-        # the JAX path's compiled block keeps x + a in f32 for the second
-        # norm and rounds it to bf16 only for the MLP residual; mirroring
-        # that keeps the CPU path bit-exact with it
-        x_mid = x.float() + a.float()
-        h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
-        x = x_mid.to(x.dtype) + blk.mlp(h)
+        x = block_forward(cfg, blk, x, positions, ck, cv, kv_valid, write, layer=li,
+                          chunk=attn_chunk, slots=slots, k_scale=cache.get("k_scale"),
+                          v_scale=cache.get("v_scale"))
     return L.apply_norm(x, params.final_norm, cfg.norm), cache
+
+
+def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
+                  ck: torch.Tensor, cv: torch.Tensor, kv_valid: torch.Tensor,
+                  write: L.CacheWrite, *, layer: int, chunk: int,
+                  slots: Optional[torch.Tensor] = None,
+                  k_scale: Optional[torch.Tensor] = None,
+                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pre-norm block against layer ``layer`` of the stacked cache: the
+    dense family's layers, and the hybrid family's shared block at each of
+    its applications."""
+    h = L.apply_norm(x, blk.ln1, cfg.norm)
+    a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=layer, chunk=chunk, slots=slots,
+                 k_scale=k_scale, v_scale=v_scale)
+    # the JAX path's compiled block keeps x + a in f32 for the second norm
+    # and rounds it to bf16 only for the MLP residual; mirroring that keeps
+    # the CPU path bit-exact with it
+    x_mid = x.float() + a.float()
+    h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
+    return x_mid.to(x.dtype) + blk.mlp(h)
 
 
 def prefill(

@@ -1,11 +1,14 @@
-"""repro_torch.telemetry: the metrics half of the JAX package's telemetry.
+"""repro_torch.telemetry: the port of the JAX package's telemetry.
 
 Off by default; ``System.build`` turns it on when the spec says
 ``telemetry: true``. Spans wrap host-side boundaries only. ``TraceEvent``
 is the per-round record; a ``FlightRecorder`` keeps the last rounds of an
-engine or of each replica behind a Router.
+engine or of each replica behind a Router. ``setup_logging`` configures
+the ``repro_torch`` logger root; ``top`` (``repro_torch.telemetry.top``)
+polls workers over the control plane.
 """
 
+from repro_torch.telemetry.logs import setup_logging
 from repro_torch.telemetry.metrics import (
     C_TH_BUCKETS,
     K_BUCKETS,
@@ -31,6 +34,7 @@ __all__ = [
     "enabled",
     "observe",
     "registry",
+    "setup_logging",
     "span",
     "TraceEvent",
 ]

@@ -1,8 +1,10 @@
 """Process-local metrics registry: counters, gauges, fixed-bucket histograms.
 
-The port's own copy of ``repro.telemetry.metrics`` without the Prometheus
-exposition: the registry renders a JSON snapshot (``snapshot()``). The
-flight recorder and ``top`` are still to port (ROADMAP.md Queue A).
+The port's own copy of ``repro.telemetry.metrics``: the registry renders a
+Prometheus-style text exposition (``exposition()``, byte for byte the JAX
+package's, ``repro_`` prefix included, so one scrape configuration reads
+both) and a JSON snapshot (``snapshot()``), which is what crosses process
+boundaries inside ``ReplicaStats`` telemetry payloads.
 
 Everything here is observation-only and cheap: a metric update is a dict hit
 plus a locked float add, and the :func:`span` context manager short-circuits
@@ -47,6 +49,11 @@ def _fmt_labels(items: Sequence[Tuple[str, str]]) -> str:
     if not items:
         return ""
     return "{" + ",".join(f'{k}="{v}"' for k, v in items) + "}"
+
+
+def _prom_name(name: str) -> str:
+    out = "".join(c if (c.isalnum() or c == "_") else "_" for c in name)
+    return out if out.startswith("repro_") else f"repro_{out}"
 
 
 class Counter:
@@ -233,6 +240,36 @@ class MetricsRegistry:
             else:
                 out["gauges"][key] = m.value
         return out
+
+    def exposition(self) -> str:
+        """Prometheus text-format exposition of every registered metric."""
+        with self._lock:
+            metrics = sorted(
+                self._metrics.values(), key=lambda m: (m.name, m.labels)
+            )
+        lines = []
+        seen_header = set()
+        for m in metrics:
+            pname = _prom_name(m.name)
+            if pname not in seen_header:
+                seen_header.add(pname)
+                if m.help:
+                    lines.append(f"# HELP {pname} {m.help}")
+                lines.append(f"# TYPE {pname} {m.kind}")
+            if isinstance(m, Histogram):
+                cum = 0
+                for i, ub in enumerate(m.buckets):
+                    cum += m.counts[i]
+                    lbl = _fmt_labels(m.labels + (("le", repr(ub)),))
+                    lines.append(f"{pname}_bucket{lbl} {cum}")
+                lbl = _fmt_labels(m.labels + (("le", "+Inf"),))
+                lines.append(f"{pname}_bucket{lbl} {cum + m.counts[-1]}")
+                base = _fmt_labels(m.labels)
+                lines.append(f"{pname}_sum{base} {m.sum}")
+                lines.append(f"{pname}_count{base} {m.count}")
+            else:
+                lines.append(f"{pname}{_fmt_labels(m.labels)} {m.value}")
+        return "\n".join(lines) + ("\n" if lines else "")
 
 
 # ---------------------------------------------------------------------------

@@ -102,9 +102,10 @@ def _family_spec(family: str) -> ServeSpec:
     spec = ServeSpec.from_json(SPEC_JSON)
     if family == "int8":
         return dataclasses.replace(spec, kv_dtype="int8")
-    if family == "mamba2":
+    if family in ("mamba2", "zamba2"):
+        arch = {"mamba2": "mamba2-370m", "zamba2": "zamba2-1.2b"}[family]
         return dataclasses.replace(spec, prompt_len=40, model=dataclasses.replace(
-            spec.model, arch="mamba2-370m", draft_arch="mamba2-370m"))
+            spec.model, arch=arch, draft_arch=arch))
     return spec
 
 
@@ -115,10 +116,11 @@ def _raw_row(engine, slot: int) -> dict:
             for n, a in engine.pool.cache.items()}
 
 
-@pytest.mark.parametrize("family", ["bf16", "int8", "mamba2"])
+@pytest.mark.parametrize("family", ["bf16", "int8", "mamba2", "zamba2"])
 def test_migrated_row_is_a_copy_of_bits(family):
     """Three streams on replica a, two on replica b, a few verify rounds
-    each (so the int8 scales and the ssm state are set and differ by row):
+    each (so the int8 scales and the ssm state are set and differ by row;
+    zamba2's rows carry both the state and the shared block's K/V):
     the middle stream of a moves into b's third slot. Every leaf of its new
     row equals its old row bit for bit, b's other rows and a's remaining
     rows are untouched, and a stream with a request in flight refuses to
@@ -146,9 +148,13 @@ def test_migrated_row_is_a_copy_of_bits(family):
     if family == "int8":
         assert {"k_scale", "v_scale"} <= leaves
         assert not torch.equal(before_a[0]["k_scale"], before_a[1]["k_scale"])
-    if family == "mamba2":
+    if family in ("mamba2", "zamba2"):
         assert {"ssm", "conv"} <= leaves
         assert not torch.equal(before_a[0]["ssm"], before_a[1]["ssm"])
+    if family == "zamba2":
+        assert {"k", "v"} <= leaves and before_a[1]["k"].shape[0] == 1  # one application
+        assert before_a[1]["ssm"].dtype == torch.float32
+        assert {before_a[1][n].dtype for n in ("conv", "k", "v")} == {torch.bfloat16}
     stream, row = a.export_stream(1)
     assert 1 not in a.streams and a.pool.n_free == 1
     b.import_stream(stream, row)

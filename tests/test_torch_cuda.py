@@ -234,3 +234,48 @@ def test_cuda_ssd_scan_refuses_widths_it_does_not_tile(P, N):
     dt = torch.ones((1, 32, 2), device=dev)
     with pytest.raises(ValueError, match="slices"):
         ssd_scan.ssd_scan(x, dt, -torch.ones(2, device=dev), bc, bc, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_attention_at_one_query_head_per_kv_head(paged, D):
+    """G = 1, zamba2's shared block (32 query heads on 32 KV heads of 64;
+    the reduced config's 4 on 4 of 16): against the plain version at a
+    gathered verify's shape (B 6, Sq 5, kv ~230 of 512), and each row of the
+    batch equal to the same row alone, bit for bit."""
+    dev = _card()
+    H = 32 if D == 64 else 4
+    rng = np.random.default_rng(31 + D)
+    kvv = [205, 212, 233, 240, 219, 5]
+    q = _bf16(rng.standard_normal((6, 5, H, D)), dev)
+    k = _bf16(rng.standard_normal((6, 512, H, D)), dev)
+    v = _bf16(rng.standard_normal((6, 512, H, D)), dev)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    slots = torch.tensor([2, 0, 5, 1, 4, 3], dtype=torch.int32, device=dev)
+    if paged:
+        run = lambda b: verify_attn.verify_attention_paged(  # noqa: E731
+            q[b], k, v, slots[b], kv_valid[b])
+        want = ref.verify_attention_paged_ref(q, k, v, slots, kv_valid)
+    else:
+        run = lambda b: verify_attn.verify_attention_packed(  # noqa: E731
+            q[b], k[b], v[b], kv_valid[b])
+        want = ref.verify_attention_ref(q, k, v, kv_valid)
+    got = run(slice(None))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+    for b in range(6):
+        alone = run(slice(b, b + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 199, 64, 64, 64, 256), (2, 300, 64, 64, 64, 256),
+                                   (2, 40, 8, 16, 16, 16)])
+def test_cuda_ssd_scan_at_zamba2_widths(shape):
+    """zamba2-1.2b's prefill scan (64 heads of 64, state 64; a ragged chunk,
+    and a full one then a ragged one at B 2) and the reduced config's (8
+    heads of 16, state 16, chunk 16) against the plain version."""
+    test_cuda_ssd_scan_matches_plain_version(shape)

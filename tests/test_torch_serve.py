@@ -309,6 +309,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cluster.faults, repro_torch.launch.chaos\n"
         "import repro_torch.configs.sled_paper, repro_torch.serving.simulator\n"
         "import repro_torch.serving.cost_model, repro_torch.tuning, repro_torch.launch.tune\n"
+        "import repro_torch.cli, repro_torch.launch.serve, repro_torch.telemetry.top\n"
+        "import repro_torch.telemetry.logs, repro_torch.models.hybrid\n"
+        "import repro_torch.configs.zamba2_1_2b\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -356,16 +359,23 @@ _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 
 
 @pytest.mark.parametrize("change", [
-    {"paged_attention": False},
+    {"family": "moe"},
+    {"family": "encdec"},
+    {"family": "vlm"},
+    {"act": "gelu"},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (paged_attention=False) is refused; the
-    cluster and transport backends with in-process or remote replicas,
-    fault schedules and policies, sampling, quantized targets and fleets
-    are served."""
-    spec = dataclasses.replace(ServeSpec.from_json(SPEC_JSON), **change)
+    """What a later slice serves (the moe, encdec and vlm families, the gelu
+    MLP) is refused where its model is built, naming ROADMAP.md; every
+    spec the port's configs can name is served (``paged_attention=False``
+    and the hybrid family: tests/test_torch_hybrid.py), as are the cluster
+    and transport backends with in-process or remote replicas, fault
+    schedules and policies, sampling, quantized targets and fleets."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        System.build(spec, device="cpu")
+        build_model(cfg).init_params(torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("change", [

@@ -347,7 +347,7 @@ def test_remote_router_commits_the_jax_clusters_tokens():
     assert router.evictions == 0 and router.stats().replicas == 2
 
 
-@pytest.mark.parametrize("family", ["bf16", "int8", "mamba2"])
+@pytest.mark.parametrize("family", ["bf16", "int8", "mamba2", "zamba2"])
 def test_remote_migration_is_a_copy_of_bits(family):
     """Four streams on two remote replicas, three verify rounds each (so
     the int8 scales and the ssm state are set and differ by row); a stream
