@@ -14,7 +14,9 @@ Phases, each of which must pass for the script to exit 0:
                3e-3, relative and absolute), and its refusal of a P the
                kernel does not slice; since the hybrid family, attention at
                G = 1 (32 query heads on 32 KV heads of 64) and the scan at
-               64 heads of 64 with state 64 (zamba2-1.2b);
+               64 heads of 64 with state 64 (zamba2-1.2b); since the moe
+               family, attention at G = 3 (24 on 8, granite-moe-3b-a800m)
+               and G = 8 (32 on 4, qwen3-moe-30b-a3b), head_dim 64;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -96,6 +98,21 @@ Phases, each of which must pass for the script to exit 0:
                         retried RPCs (through repro_torch.launch.chaos
                         --check); the kill under the default policy, whose
                         lost sessions end shed;
+               moe    - full-width granite-moe-3b-a800m as registered (32
+                        layers, 40 experts, top-8, capacity factor 1.25;
+                        the draft its layer 0), served twice: every logit
+                        finite and the second serve's tokens the first's
+                        (acceptance printed, not required).
+                        The capacity dispatch drops assignments past an
+                        expert's capacity, so a stream depends on the rows
+                        batched with it and the engine (a slot prefilled
+                        alone, the ready rows padded to a bucket) cannot
+                        equal the reference (6 devices in one batch); the
+                        moe tally (dropped/assigned for prefills, verifies
+                        and draft steps) is printed. The dropless twin (the
+                        same weights, capacity factor E/K) is held to the
+                        reference as the paper pair is, with nothing
+                        dropped in either serve;
                paper  - the paper's pair at its published widths
                         (llama-11b-target, 40 layers, 32 query heads on 8
                         KV heads of 128, an untied head, verifying
@@ -116,13 +133,21 @@ Phases, each of which must pass for the script to exit 0:
                of 5 after a warm one) beside its weight-stream bound, which
                it must not beat, and the h100 ServerProfile's prediction;
                prints the profile's launch overhead as measured here;
-  5. sim fig4 - serving.simulator on the h100 profile in the setting of the
+  5. moe 30b - full-width qwen3-moe-30b-a3b (48 layers, 128 experts,
+               top-8; 60.2 GB of bf16 weights, its 1-layer draft sharing the
+               target's tensors) on a card emptied of the earlier bundles:
+               served and checked as granite-moe is (16 new tokens), then
+               its verify step per bucket (1, 2, 4, 8) beside the bound of
+               every weight, which the capacity dispatch reads on every
+               call and which the step must not beat, and the bound of
+               one token's active parameters;
+  6. sim fig4 - serving.simulator on the h100 profile in the setting of the
                JAX package's benchmarks/wstgr.py --quick (a prediction);
-  6. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
+  7. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
                tune CLI once in its own process;
-  7. cli     - python -m repro_torch.cli in subprocesses on the card, each
+  8. cli     - python -m repro_torch.cli in subprocesses on the card, each
                with a timeout: serve --check of examples/specs/engine.json,
                of a hybrid target from flags and of a hybrid pair from a
                spec (the reference match printed OK), trace with the
@@ -402,6 +427,20 @@ def check_attention(records: dict) -> None:
         ("bf16", 1, 199, 32, 32, 64, 512, [199], None, 6),
         ("bf16", 6, 5, 32, 32, 64, 512, [205, 212, 233, 240, 219, 208], None, 6),
         ("bf16", 4, 5, 32, 32, 64, 512, [64, 65, 128, 129], None, 6),
+        # the moe family at head_dim 64: granite-moe-3b-a800m's 24 query
+        # heads on 8 KV heads (G = 3, the first G that is not a power of
+        # two; 32 layers) and qwen3-moe-30b-a3b's 32 on 4 (G = 8; 48
+        # layers): the draft's decode (its 1 layer), the slot prefill, the
+        # engine's paged verify (a bucket of 6: 5 streams and the scratch
+        # row), and at G = 3 the int8 paged verify and two splits' edges
+        ("bf16", 1, 1, 24, 8, 64, 512, [230], None, 1),
+        ("bf16", 1, 199, 24, 8, 64, 512, [199], None, 32),
+        ("bf16", 6, 5, 24, 8, 64, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 32),
+        ("int8", 6, 5, 24, 8, 64, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 32),
+        ("bf16", 4, 5, 24, 8, 64, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
+        ("bf16", 1, 1, 32, 4, 64, 512, [230], None, 1),
+        ("bf16", 1, 199, 32, 4, 64, 512, [199], None, 48),
+        ("bf16", 6, 5, 32, 4, 64, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 48),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -466,14 +505,16 @@ def check_attention(records: dict) -> None:
 def check_batch_invariance(gen) -> None:
     """The same rows attended alone (B=1) and in a batch of 6 give the same
     bits: the kernel's splits and merge order do not depend on the batch
-    (qwen2's 12 query heads on 2 KV heads, the paper pair's 32 on 8, and
-    zamba2's 32 on 32 at head_dim 64)."""
+    (qwen2's 12 query heads on 2 KV heads, the paper pair's 32 on 8,
+    zamba2's 32 on 32 at head_dim 64, granite-moe's 24 on 8 (G = 3) and
+    qwen3-moe's 32 on 4 (G = 8) at head_dim 64)."""
     from repro_torch.kernels import verify_attn
 
     dev = torch.device("cuda")
     kvv = [205, 233, 240, 5, 5, 5]
     for kv, hq, hkv, d in (("bf16", 12, 2, 128), ("int8", 12, 2, 128), ("bf16", 32, 8, 128),
-                           ("bf16", 32, 32, 64)):
+                           ("bf16", 32, 32, 64), ("bf16", 24, 8, 64), ("int8", 24, 8, 64),
+                           ("bf16", 32, 4, 64)):
         k = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
@@ -577,11 +618,11 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
     seeded random init on the card.
 
     Every layer's output projections (qwen2: attention ``wo`` and MLP
-    ``wd``; mamba2: ``out_proj``; zamba2: each SSD layer's ``out_proj`` and
-    the shared block's ``wo`` and ``wd``) are scaled by ``resid_scale``, and
-    the draft is the target's embedding, first layers (and zamba2's shared
-    block), final norm and head. With the
-    init's own scale the qwen2 layers swamp the embedding: both models'
+    ``wd``; the moe family: ``wo`` and the experts' ``wd``; mamba2:
+    ``out_proj``; zamba2: each SSD layer's ``out_proj`` and the shared
+    block's ``wo`` and ``wd``) are scaled by ``resid_scale``, and the draft
+    is the target's embedding, first layers (and zamba2's shared block),
+    final norm and head. With the init's own scale the qwen2 layers swamp the embedding: both models'
     logits are flat over 151936 tokens, the draft stops at one token
     (confidence < c_th) and never agrees with the target. With smaller
     layer outputs the draft is confident and the target agrees with it
@@ -602,15 +643,15 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
                 blk.out_proj.mul_(resid_scale)
             else:
                 blk.attn.wo.mul_(resid_scale)
-                blk.mlp.wd.mul_(resid_scale)
+                (blk.moe if tcfg.family == "moe" else blk.mlp).wd.mul_(resid_scale)
     dcfg, draft, dp = prefix_draft(tcfg, tp, draft_layers)
     return ModelBundle(tcfg, dcfg, target, draft, tp, dp)
 
 
 def prefix_draft(tcfg, target_params, n_layers: int):
-    """A draft of ``n_layers`` layers: the target's embedding, its first
-    ``n_layers`` layers, every weight outside the layers (final norm, head,
-    a hybrid's shared block), as ``(cfg, model, params)``."""
+    """A draft of ``n_layers`` layers: copies of the target's embedding, its
+    first ``n_layers`` layers and every weight outside the layers (final
+    norm, head, a hybrid's shared block), as ``(cfg, model, params)``."""
     from repro_torch.models.model_zoo import build_model
 
     dcfg = dataclasses.replace(tcfg, name="edge-draft", num_layers=n_layers)
@@ -668,12 +709,13 @@ def _round_sink(rounds: dict):
 
 
 def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=None,
-          need_accepted: bool = True) -> dict:
+          need_accepted: bool = True, tally=None) -> dict:
     """The engine backend serves the fleet of ``spec``. ``path`` maps each
     kernel entry of this path to the launches it must show (None: at least
     one); a kernel record's ``launches`` is the count of the first path that
     runs it (its main path), ``launches_by_path`` every path's. Some drafts
-    must be accepted unless ``need_accepted`` is False. Returns the
+    must be accepted unless ``need_accepted`` is False. A ``tally``
+    (_MoeTally) is zeroed with the launch counters. Returns the
     streams (``outputs``), each device's committed tokens per round
     (``rounds``) and the padded batch each of those rounds ran in
     (``rows``), and the pool's bytes per slot (``per_slot``)."""
@@ -697,6 +739,8 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
 
     core.verify = recorded_verify
     _reset_launches()
+    if tally is not None:
+        tally.reset()
     t0 = time.perf_counter()
     res = system.serve(prompts, on_event=_round_sink(rounds))
     torch.cuda.synchronize()
@@ -719,7 +763,7 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
     _record_launches(label, records, path, launches)
     vocab = bundle.target_cfg.vocab_size
     for s in res.sessions:
-        if len(s.tokens) != 32 or not all(0 <= t < vocab for t in s.tokens):
+        if len(s.tokens) != spec.max_new or not all(0 <= t < vocab for t in s.tokens):
             raise AssertionError(f"{label}: device {s.device_id}: bad output {s.tokens}")
         if len(rounds[s.device_id]) != len(rows[s.device_id]):
             raise AssertionError(f"{label}: device {s.device_id}: {len(rounds[s.device_id])} "
@@ -1706,6 +1750,155 @@ def serve_chaos_spawned(records: dict) -> None:
                      {"verify_attention_packed": None}, launches)
 
 
+class _MoeTally:
+    """The moe tally's (assignments, dropped) of a serve, split by what ran:
+    the target's prefills, its verifies (and replays), and the drafts'
+    prefills and steps. Each wrapped call snapshots the card's running
+    tally (models.layers.moe_tally) and adds the difference after it, on
+    the card: no host sync."""
+
+    KINDS = ("prefill", "verify", "draft")
+
+    def __init__(self):
+        self.counts = {k: torch.zeros(2, dtype=torch.int64, device="cuda") for k in self.KINDS}
+
+    def reset(self) -> None:
+        for c in self.counts.values():
+            c.zero_()
+
+    def _wrap(self, fn, kind: str):
+        from repro_torch.models.layers import moe_tally
+
+        def run(*args, **kw):
+            tally = moe_tally("cuda")
+            before = tally.clone()
+            out = fn(*args, **kw)
+            self.counts[kind] += tally - before
+            return out
+        return run
+
+    def bundle(self, bundle):
+        """``bundle`` with its models' prefill and decode_forward tallied."""
+        t, d = bundle.target, bundle.draft
+        return dataclasses.replace(
+            bundle,
+            target=dataclasses.replace(t, prefill=self._wrap(t.prefill, "prefill"),
+                                       decode_forward=self._wrap(t.decode_forward, "verify")),
+            draft=dataclasses.replace(d, prefill=self._wrap(d.prefill, "draft"),
+                                      decode_forward=self._wrap(d.decode_forward, "draft")))
+
+    def read(self) -> dict:
+        """kind -> (assignments, dropped)."""
+        return {k: tuple(int(x) for x in c.tolist()) for k, c in self.counts.items()}
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {d}/{a} ({d / max(a, 1):.4f})" for k, (a, d) in self.read().items())
+
+
+def serve_moe(label: str, records: dict, bundle, prompts, *, max_new: int) -> dict:
+    """The moe fleet as registered (capacity_factor 1.25) on the engine
+    backend, twice: every token in the vocabulary (serve()), every logit of
+    the target and the draft finite, and the second serve's tokens equal
+    to the first's. The capacity dispatch makes a stream depend on the rows
+    batched with it, and the engine batches them otherwise than the
+    reference does, so this serve is held by determinism; check_moe holds
+    the dropless twin to the reference. Prints the tally as dropped /
+    assigned for prefills, verifies and draft steps."""
+    arch = bundle.target_cfg.name
+    runs = []
+    for run in range(2):
+        tally, target_watch, draft_watch = _MoeTally(), _FiniteWatch(), _FiniteWatch()
+        b = tally.bundle(bundle)
+        b = dataclasses.replace(b, target=target_watch.wrap(b.target),
+                                draft=draft_watch.wrap(b.draft))
+        torch.cuda.reset_peak_memory_stats()
+        served = serve(label if run == 0 else f"{label} again", records, b, prompts,
+                       spec=serve_spec("engine", arch, max_new=max_new), path=BF16_PATH,
+                       need_accepted=False, tally=tally)
+        if not (bool(target_watch.ok) and bool(draft_watch.ok)):
+            raise AssertionError(f"{label}: a logit was not finite (target ok "
+                                 f"{bool(target_watch.ok)}, draft ok {bool(draft_watch.ok)})")
+        print(f"serve {label}: dropped/assigned {tally.line()}", flush=True)
+        runs.append(served)
+    if runs[0]["outputs"] != runs[1]["outputs"]:
+        raise AssertionError(f"{label}: a second serve of the same fleet gave other tokens: "
+                             f"{runs[0]['outputs']} then {runs[1]['outputs']}")
+    print(f"serve {label}: the second serve gave the same {len(prompts)} streams, token for "
+          "token", flush=True)
+    return runs[0]
+
+
+def dropless_twin(bundle):
+    """The same weights under configs whose capacity_factor is E / K, so
+    every expert has a slot for every token of a call and nothing drops."""
+    from repro_torch.models.model_zoo import build_model
+
+    def twin(cfg):
+        return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+
+    tcfg, dcfg = twin(bundle.target_cfg), twin(bundle.draft_cfg)
+    return dataclasses.replace(bundle, target_cfg=tcfg, draft_cfg=dcfg, target=build_model(tcfg),
+                               draft=build_model(dcfg))
+
+
+def check_moe(label: str, records: dict, bundle, prompts, *, max_new: int) -> None:
+    """The dropless twin served by the engine and by the reference backend:
+    the tally must show nothing dropped in either (the reference's count
+    includes check()'s gap prefills and replays), and the engine's streams
+    must equal the reference's up to near ties or pass the replay witness
+    (check(), witness=True): with nothing dropped a row's output depends on
+    its own tokens only, so the witness may repeat a stream's row."""
+    arch = bundle.target_cfg.name
+    twin = dropless_twin(bundle)
+    tally = _MoeTally()
+    served = serve(f"{label} dropless", records, tally.bundle(twin), prompts,
+                   spec=serve_spec("engine", arch, max_new=max_new), path=BF16_PATH,
+                   need_accepted=False, tally=tally)
+    print(f"check {label}: dropless engine serve, dropped/assigned {tally.line()}", flush=True)
+    ref_tally = _MoeTally()
+    check(label, ref_tally.bundle(twin), prompts, served,
+          spec=serve_spec("reference", arch, max_new=max_new), witness=True)
+    print(f"check {label}: reference and witnesses, dropped/assigned {ref_tally.line()}",
+          flush=True)
+    for which, t in (("engine", tally), ("reference", ref_tally)):
+        counts = t.read()
+        if any(d for _, d in counts.values()) or not all(a for a, _ in counts.values()):
+            raise AssertionError(f"{label}: the dropless {which} serve's tally is {counts}")
+
+
+def calibrate_moe(bundle) -> dict:
+    """The moe target's verify step on an engine of 8 slots (buckets 1, 2,
+    4, 8), timed as calibrate_h100 times the 11B's, beside two bounds: the
+    bytes of every weight, which the capacity dispatch reads on every call
+    (every expert's tables, whatever the routing), and the bytes of one
+    token's active parameters (K of the E experts). A step under the first
+    bound fails: the timing did not wait for the card."""
+    from repro_torch.api import System
+    from repro_torch.api.spec import SchedulerSpec
+
+    cfg = bundle.target_cfg
+    spec = serve_spec("engine", cfg.name, max_new=16, scheduler=SchedulerSpec(slots=8))
+    system = System.build(spec, models=bundle)
+    system.warmup()
+    runs = [system.warmup() for _ in range(5)]
+    every = _verify_bytes(bundle.target_params)
+    experts = sum(p.numel() * p.element_size()
+                  for name, p in bundle.target_params.named_parameters() if ".moe.w" in name)
+    active = every - experts * (1 - cfg.experts_per_token / cfg.num_experts)
+    out = {}
+    for b in sorted(runs[0]):
+        t = sorted(r[b] for r in runs)[2]
+        out[b] = t
+        print(f"calibrate {cfg.name}: bucket {b}: verify step {t * 1e3:.3f} ms (of 5: "
+              f"{[round(r[b] * 1e3, 3) for r in runs]}), every weight {every} bytes: bound "
+              f"{every / HBM_BYTES_PER_S * 1e3:.3f} ms; active parameters {int(active)} bytes: "
+              f"bound {active / HBM_BYTES_PER_S * 1e3:.3f} ms", flush=True)
+        if t < every / HBM_BYTES_PER_S:
+            raise AssertionError(f"calibrate {cfg.name}: bucket {b} step {t} s is under the "
+                                 "bound of the weights it reads: the timing did not wait")
+    return out
+
+
 def paper_pair_bundle():
     """The paper's pair at its published widths (configs/sled_paper.py):
     llama-11b-target (40 layers, d_model 4096, 32 query heads on 8 KV heads
@@ -1985,6 +2178,20 @@ def build_kernels() -> None:
                 print("  ptxas:", ln.strip())
 
 
+def _free_card(what: str) -> None:
+    """After ``del`` of a phase's bundle: collect the reference cycles that
+    still hold its tensors (Systems, sessions and closures), return the
+    cached blocks to the card, restart the peak count, and print what
+    stays allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"freed {what}: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "allocated", flush=True)
+
+
 def _phase(name: str, fn):
     t0 = time.perf_counter()
     out = fn()
@@ -2070,7 +2277,7 @@ def main() -> int:
                                                             cluster=cluster, remote=remote))
     _phase("serve chaos spawned", lambda: serve_chaos_spawned(records))
     del qwen
-    torch.cuda.empty_cache()
+    _free_card("qwen2-1.5b")
 
     m2 = _phase("init mamba2-370m", lambda: full_width_bundle("mamba2-370m"))
     m2_prompts = prompts % m2.target_cfg.vocab_size
@@ -2082,8 +2289,7 @@ def main() -> int:
     _phase("check ssm", lambda: check("ssm", m2, m2_prompts, served,
                                       spec=serve_spec("reference", "mamba2-370m")))
     del m2
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free_card("mamba2-370m")
 
     # the draft: the target's first 6 SSD layers and its shared block (one
     # application, so the draft attends too)
@@ -2098,8 +2304,16 @@ def main() -> int:
                                          spec=serve_spec("reference", "zamba2-1.2b",
                                                          draft_layers=6)))
     del zb
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    _free_card("zamba2-1.2b")
+
+    # the moe family: granite-moe-3b-a800m (G = 3) as registered, then its
+    # dropless twin against the reference
+    gm = _phase("init granite-moe-3b-a800m", lambda: full_width_bundle("granite-moe-3b-a800m"))
+    gm_prompts = prompts % gm.target_cfg.vocab_size
+    _phase("serve moe", lambda: serve_moe("moe", records, gm, gm_prompts, max_new=32))
+    _phase("check moe", lambda: check_moe("moe", records, gm, gm_prompts, max_new=32))
+    del gm
+    _free_card("granite-moe-3b-a800m")
 
     pair = _phase("init llama pair", paper_pair_bundle)
     paper_prompts = np.random.default_rng(4).integers(
@@ -2113,7 +2327,18 @@ def main() -> int:
                                         spec=paper_spec("reference"), witness=True))
     _phase("calibrate h100", lambda: calibrate_h100(pair))
     del pair
-    torch.cuda.empty_cache()
+    _free_card("the llama pair")
+
+    # qwen3-moe-30b-a3b (G = 8) on a card emptied of the earlier bundles
+    qm = _phase("init qwen3-moe-30b-a3b", lambda: full_width_bundle("qwen3-moe-30b-a3b"))
+    print(f"init qwen3-moe-30b-a3b: {sum(p.numel() for p in qm.target_params.parameters())} "
+          f"parameters ({qm.target_cfg.param_count()} by the config), device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    _phase("serve moe 30b", lambda: serve_moe("moe 30b", records, qm, prompts, max_new=16))
+    _phase("check moe 30b", lambda: check_moe("moe 30b", records, qm, prompts, max_new=16))
+    _phase("calibrate moe 30b", lambda: calibrate_moe(qm))
+    del qm
+    _free_card("qwen3-moe-30b-a3b")
     _phase("sim fig4", sim_fig4)
     _phase("tune", lambda: tune_on_card(records))
     _phase("cli", cli_on_card)

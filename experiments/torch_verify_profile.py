@@ -1,17 +1,22 @@
-"""Where the time of the full-width llama-11b-target's verify step goes on
-the card (torch.profiler).
+"""Where the time of a full-width target's verify step goes on the card
+(torch.profiler).
 
-    PYTHONPATH=src python3 experiments/torch_verify_profile.py
+    PYTHONPATH=src python3 experiments/torch_verify_profile.py [ARCH]
 
-Builds llama-11b-target at its published widths with the port's seeded
-init (as chip_smoke.py's paper pair, output projections scaled by 0.5) on
-an engine of 8 slots, and for buckets 1 and 8 runs the verify step as
+Builds ARCH (default llama-11b-target; a dense or moe config) at its
+published widths with the port's seeded init (as chip_smoke.py's bundles,
+output projections, attention's ``wo`` and the MLP's or the experts' ``wd``,
+scaled by 0.5) on an engine of 8 slots, and for buckets 1 and 8 runs the verify step as
 ``EngineCore.warmup`` does (scratch rows, ending in a host read): 5 steps
 without the profiler (host wall, median), then 5 under ``torch.profiler``.
 Prints per step: wall, device busy (the union of kernel intervals) and its
-share of the wall, kernels launched, device time by kernel name (top
-entries), and host time by op. Runs on a CUDA device only; the traces go
-to ``build/torch_verify_profile_b{1,8}.json``.
+share of the wall, kernels launched, the host's waits on the card (calls of
+``cudaStreamSynchronize``, ``cudaDeviceSynchronize`` and
+``aten::_local_scalar_dense``) beside its ``cudaMemcpy*`` calls (copies on
+the card as well as to the host; a copy to the host waits through one of
+the former), device time by kernel name (top entries), and host time by
+op. Runs on a CUDA device only; the traces go
+to ``build/torch_verify_profile_{ARCH}_b{1,8}.json``.
 """
 from __future__ import annotations
 
@@ -57,13 +62,14 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
-    cfg = get_config("llama-11b-target")
+    arch = sys.argv[1] if len(sys.argv) > 1 else "llama-11b-target"
+    cfg = get_config(arch)
     model = build_model(cfg)
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
         for blk in params.layers:
             blk.attn.wo.mul_(0.5)
-            blk.mlp.wd.mul_(0.5)
+            (blk.moe if cfg.family == "moe" else blk.mlp).wd.mul_(0.5)
     engine = ServerEngine(model, params, n_slots=8, max_len=512, k_max=4)
     core = engine.core
     core.warmup()
@@ -78,10 +84,19 @@ def main() -> int:
             for _ in range(STEPS):
                 core.warmup()
             traced = (time.perf_counter() - t0) / STEPS
-        trace = out / f"torch_verify_profile_b{b}.json"
+        trace = out / f"torch_verify_profile_{arch}_b{b}.json"
         prof.export_chrome_trace(str(trace))
-        events = [e for e in json.loads(trace.read_text())["traceEvents"]
-                  if e.get("cat") == "kernel" and "dur" in e]
+        trace_events = json.loads(trace.read_text())["traceEvents"]
+        events = [e for e in trace_events if e.get("cat") == "kernel" and "dur" in e]
+        waits: dict = {}
+        copies: dict = {}
+        for e in trace_events:
+            name = e.get("name", "")
+            if name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                        "aten::_local_scalar_dense"):
+                waits[name] = waits.get(name, 0) + 1
+            elif name.startswith("cudaMemcpy"):
+                copies[name] = copies.get(name, 0) + 1
         busy = _busy_seconds(events) / STEPS
         wall = walls[STEPS // 2]
         print(f"bucket {b}: step {wall * 1e3:.3f} ms wall without the profiler (median of "
@@ -89,6 +104,9 @@ def main() -> int:
               f"device busy {busy * 1e3:.3f} ms a step ({100 * busy / wall:.1f}% of the wall, "
               f"idle {100 * (1 - busy / wall):.1f}%); {len(events) / STEPS:.0f} kernels a step",
               flush=True)
+        print(f"bucket {b}: host waits a step: "
+              f"{ {k: v / STEPS for k, v in sorted(waits.items())} }; copy calls a step: "
+              f"{ {k: v / STEPS for k, v in sorted(copies.items())} }", flush=True)
         by_name: dict = {}
         for e in events:
             d = by_name.setdefault(e["name"][:90], [0.0, 0])

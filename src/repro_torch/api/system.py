@@ -20,7 +20,7 @@ package serves them. A stream shed with an evicted replica ends its
 session with ``SessionResult.shed`` and is listed in
 ``ServeResult.lost_devices``; on the transport backend it fails the serve
 instead (the JAX package's client waits out its retries there). The
-dense, ssm and hybrid families are served; ``paged_attention=False``
+dense, moe, ssm and hybrid families are served; ``paged_attention=False``
 selects the gather/scatter verify, which the ssm and hybrid families ride
 anyway (``System.build`` logs that fallback, as the JAX package does).
 

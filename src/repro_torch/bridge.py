@@ -6,7 +6,9 @@ bf16 moves bit-exactly through a 16-bit integer view, as the JAX
 checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
 weight is a plain copy. The stacked ``(L, ...)`` leaves of
 ``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
-(dense family) or ``Mamba2.layers`` (ssm family); the hybrid family's
+(dense and moe families; a moe layer's router and expert tables stacked
+``(L, E, ...)`` under ``params["layers"]["moe"]``) or ``Mamba2.layers``
+(ssm family); the hybrid family's
 ``params["ssm_layers"]`` become ``Hybrid.layers`` and its
 ``params["shared_attn"]`` the one ``Hybrid.shared`` block. Caches move leaf
 by leaf in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves,
@@ -47,12 +49,16 @@ _LAYER_PARAMS = {
                                        "gnorm", "out_proj")},
     },
 }
+_LAYER_PARAMS["moe"] = {
+    **{name: path for name, path in _LAYER_PARAMS["dense"].items() if path[0] != "mlp"},
+    **{f"moe.{name}": ("moe", name) for name in ("router", "wg", "wu", "wd")},
+}
 _LAYER_PARAMS["hybrid"] = _LAYER_PARAMS["ssm"]
-_STACK_KEY = {"dense": "layers", "ssm": "layers", "hybrid": "ssm_layers"}
+_STACK_KEY = {"dense": "layers", "moe": "layers", "ssm": "layers", "hybrid": "ssm_layers"}
 # the hybrid's shared block: port name under ``shared`` -> path under the
 # JAX params["shared_attn"] (the dense layer's names, without a stack axis)
 _SHARED_PARAMS = _LAYER_PARAMS["dense"]
-_MODELS = {"dense": Transformer, "ssm": Mamba2, "hybrid": Hybrid}
+_MODELS = {"dense": Transformer, "moe": Transformer, "ssm": Mamba2, "hybrid": Hybrid}
 
 
 def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:

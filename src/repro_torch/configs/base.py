@@ -220,13 +220,16 @@ def list_configs() -> List[str]:
 _LOADED = False
 
 # the configs this package carries so far (the dense family's qwen2-1.5b,
-# the ssm family's mamba2-370m, the hybrid family's zamba2-1.2b, the
-# paper's llama-shaped pairs); the other families arrive with their model
-# code (ROADMAP.md Queue A)
+# the ssm family's mamba2-370m, the hybrid family's zamba2-1.2b, the moe
+# family's qwen3-moe-30b-a3b and granite-moe-3b-a800m, the paper's
+# llama-shaped pairs); the other families arrive with their model code
+# (ROADMAP.md Queue A)
 _CONFIG_MODULES = [
     "qwen2_1_5b",
     "mamba2_370m",
     "zamba2_1_2b",
+    "qwen3_moe_30b_a3b",
+    "granite_moe_3b_a800m",
     "sled_paper",
 ]
 

@@ -1,8 +1,8 @@
-"""Dense-transformer layers: norms, RoPE, verification attention, MLP.
+"""Transformer layers: norms, RoPE, verification attention, MLP, MoE.
 
-The port of ``repro.models.layers`` for the dense family. The modules hold
-their weights in the JAX package's ``(in, out)`` layout and run them as
-``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
+The port of ``repro.models.layers`` for the dense and moe families. The
+modules hold their weights in the JAX package's ``(in, out)`` layout and
+run them as ``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
 where the JAX serving path does (f32 inside the norms and RoPE; bf16 after
 each projection), so the CPU path follows the XLA path to within summation
 order.
@@ -19,12 +19,17 @@ An int8 cache (``kv_dtype="int8"``) stores K/V with a symmetric scale per
 append derives it from the fresh rows' absolute maximum, every later append
 reuses it, so replayed appends quantize bit-identically however they are
 grouped. Attention reads the int8 rows and dequantizes them chunk by chunk.
+
+The moe family's ``moe_block`` is the JAX package's capacity-based dispatch
+without a mesh: each expert takes at most ``moe_capacity(T, cfg)`` of the
+call's T tokens, the first in the flattened batch winning, and drops the
+rest, so a row's output depends on the other rows of its call, as in JAX.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -301,3 +306,131 @@ def init_mlp_(mlp: MLP, cfg, gen: torch.Generator) -> None:
     out_std = std / math.sqrt(2 * max(cfg.num_layers, 1))
     for w, s in ((mlp.wg, std), (mlp.wu, std), (mlp.wd, out_std)):
         w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)
+
+
+class MoE(nn.Module):
+    """Top-K routed SwiGLU experts: an f32 ``router`` (d, E) and the bf16
+    expert tables ``wg``, ``wu`` (E, d, f) and ``wd`` (E, f, d)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+        self.router = _weight(d, e, device=device, dtype=torch.float32)
+        self.wg = _weight(e, d, f, device=device)
+        self.wu = _weight(e, d, f, device=device)
+        self.wd = _weight(e, f, d, device=device)
+
+
+def init_moe_(moe: MoE, cfg, gen: torch.Generator) -> None:
+    """The JAX distributions: N(0, 0.02) for the router and ``wg``/``wu``,
+    N(0, 0.02 / sqrt(2 L)) for ``wd``."""
+    std = 0.02
+    out_std = std / math.sqrt(2 * max(cfg.num_layers, 1))
+    for w, s in ((moe.router, std), (moe.wg, std), (moe.wu, std), (moe.wd, out_std)):
+        w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)
+
+
+def moe_capacity(tokens: int, cfg) -> int:
+    """Slots per expert for a call of ``tokens`` tokens: the mean load times
+    ``capacity_factor``, rounded up to a multiple of 8, at least 8."""
+    c = int(math.ceil(tokens * cfg.experts_per_token / cfg.num_experts * cfg.capacity_factor))
+    return max(8, -(-c // 8) * 8)
+
+
+# per device: int64 (assignments, dropped) over every moe_block call since
+# the last reset_moe_tally(), accumulated on the device (no host sync)
+_MOE_TALLY: Dict[torch.device, torch.Tensor] = {}
+
+
+def moe_tally(device) -> torch.Tensor:
+    """The device's running (assignments, dropped) counts (``"cuda"``: the
+    current card's)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _MOE_TALLY:
+        _MOE_TALLY[device] = torch.zeros(2, dtype=torch.int64, device=device)
+    return _MOE_TALLY[device]
+
+
+def reset_moe_tally() -> None:
+    for tally in _MOE_TALLY.values():
+        tally.zero_()
+
+
+def _top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest gates per row as ``jax.lax.top_k`` picks them: among
+    equal gates the lower expert index first (a stable descending sort)."""
+    vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def _expert_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, i) x (E, i, o) bf16 operands, f32 products and sums, as JAX's
+    einsum with ``preferred_element_type=f32``. The CPU build has no bf16 x
+    bf16 -> f32 product and widens both operands (exactly); on the card the
+    expert tables are read as they are."""
+    if a.is_cuda:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.bmm(a.float(), w.float())
+
+
+def _moe_local(x_flat: torch.Tensor, p: MoE, cfg,
+               capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``_moe_local`` over every expert: (out (T, d), aux loss).
+
+    Assignment (t, k) takes slot ``pos`` of its expert, the count of the
+    expert's earlier assignments in row-major (t, k) order, and is dropped
+    when ``pos >= capacity``: it writes nothing into the (E, capacity, d)
+    slab (here: a sink row past the slab) and adds nothing to ``out``.
+    No op here reads a device value back to the host, so a call on the
+    card never waits for it."""
+    T, d = x_flat.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    dev = x_flat.device
+
+    gates = torch.softmax(x_flat.float() @ p.router.float(), dim=-1)  # (T, E)
+    top_vals, top_idx = _top_k(gates, K)
+    top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True), min=1e-9)
+
+    expert = top_idx.reshape(-1)  # (T*K,)
+    onehot = torch.nn.functional.one_hot(expert, E)
+
+    # Switch-style load-balancing loss over every expert
+    ce = onehot.sum(0).float() / (T * K)
+    aux = E * torch.sum(gates.mean(dim=0) * ce)
+
+    pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
+    keep = pos < capacity
+    tally = moe_tally(dev)
+    tally[0] += T * K
+    tally[1] += (~keep).sum()
+
+    dest = torch.where(keep, expert * capacity + pos, E * capacity)
+    token = torch.arange(T * K, device=dev) // K
+    disp = x_flat.new_zeros((E * capacity + 1, d))
+    disp.index_put_((dest,), x_flat[token])  # dropped assignments all land on the sink row
+    disp = disp[:-1].view(E, capacity, d)
+
+    h = _expert_products(disp, p.wg)
+    u = _expert_products(disp, p.wu)
+    y = _expert_products((silu(h) * u).to(x_flat.dtype), p.wd)  # (E, capacity, d) f32
+
+    src = torch.where(keep, dest, 0)
+    vals = y.reshape(E * capacity, d)[src] * (top_vals.reshape(-1, 1) * keep.reshape(-1, 1))
+    vals = vals.view(T, K, d)
+    # summed in k order, as the JAX scatter-add accumulates a token's rows
+    # (no index_add_: its atomics would make the order vary on the card)
+    out = vals[:, 0]
+    for k in range(1, K):
+        out = out + vals[:, k]
+    return out.to(x_flat.dtype), aux
+
+
+def moe_block(x: torch.Tensor, p: MoE, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> ((B, S, d), aux loss), every B * S token of the call
+    competing for ``moe_capacity(B * S, cfg)`` slots per expert (the JAX
+    ``moe_block`` without a mesh)."""
+    B, S, d = x.shape
+    out, aux = _moe_local(x.reshape(B * S, d), p, cfg, moe_capacity(B * S, cfg))
+    return out.reshape(B, S, d), aux

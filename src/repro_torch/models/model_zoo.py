@@ -12,7 +12,7 @@
   decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
   commit(cache, n_commit)                -> cache  [speculative rollback]
 
-The dense, ssm and hybrid families are ported so far.
+The dense, moe, ssm and hybrid families are ported so far.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ def _attn_commit(cache, n_commit: torch.Tensor):
 
 
 def build_model(cfg) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         mod, commit = T, _attn_commit
     elif cfg.family == "ssm":
         mod, commit = M2, M2.select_checkpoint

@@ -1,10 +1,11 @@
-"""Decoder-only dense transformer: init, cache, prefill and SLED verify forward.
+"""Decoder-only transformer (dense, moe): init, cache, prefill, SLED verify.
 
-The port of ``repro.models.transformer`` for the dense family. The same
-``decode_forward`` serves prefill (S = prompt length, cache_len = 0), the
+The port of ``repro.models.transformer`` for the dense and moe families. The
+same ``decode_forward`` serves prefill (S = prompt length, cache_len = 0), the
 draft's one-token steps and SLED verification (S = K draft tokens + 1,
 cache_len = committed length), on a dense cache or, with ``slots``, straight
-against a PagedKVCache pool.
+against a PagedKVCache pool. A moe layer's aux loss is dropped, as the JAX
+engine drops it: serving reads the hidden states only.
 """
 from __future__ import annotations
 
@@ -18,12 +19,18 @@ from repro_torch.models.kvcache import init_kv_cache
 
 
 class Block(nn.Module):
+    """A pre-norm block: attention, then the MLP (``mlp``) or, for the moe
+    family, the routed experts (``moe``)."""
+
     def __init__(self, cfg, device=None):
         super().__init__()
         self.ln1 = L.RMSNorm(cfg.d_model, device=device)
         self.attn = L.Attention(cfg, device=device)
         self.ln2 = L.RMSNorm(cfg.d_model, device=device)
-        self.mlp = L.MLP(cfg, device=device)
+        if cfg.family == "moe":
+            self.moe = L.MoE(cfg, device=device)
+        else:
+            self.mlp = L.MLP(cfg, device=device)
 
 
 class CausalLM(nn.Module):
@@ -65,12 +72,12 @@ class CausalLM(nn.Module):
 
 
 class Transformer(CausalLM):
-    """Weights of one dense model: the shared embedding, norm and head, and
-    the per-layer blocks (the JAX stack's leading L axis unrolled into a
-    ModuleList)."""
+    """Weights of one dense or moe model: the shared embedding, norm and
+    head, and the per-layer blocks (the JAX stack's leading L axis unrolled
+    into a ModuleList)."""
 
     def __init__(self, cfg, device=None):
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
             )
@@ -88,7 +95,10 @@ def init_params(cfg, generator: torch.Generator) -> Transformer:
         model.embed.copy_(torch.randn(model.embed.shape, generator=generator, device=dev) * 0.02)
         for blk in model.layers:
             L.init_attention_(blk.attn, cfg, generator)
-            L.init_mlp_(blk.mlp, cfg, generator)
+            if cfg.family == "moe":
+                L.init_moe_(blk.moe, cfg, generator)
+            else:
+                L.init_mlp_(blk.mlp, cfg, generator)
         if model.lm_head_w is not None:
             model.lm_head_w.copy_(
                 torch.randn(model.lm_head_w.shape, generator=generator, device=dev) * 0.02
@@ -176,8 +186,8 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One pre-norm block against layer ``layer`` of the stacked cache: the
-    dense family's layers, and the hybrid family's shared block at each of
-    its applications."""
+    dense and moe families' layers, and the hybrid family's shared block at
+    each of its applications."""
     h = L.apply_norm(x, blk.ln1, cfg.norm)
     a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=layer, chunk=chunk, slots=slots,
                  k_scale=k_scale, v_scale=v_scale)
@@ -186,7 +196,8 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
     # the CPU path bit-exact with it
     x_mid = x.float() + a.float()
     h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
-    return x_mid.to(x.dtype) + blk.mlp(h)
+    m = L.moe_block(h, blk.moe, cfg)[0] if cfg.family == "moe" else blk.mlp(h)
+    return x_mid.to(x.dtype) + m
 
 
 def prefill(

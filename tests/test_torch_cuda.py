@@ -279,3 +279,49 @@ def test_cuda_ssd_scan_at_zamba2_widths(shape):
     and a full one then a ragged one at B 2) and the reduced config's (8
     heads of 16, state 16, chunk 16) against the plain version."""
     test_cuda_ssd_scan_matches_plain_version(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("Hq, Hkv", [(24, 8), (32, 4)])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_attention_at_the_moe_groupings(paged, Hq, Hkv, kv):
+    """The moe family's groupings at head_dim 64: granite-moe-3b-a800m's 24
+    query heads on 8 KV heads (G = 3, the first G that is not a power of
+    two) and qwen3-moe-30b-a3b's 32 on 4 (G = 8), at a verify's shape (B 6,
+    Sq 5, kv ~230 of 512, slots out of order), against the plain version,
+    and each row of the batch equal to the same row alone, bit for bit."""
+    dev = _card()
+    D = 64
+    rng = np.random.default_rng(41 + Hq)
+    kvv = [205, 212, 233, 240, 219, 5]
+    q = _bf16(rng.standard_normal((6, 5, Hq, D)), dev)
+    kf = rng.standard_normal((6, 512, Hkv, D)).astype(np.float32)
+    vf = rng.standard_normal((6, 512, Hkv, D)).astype(np.float32)
+    if kv == "int8":
+        (k, ks), (v, vs) = _quantize(kf), _quantize(vf)
+        k, v, ks, vs = (torch.from_numpy(a).to(dev) for a in (k, v, ks, vs))
+    else:
+        k, v, ks, vs = _bf16(kf, dev), _bf16(vf, dev), None, None
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    slots = torch.tensor([2, 0, 5, 1, 4, 3], dtype=torch.int32, device=dev)
+
+    def sc(b):
+        return {} if ks is None else dict(k_scale=ks[b], v_scale=vs[b])
+
+    if paged:
+        run = lambda b: verify_attn.verify_attention_paged(  # noqa: E731
+            q[b], k, v, slots[b], kv_valid[b], **sc(slice(None)))
+        want = ref.verify_attention_paged_ref(q, k, v, slots, kv_valid, **sc(slice(None)))
+    else:
+        run = lambda b: verify_attn.verify_attention_packed(  # noqa: E731
+            q[b], k[b], v[b], kv_valid[b], **sc(b))
+        want = ref.verify_attention_ref(q, k, v, kv_valid, **sc(slice(None)))
+    got = run(slice(None))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+    for b in range(6):
+        alone = run(slice(b, b + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b]), b

@@ -359,18 +359,20 @@ _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 
 
 @pytest.mark.parametrize("change", [
-    {"family": "moe"},
+    {"family": "encdec", "is_encdec": True, "encoder_layers": 2},
     {"family": "encdec"},
     {"family": "vlm"},
     {"act": "gelu"},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (the moe, encdec and vlm families, the gelu
-    MLP) is refused where its model is built, naming ROADMAP.md; every
-    spec the port's configs can name is served (``paged_attention=False``
-    and the hybrid family: tests/test_torch_hybrid.py), as are the cluster
-    and transport backends with in-process or remote replicas, fault
-    schedules and policies, sampling, quantized targets and fleets."""
+    """What a later slice serves (the encdec family, whisper-shaped or not,
+    the vlm family, the gelu MLP) is refused where its model is built,
+    naming ROADMAP.md; every spec the port's configs can name is served
+    (``paged_attention=False`` and the hybrid family:
+    tests/test_torch_hybrid.py; the moe family: tests/test_torch_moe.py),
+    as are the cluster and transport backends with in-process or remote
+    replicas, fault schedules and policies, sampling, quantized targets and
+    fleets."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), **change)
