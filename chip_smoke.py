@@ -16,7 +16,13 @@ Phases, each of which must pass for the script to exit 0:
                G = 1 (32 query heads on 32 KV heads of 64) and the scan at
                64 heads of 64 with state 64 (zamba2-1.2b); since the moe
                family, attention at G = 3 (24 on 8, granite-moe-3b-a800m)
-               and G = 8 (32 on 4, qwen3-moe-30b-a3b), head_dim 64;
+               and G = 8 (32 on 4, qwen3-moe-30b-a3b), head_dim 64; since
+               the last dense configs, head_dim 96 (phi3-mini-3.8b, 32 on
+               32), G = 48 (granite-34b, 48 query heads on 1 KV head, a
+               query's rows straddling two tiles), qwen1.5-32b's 40 on 40
+               and llava-next-mistral-7b's 775-row prefill behind its 576
+               patches, each within 2e-3 and, at D = 96 and G = 48, the
+               same row bit for bit at B=1 and B=6;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -141,13 +147,33 @@ Phases, each of which must pass for the script to exit 0:
                every weight, which the capacity dispatch reads on every
                call and which the step must not beat, and the bound of
                one token's active parameters;
-  6. sim fig4 - serving.simulator on the h100 profile in the setting of the
+  6. vlm     - full-width llava-next-mistral-7b (32 layers of 4096, 32
+               query heads on 8 KV heads of 128, untied; the draft its
+               layer 0) served as its backbone, as the JAX System serves
+               it (serve vlm), held to the reference with the replay
+               witness (check vlm); then 2 prompts of 199 tokens behind
+               576 stub patch embeddings through the dense kernel (prefix
+               vlm: finite logits, length 775; a prefill of 770 rows, a
+               decode of the last 5 tokens and their commit give the
+               whole prefill's K/V at positions 0..769 bit for bit, layer
+               0's K/V at 770..774 within 2e-2, where a decode one
+               position late lands far outside, and for the draft the
+               whole prefill's last logits within LOGIT_TOL);
+  7. dense configs - phi3-mini-3.8b (head_dim 96, 32 new tokens),
+               granite-34b (88 layers of 6144, the gelu MLP, 48 query
+               heads on 1 KV head; 16) and qwen1.5-32b at a depth cut of
+               48 of its 64 layers (16; its 64 layers do not fit on one
+               card beside the draft, the f32 heads and the pool), each at
+               its published widths, its bundle's parameters, bytes and
+               device memory printed after init, served and checked as
+               vlm is, both bf16 kernels launched;
+  8. sim fig4 - serving.simulator on the h100 profile in the setting of the
                JAX package's benchmarks/wstgr.py --quick (a prediction);
-  7. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
+  9. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
                tune CLI once in its own process;
-  8. cli     - python -m repro_torch.cli in subprocesses on the card, each
+  10. cli    - python -m repro_torch.cli in subprocesses on the card, each
                with a timeout: serve --check of examples/specs/engine.json,
                of a hybrid target from flags and of a hybrid pair from a
                spec (the reference match printed OK), trace with the
@@ -441,6 +467,34 @@ def check_attention(records: dict) -> None:
         ("bf16", 1, 1, 32, 4, 64, 512, [230], None, 1),
         ("bf16", 1, 199, 32, 4, 64, 512, [199], None, 48),
         ("bf16", 6, 5, 32, 4, 64, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 48),
+        # phi3-mini-3.8b: 32 query heads on 32 KV heads of 96 (G = 1, the
+        # D = 96 instantiation; 32 layers): the draft's decode, the slot
+        # prefill (bf16 and int8), the paged verify (5 streams and the
+        # scratch row, bf16 and int8), and the splits' edges, paged and dense
+        ("bf16", 1, 1, 32, 32, 96, 512, [230], None, 1),
+        ("bf16", 1, 199, 32, 32, 96, 512, [199], None, 32),
+        ("int8", 1, 199, 32, 32, 96, 512, [199], None, 32),
+        ("bf16", 6, 5, 32, 32, 96, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 32),
+        ("int8", 6, 5, 32, 32, 96, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 32),
+        ("bf16", 4, 5, 32, 32, 96, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
+        ("bf16", 4, 5, 32, 32, 96, 200, [64, 65, 128, 129], None, 1),
+        # granite-34b: 48 query heads on 1 KV head of 128 (MQA, G = 48: a
+        # query's 48 rows span two 32-row tiles; 88 layers): the same set
+        ("bf16", 1, 1, 48, 1, 128, 512, [230], None, 1),
+        ("bf16", 1, 199, 48, 1, 128, 512, [199], None, 88),
+        ("int8", 1, 199, 48, 1, 128, 512, [199], None, 88),
+        ("bf16", 6, 5, 48, 1, 128, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 88),
+        ("int8", 6, 5, 48, 1, 128, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 88),
+        ("bf16", 4, 5, 48, 1, 128, 512, [64, 65, 128, 129], [0, 1, 2, 3], 1),
+        ("int8", 4, 5, 48, 1, 128, 200, [64, 65, 128, 129], None, 1),
+        # qwen1.5-32b: 40 query heads on 40 KV heads of 128 (G = 1) over its
+        # 64 layers: the slot prefill and the paged verify
+        ("bf16", 1, 199, 40, 40, 128, 512, [199], None, 64),
+        ("bf16", 6, 5, 40, 40, 128, 512, [205, 212, 233, 240, 219, 5], [3, 0, 5, 1, 2, 6], 64),
+        # llava-next-mistral-7b's prefill behind its 576 stub patches: 775
+        # rows, 32 query heads on 8 KV heads of 128 (G = 4; 32 layers), the
+        # cache of the prefix vlm phase (800 positions)
+        ("bf16", 1, 775, 32, 8, 128, 800, [775], None, 32),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
@@ -507,14 +561,16 @@ def check_batch_invariance(gen) -> None:
     bits: the kernel's splits and merge order do not depend on the batch
     (qwen2's 12 query heads on 2 KV heads, the paper pair's 32 on 8,
     zamba2's 32 on 32 at head_dim 64, granite-moe's 24 on 8 (G = 3) and
-    qwen3-moe's 32 on 4 (G = 8) at head_dim 64)."""
+    qwen3-moe's 32 on 4 (G = 8) at head_dim 64, phi3-mini's 32 on 32 at
+    head_dim 96 and granite-34b's 48 on 1 (G = 48) at head_dim 128)."""
     from repro_torch.kernels import verify_attn
 
     dev = torch.device("cuda")
     kvv = [205, 233, 240, 5, 5, 5]
     for kv, hq, hkv, d in (("bf16", 12, 2, 128), ("int8", 12, 2, 128), ("bf16", 32, 8, 128),
                            ("bf16", 32, 32, 64), ("bf16", 24, 8, 64), ("int8", 24, 8, 64),
-                           ("bf16", 32, 4, 64)):
+                           ("bf16", 32, 4, 64), ("bf16", 32, 32, 96), ("int8", 32, 32, 96),
+                           ("bf16", 48, 1, 128), ("int8", 48, 1, 128)):
         k = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
@@ -612,9 +668,10 @@ def check_kernels(records: dict) -> None:
 
 
 def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE,
-                      draft_layers: int = 1):
-    """``arch`` at its published widths: the full-depth target and a draft
-    of ``draft_layers`` layers of the same architecture, with the port's
+                      draft_layers: int = 1, target_layers: int = 0):
+    """``arch`` at its published widths: the full-depth target (or its
+    first ``target_layers`` layers, a depth cut) and a draft of
+    ``draft_layers`` layers of the same architecture, with the port's
     seeded random init on the card.
 
     Every layer's output projections (qwen2: attention ``wo`` and MLP
@@ -634,6 +691,8 @@ def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE
     from repro_torch.models.model_zoo import build_model
 
     tcfg = get_config(arch)
+    if target_layers:
+        tcfg = dataclasses.replace(tcfg, num_layers=target_layers)
     target = build_model(tcfg)
     tp = target.init_params(torch.Generator(device="cuda").manual_seed(0))
     with torch.no_grad():
@@ -664,11 +723,12 @@ def prefix_draft(tcfg, target_params, n_layers: int):
 
 
 def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *,
-               bits: int = 16, draft_arch: str = "", draft_layers: int = 1, **changes):
+               bits: int = 16, draft_arch: str = "", draft_layers: int = 1,
+               target_layers: int = 0, **changes):
     """The served fleet: 6 devices, prompt 200, 32 new tokens, greedy unless
     ``changes`` says otherwise (``greedy``, ``fleet``, ``paged_attention``).
     The draft is ``draft_layers`` layers of ``arch``, or the whole of
-    ``draft_arch``."""
+    ``draft_arch``; the target all of ``arch``'s layers or ``target_layers``."""
     from repro_torch.api import ModelSpec, ServeSpec
     from repro_torch.configs import get_config
 
@@ -678,7 +738,8 @@ def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *
     kw = dict(
         backend=backend,
         model=ModelSpec(arch=arch, draft_arch=draft_arch or arch, vocab_size=cfg.vocab_size,
-                        target_layers=cfg.num_layers, draft_layers=draft_layers, bits=bits),
+                        target_layers=target_layers or cfg.num_layers, draft_layers=draft_layers,
+                        bits=bits),
         devices=6, prompt_len=200, max_len=512, max_new=32, k_max=4, c_th=0.3,
         greedy=True, paged_attention=True, kv_dtype=kv_dtype,
     )
@@ -2164,6 +2225,118 @@ def cli_on_card() -> None:
               flush=True)
 
 
+def init_bundle(arch: str, target_layers: int = 0):
+    """``full_width_bundle(arch)`` (at a depth cut when ``target_layers``),
+    printing what it holds on the card: the target's parameters and bytes
+    by its tensors (granite-34b's ``param_count()`` counts its gelu MLP as
+    gated), and the device memory allocated after init."""
+    bundle = full_width_bundle(arch, target_layers=target_layers)
+    torch.cuda.synchronize()
+    cfg = bundle.target_cfg
+    params = list(bundle.target_params.parameters())
+    cut = f", cut to {cfg.num_layers} of its layers" if target_layers else ""
+    print(f"init {arch}: {cfg.num_layers} layers{cut}, {sum(p.numel() for p in params)} "
+          f"parameters, {sum(p.numel() * p.element_size() for p in params)} bytes "
+          f"({cfg.param_count()} parameters by the config at this depth), device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return bundle
+
+
+def prefix_vlm(bundle, prompts) -> None:
+    """The vlm prefill behind the stub frontend on the card: 2 prompts of
+    199 tokens behind ``num_patches`` (576) stub patch embeddings
+    (model_zoo.frontend_stub), so the dense kernel attends 775 rows over a
+    cache of 800 positions: finite logits, the cache's length 775, one
+    kernel launch a layer. Then the same prefix with the first 194 tokens
+    (770 rows), a decode_forward of the last 5 tokens (positions 770..774)
+    and their commit, held to the whole prefill:
+      - the length 775, and every layer's K and V at positions 0..769 the
+        whole prefill's bit for bit (the prefix's positions in the cache);
+      - layer 0's K and V at 770..774 within KERNEL_TOL of the whole's
+        (the decode's positions): their products run at 10 rows against
+        1,550, which moves them by a bf16 ulp, where a decode placed one
+        position late moves layer 0's K by far more (run here as a control,
+        which must exceed KERNEL_TOL);
+      - the last logits within LOGIT_TOL of the whole prefill's for the
+        bundle's draft (the target's embedding, layer 0, norm and head).
+        Through the target's 32 layers that ulp grows to a few tenths
+        (0.288 against 4.89 for the control on this card; PERF.md), so the
+        target's difference is printed beside the control's, not bounded."""
+    from repro_torch.models.model_zoo import frontend_stub
+
+    cfg = bundle.target_cfg
+    stub = frontend_stub(cfg, 2, torch.Generator(device="cuda").manual_seed(5))
+    toks = torch.from_numpy(np.ascontiguousarray(prompts[:2, :199])).to("cuda")
+    n = cfg.num_patches + toks.shape[1]
+
+    def prefill(model, params, tokens):
+        cache = model.make_cache(2, 800, device="cuda", attn_chunk=32)
+        return model.prefill(params, tokens, cache, attn_chunk=32, embeds_prefix=stub)
+
+    def split(model, params, late: int = 0):
+        """The last logits and the cache of the split path; ``late`` shifts
+        its decode that many positions on."""
+        _, part = prefill(model, params, toks[:, :-5])
+        part = {**part, "length": part["length"] + late}
+        h, part = model.decode_forward(params, part, toks[:, -5:], attn_chunk=32)
+        part = model.commit(part, torch.full((2,), 5, device="cuda"))
+        return model.lm_head(params, h[:, -1:])[:, 0], part
+
+    def diff(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    whole, full = prefill(bundle.target, bundle.target_params, toks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = _launches()["verify_attention_packed"]
+    finite = bool(torch.isfinite(whole).all())
+    if not finite or full["length"].tolist() != [n, n] or launched != cfg.num_layers:
+        raise AssertionError(f"prefix vlm: logits finite {finite}, length "
+                             f"{full['length'].tolist()} (want {n}), {launched} dense kernel "
+                             f"launches for {cfg.num_layers} layers")
+    print(f"prefix vlm: 2 x ({cfg.num_patches} patches + 199 tokens) in {seconds:.3f} s, length "
+          f"{n}, {launched} dense kernel launches", flush=True)
+    last, part = split(bundle.target, bundle.target_params)
+    late_last, late = split(bundle.target, bundle.target_params, late=1)
+    prefix_same = all(torch.equal(part[k][:, :, :n - 5], full[k][:, :, :n - 5]) for k in "kv")
+    fresh = max(diff(part[k][0, :, n - 5:n], full[k][0, :, n - 5:n]) for k in "kv")
+    control = diff(late["k"][0, :, n - 4:n + 1], full["k"][0, :, n - 5:n])
+    target_err, control_err = diff(last, whole), diff(late_last, whole)
+    draft_err = diff(split(bundle.draft, bundle.draft_params)[0],
+                     prefill(bundle.draft, bundle.draft_params, toks)[0])
+    print(f"prefix vlm: {n - 5} rows + decode of 5 + commit: length {part['length'].tolist()}; "
+          f"K/V at 0..{n - 6} equal to the whole prefill's in every layer: {prefix_same}; "
+          f"layer-0 K/V at {n - 5}..{n - 1} max abs diff {fresh:.4g} (a decode one position "
+          f"late: K {control:.4g}); last logits max abs diff: draft {draft_err:.4g} (LOGIT_TOL "
+          f"{LOGIT_TOL}), target {target_err:.4g} (one position late: {control_err:.4g})",
+          flush=True)
+    if part["length"].tolist() != [n, n] or not prefix_same:
+        raise AssertionError("prefix vlm: the split prefill's cache differs from the whole's")
+    if not fresh <= KERNEL_TOL < control:
+        raise AssertionError(f"prefix vlm: the decoded rows' layer-0 K/V differ by {fresh} "
+                             f"(a late decode by {control}; bound {KERNEL_TOL})")
+    if not draft_err < LOGIT_TOL:
+        raise AssertionError(f"prefix vlm: the draft's split logits differ by {draft_err}")
+
+
+def serve_dense_config(label: str, records: dict, bundle, prompts, *, max_new: int) -> None:
+    """One of the dense configs (or the vlm backbone) at full width: the
+    fleet of 6 on the engine backend through both bf16 kernels, then held
+    to the reference backend with the replay witness (a 32- to 88-layer
+    target carries a last-bit difference of a product further than
+    qwen2-1.5b; see check()). Acceptance printed, not required."""
+    cfg = bundle.target_cfg
+    kw = dict(max_new=max_new, target_layers=cfg.num_layers)
+    served = _phase(f"serve {label}", lambda: serve(
+        label, records, bundle, prompts, spec=serve_spec("engine", cfg.name, **kw),
+        path=BF16_PATH, need_accepted=False))
+    _phase(f"check {label}", lambda: check(label, bundle, prompts, served,
+                                           spec=serve_spec("reference", cfg.name, **kw),
+                                           witness=True))
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -2200,6 +2373,7 @@ def _phase(name: str, fn):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card", file=sys.stderr)
         return 2
@@ -2339,10 +2513,32 @@ def main() -> int:
     _phase("calibrate moe 30b", lambda: calibrate_moe(qm))
     del qm
     _free_card("qwen3-moe-30b-a3b")
+
+    # the vlm family (llava-next-mistral-7b, G = 4) served as its backbone,
+    # as the JAX System serves it, then its prefill behind the stub patches
+    vl = _phase("init llava-next-mistral-7b", lambda: init_bundle("llava-next-mistral-7b"))
+    vl_prompts = prompts % vl.target_cfg.vocab_size
+    serve_dense_config("vlm", records, vl, vl_prompts, max_new=32)
+    _phase("prefix vlm", lambda: prefix_vlm(vl, vl_prompts))
+    del vl
+    _free_card("llava-next-mistral-7b")
+    # the last dense configs: phi3-mini-3.8b (head_dim 96), granite-34b (the
+    # gelu MLP, MQA at G = 48; ~68 GB of weights) and qwen1.5-32b at a depth
+    # cut of 48 of its 64 layers (70.4 GB of weights at full depth do not fit
+    # beside the draft, the f32 heads and the pool; PERF.md section 4)
+    for label, arch, layers, max_new in (("phi3", "phi3-mini-3.8b", 0, 32),
+                                         ("granite-34b", "granite-34b", 0, 16),
+                                         ("qwen1.5-32b", "qwen1.5-32b", 48, 16)):
+        dc = _phase(f"init {arch}", lambda: init_bundle(arch, layers))
+        serve_dense_config(label, records, dc, prompts % dc.target_cfg.vocab_size,
+                           max_new=max_new)
+        del dc
+        _free_card(arch)
     _phase("sim fig4", sim_fig4)
     _phase("tune", lambda: tune_on_card(records))
     _phase("cli", cli_on_card)
 
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                       "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,8 @@
 
 The port's own copy of ``repro.api.spec``: the same fields, validation and
 JSON form, so a spec file serves both packages. The port's ``System``
-builds every backend with in-process replicas and refuses remote replicas
-and fault schedules with ``NotImplementedError`` (ROADMAP.md Queue A).
+builds every backend, with in-process or remote replicas, and serves fault
+schedules (``faults``) and fault policies (``cluster.faults``).
 
 The repo grew four ways to run the same system — the lock-step reference
 loop, the in-process ServerEngine, the asyncio transport runtime, and the

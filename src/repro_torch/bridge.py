@@ -6,7 +6,8 @@ bf16 moves bit-exactly through a 16-bit integer view, as the JAX
 checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
 weight is a plain copy. The stacked ``(L, ...)`` leaves of
 ``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
-(dense and moe families; a moe layer's router and expert tables stacked
+(dense, vlm and moe families; a gelu MLP's ``wi``/``wd`` where a SwiGLU one
+has ``wg``/``wu``/``wd``; a moe layer's router and expert tables stacked
 ``(L, E, ...)`` under ``params["layers"]["moe"]``) or ``Mamba2.layers``
 (ssm family); the hybrid family's
 ``params["ssm_layers"]`` become ``Hybrid.layers`` and its
@@ -41,7 +42,8 @@ _LAYER_PARAMS = {
         "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
         "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
         "attn.bq": ("attn", "bq"), "attn.bk": ("attn", "bk"), "attn.bv": ("attn", "bv"),
-        "mlp.wg": ("mlp", "wg"), "mlp.wu": ("mlp", "wu"), "mlp.wd": ("mlp", "wd"),
+        "mlp.wg": ("mlp", "wg"), "mlp.wu": ("mlp", "wu"), "mlp.wi": ("mlp", "wi"),
+        "mlp.wd": ("mlp", "wd"),
     },
     "ssm": {
         "norm.scale": ("norm", "scale"),
@@ -54,11 +56,14 @@ _LAYER_PARAMS["moe"] = {
     **{f"moe.{name}": ("moe", name) for name in ("router", "wg", "wu", "wd")},
 }
 _LAYER_PARAMS["hybrid"] = _LAYER_PARAMS["ssm"]
-_STACK_KEY = {"dense": "layers", "moe": "layers", "ssm": "layers", "hybrid": "ssm_layers"}
+_LAYER_PARAMS["vlm"] = _LAYER_PARAMS["dense"]
+_STACK_KEY = {"dense": "layers", "vlm": "layers", "moe": "layers", "ssm": "layers",
+              "hybrid": "ssm_layers"}
 # the hybrid's shared block: port name under ``shared`` -> path under the
 # JAX params["shared_attn"] (the dense layer's names, without a stack axis)
 _SHARED_PARAMS = _LAYER_PARAMS["dense"]
-_MODELS = {"dense": Transformer, "moe": Transformer, "ssm": Mamba2, "hybrid": Hybrid}
+_MODELS = {"dense": Transformer, "vlm": Transformer, "moe": Transformer, "ssm": Mamba2,
+           "hybrid": Hybrid}
 
 
 def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
@@ -87,7 +92,8 @@ def _get(tree: Dict[str, Any], path) -> np.ndarray:
 def _family(cfg) -> str:
     if cfg.family not in _MODELS:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+            f"family {cfg.family!r} is not ported yet: the encdec family "
+            "(ROADMAP.md Queue A, 'Other model families')"
         )
     return cfg.family
 
@@ -105,7 +111,7 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
             _assign(model, "lm_head_w", to_tensor(tree["lm_head"], device))
         for name, path in _LAYER_PARAMS[family].items():
             if _dotted(model.layers[0], name) is None:
-                continue  # e.g. no QKV bias in this config
+                continue  # e.g. no QKV bias, or the other MLP's tables
             stacked = to_tensor(_get(tree[_STACK_KEY[family]], path), device)
             if stacked.shape[0] != cfg.num_layers:
                 raise ValueError(f"layers/{'/'.join(path)} has {stacked.shape[0]} layers, "

@@ -219,17 +219,18 @@ def list_configs() -> List[str]:
 
 _LOADED = False
 
-# the configs this package carries so far (the dense family's qwen2-1.5b,
-# the ssm family's mamba2-370m, the hybrid family's zamba2-1.2b, the moe
-# family's qwen3-moe-30b-a3b and granite-moe-3b-a800m, the paper's
-# llama-shaped pairs); the other families arrive with their model code
-# (ROADMAP.md Queue A)
+# every config of the JAX package but whisper-tiny, whose encdec family is
+# not ported yet (ROADMAP.md Queue A, 'Other model families')
 _CONFIG_MODULES = [
+    "granite_34b",
+    "phi3_mini_3_8b",
+    "qwen15_32b",
     "qwen2_1_5b",
-    "mamba2_370m",
     "zamba2_1_2b",
+    "mamba2_370m",
     "qwen3_moe_30b_a3b",
     "granite_moe_3b_a800m",
+    "llava_next_mistral_7b",
     "sled_paper",
 ]
 

@@ -148,15 +148,21 @@ def make_force_extend_step(model, *, attn_chunk: int = 1024, paged_attention: bo
     return step
 
 
-def make_prefill_step(model, *, attn_chunk: int = 1024):
-    """``prefill_step(params, cache, tokens) -> (logits, cache, last_token)``.
+def make_prefill_step(model, *, attn_chunk: int = 1024, with_frontend: bool = False):
+    """``prefill_step(params, cache, tokens, stub=None) -> (logits, cache,
+    last_token)``.
 
-    Leaves the cache at ``length = prompt_len - 1`` and returns the last
-    prompt token separately: the "all committed but the last" invariant, so
-    the first verify round can feed it."""
+    Leaves the cache at ``length = prompt_len - 1`` (plus the stub's rows)
+    and returns the last prompt token separately: the "all committed but
+    the last" invariant, so the first verify round can feed it. With
+    ``with_frontend``, a vlm model's prompt is preceded by ``stub``, its
+    patch embeddings (``model_zoo.frontend_stub``)."""
 
-    def prefill_step(params, cache, tokens):
-        logits, cache = model.prefill(params, tokens[:, :-1], cache, attn_chunk=attn_chunk)
+    def prefill_step(params, cache, tokens, stub=None):
+        kw = {}
+        if with_frontend and model.cfg.family == "vlm":
+            kw["embeds_prefix"] = stub
+        logits, cache = model.prefill(params, tokens[:, :-1], cache, attn_chunk=attn_chunk, **kw)
         return logits, cache, tokens[:, -1]
 
     return prefill_step

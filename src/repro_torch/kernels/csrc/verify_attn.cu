@@ -31,7 +31,10 @@
 //   - Split-KV. Block (split, row tile, b, h) owns kSplit = 64 KV positions
 //     of one (b, h) and a 32-row tile of its packed query rows (a verify
 //     step's 30 rows are one tile, a 199-token prefill's 1,194 rows are 38;
-//     64-row tiles measured slower, PERF.md). The split length is a
+//     64-row tiles measured slower, PERF.md). The packing is generic in G:
+//     at G = 48 (MQA, 48 query heads on one KV head) a query's rows span two
+//     tiles, and a tile reads as far as its last row's query sees, each row
+//     masked at its own limit. The split length is a
 //     compile-time constant and the merge runs in split order, so a row's
 //     result depends only on its own row, its kv_valid and the cache: the
 //     same row gives the same bits at any B. A block whose split starts past
@@ -49,8 +52,9 @@
 //     mma.sync the tensor cores sum in their own order, a few P values per
 //     call round the other way, and outputs above 0.5 move by a bf16 ulp
 //     (0.0039). The products run as register tiles (4 rows x 4 positions,
-//     and for P.V 4 rows x D/16 columns at D >= 64, 1 row x 4 columns at
-//     D = 16: PvLayout) on f32 tiles in shared memory, and the softmax on
+//     and for P.V 4 rows x D/16 columns at D = 64 and 128, 2 rows x 12
+//     columns at D = 96, 1 row x 4 columns at D = 16: PvLayout) on f32
+//     tiles in shared memory, and the softmax on
 //     the score tile in registers (a row's 64 positions across the 16
 //     lanes of a half-warp).
 //   - cp.async: the K rows of both 32-position chunks of a split go out in
@@ -94,14 +98,17 @@ constexpr float kNegInf = -1e30f;
 // P.V's thread tile: kCols groups of kDC adjacent output columns (a
 // multiple of 4: float4 reads, stores and partials) by kRowGroups groups of
 // rows, kRows rows a thread (rows rp + kRowGroups*i, thread tid =
-// rp*kCols + cp). At D >= 64 it is the scores' tile: 16 column groups and
-// 8 row groups of 4 rows (rp, cp = the score tile's rq, cq). At D = 16 (the
-// reduced configs' head_dim) there are 4 columns for 16 groups, so it is 4
-// groups of 4 columns by 32 row groups of 1 row. Each output is one f32 FMA
-// chain over positions in order at every D.
+// rp*kCols + cp). kCols is the most groups, of 16, 8 or 4, whose width is a
+// multiple of 4. At D = 64 and 128 that is the scores' tile: 16 column
+// groups and 8 row groups of 4 rows (rp, cp = the score tile's rq, cq). At
+// D = 96 (phi3-mini; 16 groups would be 6 columns wide) it is 8 groups of
+// 12 columns by 16 row groups of 2 rows, and at D = 16 (the reduced
+// configs) 4 groups of 4 columns by 32 row groups of 1 row: neither is the
+// scores' tile. Each output is one f32 FMA chain over positions in order at
+// every D.
 template <int D>
 struct PvLayout {
-  static constexpr int kCols = D >= 64 ? 16 : D / 4;
+  static constexpr int kCols = (D / 16) % 4 == 0 ? 16 : (D / 8) % 4 == 0 ? 8 : D / 4;
   static constexpr int kDC = D / kCols;
   static constexpr int kRowGroups = kThreads / kCols;
   static constexpr int kRows = kTileRows / kRowGroups;
@@ -271,14 +278,21 @@ __device__ __forceinline__ void pv_rows(const float (*p)[kSplit + 1], const floa
 }
 
 // P.V for a thread's nv row groups (nv a template argument inside, so the
-// inner loops carry no branch).
+// inner loops carry no branch; never more than the layout's kRows).
 template <int D>
 __device__ __forceinline__ void pv_tile(const float (*p)[kSplit + 1], const float (*v)[D + 4],
                                         int r, int cq, int nc, int nv,
                                         float (&acc)[PvLayout<D>::kRows][PvLayout<D>::kDC]) {
   if constexpr (PvLayout<D>::kRows == 1) {
     pv_rows<1, D>(p, v, r, cq, nc, acc);
+  } else if constexpr (PvLayout<D>::kRows == 2) {
+    if (nv == 1) {
+      pv_rows<1, D>(p, v, r, cq, nc, acc);
+    } else {
+      pv_rows<2, D>(p, v, r, cq, nc, acc);
+    }
   } else {
+    static_assert(PvLayout<D>::kRows == 4, "P.V rows per thread");
     switch (nv) {
       case 1: pv_rows<1, D>(p, v, r, cq, nc, acc); break;
       case 2: pv_rows<2, D>(p, v, r, cq, nc, acc); break;
@@ -453,7 +467,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
   // acc = P V, each output one f32 FMA chain over the split's positions in
   // order (the plain version's order within its chunk). The thread's rows
-  // rp + RG*i and columns cp*DC.. (PvLayout; rq and cq at D >= 64)
+  // rp + RG*i and columns cp*DC.. (PvLayout; rq and cq at D = 64 and 128)
   constexpr int RG = PV::kRowGroups;
   const int rp = tid / PV::kCols, cp = tid % PV::kCols;
   const int nvp = (rn + RG - 1) / RG;
@@ -601,6 +615,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
                             sc_row, scale, st);
     case 64:
       return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+                            sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
+                            sc_row, scale, st);
+    case 96:
+      return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                             sc_row, scale, st);
     case 128:

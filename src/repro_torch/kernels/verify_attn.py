@@ -37,7 +37,7 @@ LAUNCHES = {
     "verify_attention_packed": 0, "verify_attention_paged": 0,
     "verify_attention_packed_int8": 0, "verify_attention_paged_int8": 0,
 }
-HEAD_DIMS = (16, 64, 128)  # 16: the reduced configs; 64, 128: the published ones
+HEAD_DIMS = (16, 64, 96, 128)  # 16: the reduced configs; the rest: the published ones
 
 _ARGTYPES = {
     "verify_attn_bf16": (

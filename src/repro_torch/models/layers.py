@@ -1,6 +1,6 @@
 """Transformer layers: norms, RoPE, verification attention, MLP, MoE.
 
-The port of ``repro.models.layers`` for the dense and moe families. The
+The port of ``repro.models.layers`` for the dense, vlm and moe families. The
 modules hold their weights in the JAX package's ``(in, out)`` layout and
 run them as ``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
 where the JAX serving path does (f32 inside the norms and RoPE; bf16 after
@@ -75,7 +75,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
 def apply_norm(x: torch.Tensor, norm: "RMSNorm", kind: str) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(
-            f"norm {kind!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+            f"norm {kind!r} is not ported yet: the encdec family's layernorm "
+            "(ROADMAP.md Queue A, 'Other model families')"
         )
     return rmsnorm(x, norm.scale)
 
@@ -265,17 +266,21 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    """SwiGLU MLP (the dense family's ``act="swiglu"``)."""
+    """The dense MLP: SwiGLU (``act="swiglu"``: ``wg``, ``wu``, ``wd``) or
+    tanh-approximated GELU (``act="gelu"``: ``wi``, ``wd``); the tables the
+    other activation uses are None."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.act != "swiglu":
-            raise NotImplementedError(
-                f"act {cfg.act!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
-            )
+        if cfg.act not in ("swiglu", "gelu"):
+            raise ValueError(f"unknown act {cfg.act!r} (swiglu or gelu)")
         d, f = cfg.d_model, cfg.d_ff
-        self.wg = _weight(d, f, device=device)
-        self.wu = _weight(d, f, device=device)
+        self.wg = self.wu = self.wi = None
+        if cfg.act == "swiglu":
+            self.wg = _weight(d, f, device=device)
+            self.wu = _weight(d, f, device=device)
+        else:
+            self.wi = _weight(d, f, device=device)
         self.wd = _weight(f, d, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -288,7 +293,20 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` as XLA evaluates it on bf16: one
+    rounding per op, in its order (x*x, *x, *0.044715, +x, *sqrt(2/pi),
+    tanh, 1+, 0.5*, x*), with the constants rounded to x's dtype first.
+    ``F.gelu(approximate="tanh")`` rounds once and gives other bf16 values."""
+    c3 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    t = torch.tanh(c1 * (x + c3 * (x * x * x)))
+    return x * (0.5 * (1 + t))
+
+
 def mlp_block(x: torch.Tensor, p: MLP) -> torch.Tensor:
+    if p.wi is not None:
+        return gelu(x @ p.wi) @ p.wd
     return (silu(x @ p.wg) * (x @ p.wu)) @ p.wd
 
 
@@ -302,10 +320,13 @@ def init_attention_(attn: Attention, cfg, gen: torch.Generator) -> None:
 
 
 def init_mlp_(mlp: MLP, cfg, gen: torch.Generator) -> None:
+    """The JAX distributions: N(0, 0.02) for ``wg``, ``wu`` (or ``wi``),
+    N(0, 0.02 / sqrt(2 L)) for ``wd``."""
     std = 0.02
     out_std = std / math.sqrt(2 * max(cfg.num_layers, 1))
-    for w, s in ((mlp.wg, std), (mlp.wu, std), (mlp.wd, out_std)):
-        w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)
+    for w, s in ((mlp.wg, std), (mlp.wu, std), (mlp.wi, std), (mlp.wd, out_std)):
+        if w is not None:
+            w.copy_(torch.randn(w.shape, generator=gen, device=w.device) * s)
 
 
 class MoE(nn.Module):

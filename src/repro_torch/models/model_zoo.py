@@ -12,13 +12,15 @@
   decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
   commit(cache, n_commit)                -> cache  [speculative rollback]
 
-The dense, moe, ssm and hybrid families are ported so far.
+The dense, vlm, moe, ssm and hybrid families are ported so far. The vlm
+family's stub frontend enters ``prefill`` as ``embeds_prefix``
+(``frontend_stub``), as in the JAX package.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -45,7 +47,7 @@ def _attn_commit(cache, n_commit: torch.Tensor):
 
 
 def build_model(cfg) -> Model:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         mod, commit = T, _attn_commit
     elif cfg.family == "ssm":
         mod, commit = M2, M2.select_checkpoint
@@ -53,7 +55,7 @@ def build_model(cfg) -> Model:
         mod, commit = HY, HY.select_checkpoint
     else:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet "
+            f"model family {cfg.family!r} is not ported yet: the encdec family "
             "(ROADMAP.md Queue A, 'Other model families')"
         )
     return Model(
@@ -67,6 +69,23 @@ def build_model(cfg) -> Model:
         ),
         commit=commit,
     )
+
+
+def frontend_stub(cfg, batch: int, generator: torch.Generator) -> Optional[torch.Tensor]:
+    """The vlm family's stub frontend: (batch, num_patches, d) bf16 patch
+    embeddings, N(0, 1) * 0.02 drawn in f32 from ``generator`` on its
+    device (the JAX stub's distribution; the draws differ). None for a
+    family without a frontend."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            "the encdec family's frame frontend is not ported yet "
+            "(ROADMAP.md Queue A, 'Other model families')"
+        )
+    if cfg.family != "vlm":
+        return None
+    shape = (batch, cfg.num_patches, cfg.d_model)
+    draws = torch.randn(shape, generator=generator, device=generator.device)
+    return (draws * 0.02).to(torch.bfloat16)
 
 
 def perturb_params(params: T.CausalLM, scale: float, generator: torch.Generator) -> T.CausalLM:

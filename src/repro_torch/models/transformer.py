@@ -1,11 +1,15 @@
-"""Decoder-only transformer (dense, moe): init, cache, prefill, SLED verify.
+"""Decoder-only transformer (dense, vlm, moe): init, cache, prefill, SLED verify.
 
-The port of ``repro.models.transformer`` for the dense and moe families. The
-same ``decode_forward`` serves prefill (S = prompt length, cache_len = 0), the
-draft's one-token steps and SLED verification (S = K draft tokens + 1,
-cache_len = committed length), on a dense cache or, with ``slots``, straight
-against a PagedKVCache pool. A moe layer's aux loss is dropped, as the JAX
-engine drops it: serving reads the hidden states only.
+The port of ``repro.models.transformer`` for the dense, vlm and moe
+families. The same ``decode_forward`` serves prefill (S = prompt length,
+cache_len = 0), the draft's one-token steps and SLED verification (S = K
+draft tokens + 1, cache_len = committed length), on a dense cache or, with
+``slots``, straight against a PagedKVCache pool. A moe layer's aux loss is
+dropped, as the JAX engine drops it: serving reads the hidden states only.
+
+The vlm family (llava-next) is its dense backbone; its stub frontend's patch
+embeddings (``model_zoo.frontend_stub``) enter ``prefill`` as
+``embeds_prefix`` and take the first P positions of the cache.
 """
 from __future__ import annotations
 
@@ -72,14 +76,15 @@ class CausalLM(nn.Module):
 
 
 class Transformer(CausalLM):
-    """Weights of one dense or moe model: the shared embedding, norm and
-    head, and the per-layer blocks (the JAX stack's leading L axis unrolled
-    into a ModuleList)."""
+    """Weights of one dense, vlm or moe model: the shared embedding, norm
+    and head, and the per-layer blocks (the JAX stack's leading L axis
+    unrolled into a ModuleList)."""
 
     def __init__(self, cfg, device=None):
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "vlm", "moe"):
             raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue A, 'Other model families')"
+                f"family {cfg.family!r} is not ported yet: the encdec family "
+                "(ROADMAP.md Queue A, 'Other model families')"
             )
         super().__init__(cfg, device=device)
         self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.num_layers))
@@ -145,6 +150,7 @@ def decode_forward(
     *,
     attn_chunk: int = 1024,
     slots: Optional[torch.Tensor] = None,  # (B,) cache is a PagedKVCache pool
+    embeds: Optional[torch.Tensor] = None,  # (B, S_new, d): replaces the token embedding
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run S_new tokens against the cache starting at ``cache['length']``.
 
@@ -159,8 +165,11 @@ def decode_forward(
 
     An int8 cache's ``k_scale``/``v_scale`` leaves are threaded to every
     layer and written in place along the K/V rows.
+
+    ``embeds`` (the vlm prefill's patches and token embeddings) stands in
+    for the embedding of ``tokens``; the positions follow its rows.
     """
-    x = L.embed_lookup(params.embed, tokens)
+    x = L.embed_lookup(params.embed, tokens) if embeds is None else embeds.to(torch.bfloat16)
     B, S, _ = x.shape
     ck, cv = cache["k"], cache["v"]
     s_max = ck.shape[2]
@@ -207,8 +216,15 @@ def prefill(
     cache: Dict[str, torch.Tensor],
     *,
     attn_chunk: int = 1024,
+    embeds_prefix: Optional[torch.Tensor] = None,  # (B, P, d) vlm patch embeddings
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Fill the cache from a prompt; returns (last-position logits, cache)."""
-    h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk)
+    """Fill the cache from a prompt; returns (last-position logits, cache).
+    An ``embeds_prefix`` goes before the prompt's token embeddings, so the
+    cache's ``length`` grows by P + S_prompt."""
+    embeds = None
+    if embeds_prefix is not None:
+        tok = L.embed_lookup(params.embed, tokens)
+        embeds = torch.cat([embeds_prefix.to(tok.dtype), tok], dim=1)
+    h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk, embeds=embeds)
     cache = {**cache, "length": cache["length"] + h.shape[1]}
     return lm_head(params, h[:, -1:, :])[:, 0], cache

@@ -361,23 +361,38 @@ _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
 @pytest.mark.parametrize("change", [
     {"family": "encdec", "is_encdec": True, "encoder_layers": 2},
     {"family": "encdec"},
-    {"family": "vlm"},
-    {"act": "gelu"},
+    {"family": "encdec", "norm": "layernorm", "use_rope": False},
+    {"family": "encdec", "act": "gelu", "tie_embeddings": True},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (the encdec family, whisper-shaped or not,
-    the vlm family, the gelu MLP) is refused where its model is built,
-    naming ROADMAP.md; every spec the port's configs can name is served
-    (``paged_attention=False`` and the hybrid family:
-    tests/test_torch_hybrid.py; the moe family: tests/test_torch_moe.py),
-    as are the cluster and transport backends with in-process or remote
-    replicas, fault schedules and policies, sampling, quantized targets and
-    fleets."""
+    """What a later slice serves (the encdec family, whisper-shaped or not:
+    its layernorm, learned positions and gelu MLP) is refused where its
+    model is built, naming ROADMAP.md; every spec the port's configs can
+    name is served (``paged_attention=False`` and the hybrid family:
+    tests/test_torch_hybrid.py; the moe family: tests/test_torch_moe.py;
+    the vlm family and the gelu MLP: tests/test_torch_families.py), as are
+    the cluster and transport backends with in-process or remote replicas,
+    fault schedules and policies, sampling, quantized targets and fleets."""
     from repro_torch.configs import get_config
 
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg).init_params(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("change", [{"family": "vlm"}, {"act": "gelu"}])
+def test_vlm_family_and_gelu_mlp_now_build(change):
+    """The vlm family and the gelu MLP, refused before they were ported,
+    build and prefill on the CPU (held to JAX in tests/test_torch_families.py)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), **change)
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    logits, cache = model.prefill(params, torch.zeros((1, 4), dtype=torch.int32),
+                                  model.make_cache(1, 32, device="cpu", attn_chunk=32),
+                                  attn_chunk=32)
+    assert logits.shape == (1, cfg.vocab_size) and cache["length"].tolist() == [4]
 
 
 @pytest.mark.parametrize("change", [
