@@ -22,7 +22,18 @@ Phases, each of which must pass for the script to exit 0:
                query's rows straddling two tiles), qwen1.5-32b's 40 on 40
                and llava-next-mistral-7b's 775-row prefill behind its 576
                patches, each within 2e-3 and, at D = 96 and G = 48, the
-               same row bit for bit at B=1 and B=6;
+               same row bit for bit at B=1 and B=6; since the encdec
+               family, whisper-tiny's 6 heads on 6 of 64: the decoder's
+               causal prefill (63 rows) and paged step and window (B 6, Sq
+               1 and 5, a 7-row pool), and the non-causal case
+               (causal=False): the encoder (1500 rows over 1500 fresh
+               frames, B 1 and 6), cross-attention at prefill (63 rows over
+               the stacked cross leaves) and at verify (the paged entry,
+               Sq 1 and 5, B 6), each within 2e-3, rows bit for bit alone
+               and in a batch of 6 (causal, non-causal, and at the
+               encoder's 1500 rows), and the causal result at the
+               encoder's shape far from the non-causal one (a flag the
+               kernel ignored would pass neither);
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -167,13 +178,32 @@ Phases, each of which must pass for the script to exit 0:
                its published widths, its bundle's parameters, bytes and
                device memory printed after init, served and checked as
                vlm is, both bf16 kernels launched;
-  8. sim fig4 - serving.simulator on the h100 profile in the setting of the
+  8. encdec  - full-width whisper-tiny (4 decoder and 4 encoder layers of
+               384, 6 heads of 64, vocab 51865, untied; 1500 stub frames;
+               a decoder position table of 448 rows, whisper's text
+               context), 6 streams of prompt 64: each prefilled alone
+               through make_prefill_step(with_frontend=True) into a
+               PagedKVCache of 7 rows (after the decode each slot's cross
+               leaves a fresh prefill's bit for bit, a batched prefill's
+               within 2e-3), then 32
+               greedy tokens one a step through the slot-indexed forward
+               (Sq 1), then the same streams teacher-forced in windows of
+               K+1 = 5 through make_paged_verify_step: every argmax the
+               one-a-step token, or a near tie (top-2 gap under LOGIT_TOL,
+               printed); the dense, paged and both non-causal entries
+               launched (4 encoder and 4 cross calls a prefill, 4 cross
+               calls a step); seconds, bytes per slot, peak memory;
+  9. checkpoint - the full-width whisper-tiny params saved with
+               repro_torch.checkpoint (the JAX package's format) from the
+               card and restored onto it, every tensor bit-equal; bytes
+               and seconds each way;
+  10. sim fig4 - serving.simulator on the h100 profile in the setting of the
                JAX package's benchmarks/wstgr.py --quick (a prediction);
-  9. tune    - repro_torch.tuning.tune of examples/specs/fleet.json on the
+  11. tune   - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
                tune CLI once in its own process;
-  10. cli    - python -m repro_torch.cli in subprocesses on the card, each
+  12. cli    - python -m repro_torch.cli in subprocesses on the card, each
                with a timeout: serve --check of examples/specs/engine.json,
                of a hybrid target from flags and of a hybrid pair from a
                spec (the reference match printed OK), trace with the
@@ -239,12 +269,18 @@ RESID_SCALE = 0.5
 # each kernel entry: the TPU kernel it replaces (file:line of its
 # pallas_call) and its source. The dense int8 entry is the dense kernel's
 # int8 load path: the JAX package has no Pallas kernel for a dense int8
-# cache, its XLA mirror dequantizes in the chunk loop (layers.py:317).
+# cache, its XLA mirror dequantizes in the chunk loop (layers.py:317). The
+# non-causal entries (the encdec family's encoder and cross-attention) are
+# the same kernel's causal=False case; the Pallas kernel has only the
+# causal-offset mask, so their JAX counterpart is the XLA mirror
+# flash_attention with causal=False (layers.py:215).
 REPLACES = {
     "verify_attention_packed": "src/repro/kernels/verify_attn.py:184",
     "verify_attention_paged": "src/repro/kernels/verify_attn.py:291",
     "verify_attention_paged_int8": "src/repro/kernels/verify_attn.py:265",
     "verify_attention_packed_int8": "src/repro/kernels/verify_attn.py:184",
+    "verify_attention_packed_noncausal": "src/repro/models/layers.py:215",
+    "verify_attention_paged_noncausal": "src/repro/models/layers.py:215",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:98",
 }
 SOURCES = {
@@ -300,14 +336,16 @@ def _graph_ms(calls, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * len(calls))
 
 
-def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2) -> tuple:
+def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2,
+           causal=True) -> tuple:
     """Least time for one attention call: the bytes it must move once at the
     HBM rate, or the two products' flops at the bf16 peak, whichever is
     larger. K/V bytes count each distinct cache row once, as far as the
     largest kv_valid any entry gives it (duplicate scratch slots read one
     row), at the cache's element size, plus an int8 row's two f32 scales per
     head; q is read and out written once; kv_valid (and slots, for a paged
-    call) read once."""
+    call) read once. The flops count the positions each query row sees:
+    up to its own position when causal, all kv_valid of its row when not."""
     B, Sq, Hq, D = q.shape
     rows = slots_host if slots_host is not None else range(B)
     seen_row: dict = {}
@@ -321,7 +359,7 @@ def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2) -> tu
     for n in kv_valid_host:
         n = min(skv, int(n))
         for i in range(Sq):
-            vis = max(0, min(n, n - Sq + i + 1))
+            vis = max(0, min(n, n - Sq + i + 1)) if causal else n
             flops += 2 * 2 * vis * D * hkv * group
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -359,14 +397,17 @@ def _ssd_bound(B, S, H, P, N, chunk) -> dict:
     return {"bound_ms": t_ops, "bound_by": "operations", "f32_ms": t_f32}
 
 
-def _sdpa_inputs(q, k, v, kv_valid):
+def _sdpa_inputs(q, k, v, kv_valid, causal=True):
     """Arguments of one scaled_dot_product_attention call computing the same
     attention over the same rows (a yardstick only; the port never calls
     it): heads first, K/V heads repeated to the query heads, boolean mask."""
     B, Sq, Hq, D = q.shape
     G = Hq // k.shape[2]
     Skv = k.shape[1]
-    qpos = kv_valid[:, None].long() - Sq + torch.arange(Sq, device=q.device)[None]
+    if causal:
+        qpos = kv_valid[:, None].long() - Sq + torch.arange(Sq, device=q.device)[None]
+    else:
+        qpos = (kv_valid[:, None].long() - 1).expand(B, Sq)
     mask = torch.arange(Skv, device=q.device)[None, None, :] <= qpos[:, :, None]
     kh = k.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
     vh = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
@@ -389,6 +430,13 @@ def _record(records, name, idx, main_idx, line) -> None:
     print("kernel", json.dumps(line), flush=True)
 
 
+# whisper-tiny's 1500 encoder frames and 4 decoder layers; the encdec
+# phase's prompt (63 rows prefilled, the last token fed to the first step),
+# its 6 streams and its window of K+1
+ENCDEC_F, ENCDEC_L = 1500, 4
+ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_K, ENCDEC_STREAMS = 64, 32, 4, 6
+
+
 def check_attention(records: dict) -> None:
     """Every attention entry against its plain version at the paths' shapes."""
     from repro_torch.kernels import ref, verify_attn
@@ -399,7 +447,13 @@ def check_attention(records: dict) -> None:
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    # (kv, B, Sq, Hq, Hkv, D, Skv, kv_valid, slots, layers) - slots None: dense
+    # whisper-tiny's non-causal records: the encoder at B 1 (what each
+    # prefill runs) and cross-attention at verify Sq 1 (what each step runs)
+    encoder = ("bf16", 1, ENCDEC_F, 6, 6, 64, ENCDEC_F, [ENCDEC_F], None, 0, False)
+    cross_step = ("bf16", 6, 1, 6, 6, 64, ENCDEC_F, [ENCDEC_F] * 6, [3, 0, 5, 1, 2, 4], 4, False)
+    # (kv, B, Sq, Hq, Hkv, D, Skv, kv_valid, slots, layers[, causal]) - slots
+    # None: dense; layers 0: fresh K/V (B, Skv, Hkv, D) and no layer, as the
+    # encoder passes them; causal unless a last column says False
     cases = [
         ("bf16", 1, 1, 12, 2, 128, 512, [230], None, 28),     # draft decode
         ("bf16", 6, 5, 12, 2, 128, 512, [205, 212, 233, 240, 219, 208], None, 28),  # reference verify
@@ -495,47 +549,72 @@ def check_attention(records: dict) -> None:
         # rows, 32 query heads on 8 KV heads of 128 (G = 4; 32 layers), the
         # cache of the prefix vlm phase (800 positions)
         ("bf16", 1, 775, 32, 8, 128, 800, [775], None, 32),
+        # whisper-tiny: 6 query heads on 6 KV heads of 64 (G = 1) over its 4
+        # decoder layers and the encdec phase's pool (6 streams and the
+        # scratch row, max_len 128): the decoder's causal prefill of 63 rows,
+        # its one-token step and a verify window with scratch duplicates;
+        # then the non-causal case: the encoder over 1500 fresh frames (B 1
+        # and 6), cross-attention at prefill (63 rows over layer 3 of the
+        # stacked cross leaves) and at verify (paged, Sq 1 and 5), the
+        # splits' edges and a kv_valid below Sq
+        ("bf16", 1, 63, 6, 6, 64, 128, [63], None, 4),
+        ("bf16", 6, 1, 6, 6, 64, 128, [64, 77, 90, 96, 85, 1], [3, 0, 5, 1, 2, 6], 4),
+        ("bf16", 6, 5, 6, 6, 64, 128, [68, 81, 100, 5, 5, 5], [3, 0, 5, 6, 6, 6], 4),
+        encoder,
+        ("bf16", 6, ENCDEC_F, 6, 6, 64, ENCDEC_F, [ENCDEC_F] * 6, None, 0, False),
+        ("bf16", 1, 63, 6, 6, 64, ENCDEC_F, [ENCDEC_F], None, 4, False),
+        cross_step,
+        ("bf16", 6, 5, 6, 6, 64, ENCDEC_F, [ENCDEC_F] * 6, [3, 0, 5, 1, 2, 4], 4, False),
+        ("bf16", 4, 5, 6, 6, 64, 200, [64, 65, 128, 129], [0, 1, 2, 3], 1, False),
+        ("bf16", 3, 5, 6, 6, 64, 200, [200, 2, 77], None, 1, False),
     ]
     # the shape each entry is timed at for the record: the draft's one-token
     # decode (most launches of the dense kernel), the engine's verify, the
     # int8 slot prefill
     main_case = {"verify_attention_packed": 0, "verify_attention_paged": 6,
-                 "verify_attention_paged_int8": 9, "verify_attention_packed_int8": 10}
+                 "verify_attention_paged_int8": 9, "verify_attention_packed_int8": 10,
+                 "verify_attention_packed_noncausal": cases.index(encoder),
+                 "verify_attention_paged_noncausal": cases.index(cross_step)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for idx, (kv, B, Sq, Hq, Hkv, D, Skv, kvv, slots, L) in enumerate(cases):
+    for idx, (kv, B, Sq, Hq, Hkv, D, Skv, kvv, slots, L, *flag) in enumerate(cases):
+        causal = flag[0] if flag else True
         n_rows = (max(slots) + 1) if slots is not None else B
-        k = rnd(L, n_rows, Skv, Hkv, D)
-        v = rnd(L, n_rows, Skv, Hkv, D)
+        lead = (L,) if L else ()
+        k = rnd(*lead, n_rows, Skv, Hkv, D)
+        v = rnd(*lead, n_rows, Skv, Hkv, D)
         ks = vs = None
         if kv == "int8":
             (k, ks), (v, vs) = _quantize(k), _quantize(v)
         q = rnd(B, Sq, Hq, D)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
-        layer = L - 1
-        sel = lambda t: None if t is None else t[layer]  # noqa: E731
+        layer = L - 1 if L else None
+        sel = lambda t: t if t is None or layer is None else t[layer]  # noqa: E731
+        kc, vc = sel(k), sel(v)
         if slots is None:
             name = "verify_attention_packed"
             rows = torch.arange(B, device=dev)
-            kern = lambda li=layer: verify_attn.verify_attention_packed(  # noqa: E731
-                q, k, v, kv_valid, layer=li, k_scale=ks, v_scale=vs)
+            kern = lambda li=layer, causal=causal: verify_attn.verify_attention_packed(  # noqa: E731
+                q, k, v, kv_valid, layer=li, k_scale=ks, v_scale=vs, causal=causal)
             plain = lambda: ref.verify_attention_ref(  # noqa: E731
-                q, k[layer], v[layer], kv_valid, k_scale=sel(ks), v_scale=sel(vs))
+                q, kc, vc, kv_valid, k_scale=sel(ks), v_scale=sel(vs), causal=causal)
         else:
             name = "verify_attention_paged"
             sl = torch.tensor(slots, dtype=torch.int32, device=dev)
             rows = sl.long()
-            kern = lambda li=layer: verify_attn.verify_attention_paged(  # noqa: E731
-                q, k, v, sl, kv_valid, layer=li, k_scale=ks, v_scale=vs)
+            kern = lambda li=layer, causal=causal: verify_attn.verify_attention_paged(  # noqa: E731
+                q, k, v, sl, kv_valid, layer=li, k_scale=ks, v_scale=vs, causal=causal)
             plain = lambda: ref.verify_attention_paged_ref(  # noqa: E731
-                q, k[layer], v[layer], sl, kv_valid, k_scale=sel(ks), v_scale=sel(vs))
+                q, kc, vc, sl, kv_valid, k_scale=sel(ks), v_scale=sel(vs), causal=causal)
         if kv == "int8":
             name += "_int8"
+        if not causal:
+            name += "_noncausal"
         # the library call gets the scheduled rows already gathered (and
         # an int8 cache already dequantized)
-        kl, vl = k[layer][rows], v[layer][rows]
+        kl, vl = kc[rows], vc[rows]
         if kv == "int8":
-            kl, vl = ref.dequant(kl, ks[layer][rows]), ref.dequant(vl, vs[layer][rows])
-        lib_args = _sdpa_inputs(q, kl, vl, kv_valid)
+            kl, vl = ref.dequant(kl, sel(ks)[rows]), ref.dequant(vl, sel(vs)[rows])
+        lib_args = _sdpa_inputs(q, kl, vl, kv_valid, causal=causal)
         lib = lambda: sdpa(*lib_args[:3], attn_mask=lib_args[3])  # noqa: E731
         out = kern()
         torch.cuda.synchronize()
@@ -543,15 +622,27 @@ def check_attention(records: dict) -> None:
         if not math.isfinite(err) or err > KERNEL_TIGHT:
             raise AssertionError(f"{name} case {idx}: max abs err {err} > {KERNEL_TIGHT} "
                                  f"(ceiling {KERNEL_TOL})")
-        bound_ms, bound_by = _bound(q, kvv, slots, Skv, Hkv, Hq // Hkv, k.element_size())
+        bound_ms, bound_by = _bound(q, kvv, slots, Skv, Hkv, Hq // Hkv, k.element_size(),
+                                    causal=causal)
+        # the encoder's calls take milliseconds: fewer of them
+        iters, calls = (10, 8) if Sq * min(Skv, max(kvv)) > 10**6 else (50, GRAPH_CALLS)
         line = {"case": idx, "name": name, "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
-                f"Skv={Skv} kv_valid={kvv} slots={slots} {kv}", "max_abs_err": err,
-                "ms": _time_ms(kern), "graph_ms": _graph_ms([kern] * GRAPH_CALLS),
-                "plain_ms": _time_ms(plain), "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": _time_ms(lib), "library_graph_ms": _graph_ms([lib] * GRAPH_CALLS)}
-        if idx == main_case[name]:
+                f"Skv={Skv} kv_valid={kvv} slots={slots} layers={L} {kv}"
+                f"{'' if causal else ' non-causal'}", "max_abs_err": err,
+                "ms": _time_ms(kern, iters), "graph_ms": _graph_ms([kern] * calls),
+                "plain_ms": _time_ms(plain, iters), "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": _time_ms(lib, iters), "library_graph_ms": _graph_ms([lib] * calls)}
+        if idx == main_case[name] and L:
             # as the layer loop reads the stacked cache: one call per layer
             line["walk_graph_ms"] = _graph_ms([lambda li=li: kern(li) for li in range(L)] * 2)
+        if cases[idx] is encoder:
+            # the control: the same call with the flag flipped gives far
+            # other output, so a flag the kernel ignored would fail above
+            # (at Sq 1 both masks are one)
+            line["causal_diff"] = (kern(causal=True).float() - out.float()).abs().max().item()
+            if not line["causal_diff"] > 10 * KERNEL_TOL:
+                raise AssertionError(f"non-causal control: the causal result differs by "
+                                     f"{line['causal_diff']} only (want > {10 * KERNEL_TOL})")
         _record(records, name, idx, main_case[name], line)
     check_batch_invariance(gen)
 
@@ -562,27 +653,32 @@ def check_batch_invariance(gen) -> None:
     (qwen2's 12 query heads on 2 KV heads, the paper pair's 32 on 8,
     zamba2's 32 on 32 at head_dim 64, granite-moe's 24 on 8 (G = 3) and
     qwen3-moe's 32 on 4 (G = 8) at head_dim 64, phi3-mini's 32 on 32 at
-    head_dim 96 and granite-34b's 48 on 1 (G = 48) at head_dim 128)."""
+    head_dim 96, granite-34b's 48 on 1 (G = 48) at head_dim 128, and
+    whisper-tiny's 6 on 6 at head_dim 64, causal and non-causal, the latter
+    also at the encoder's 1500 rows over 1500 positions)."""
     from repro_torch.kernels import verify_attn
 
     dev = torch.device("cuda")
-    kvv = [205, 233, 240, 5, 5, 5]
-    for kv, hq, hkv, d in (("bf16", 12, 2, 128), ("int8", 12, 2, 128), ("bf16", 32, 8, 128),
-                           ("bf16", 32, 32, 64), ("bf16", 24, 8, 64), ("int8", 24, 8, 64),
-                           ("bf16", 32, 4, 64), ("bf16", 32, 32, 96), ("int8", 32, 32, 96),
-                           ("bf16", 48, 1, 128), ("int8", 48, 1, 128)):
-        k = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
-        v = torch.randn(2, 7, 512, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+    verify = (5, 512, [205, 233, 240, 5, 5, 5])  # (Sq, Skv, kv_valid)
+    encoder = (ENCDEC_F, ENCDEC_F, [ENCDEC_F] * 6)
+    cases = [(kv, hq, hkv, d, True, verify) for kv, hq, hkv, d in (
+        ("bf16", 12, 2, 128), ("int8", 12, 2, 128), ("bf16", 32, 8, 128), ("bf16", 32, 32, 64),
+        ("bf16", 24, 8, 64), ("int8", 24, 8, 64), ("bf16", 32, 4, 64), ("bf16", 32, 32, 96),
+        ("int8", 32, 32, 96), ("bf16", 48, 1, 128), ("int8", 48, 1, 128), ("bf16", 6, 6, 64))]
+    cases += [("bf16", 6, 6, 64, False, verify), ("bf16", 6, 6, 64, False, encoder)]
+    for kv, hq, hkv, d, causal, (sq, skv, kvv) in cases:
+        k = torch.randn(2, 7, skv, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(2, 7, skv, hkv, d, generator=gen, device=dev).to(torch.bfloat16)
         ks = vs = None
         if kv == "int8":
             (k, ks), (v, vs) = _quantize(k), _quantize(v)
-        q = torch.randn(6, 5, hq, d, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn(6, sq, hq, d, generator=gen, device=dev).to(torch.bfloat16)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
         slots = torch.tensor([3, 0, 5, 6, 6, 6], dtype=torch.int32, device=dev)
-        sc = dict(layer=1, k_scale=ks, v_scale=vs)
+        sc = dict(layer=1, k_scale=ks, v_scale=vs, causal=causal)
         paged = verify_attn.verify_attention_paged(q, k, v, slots, kv_valid, **sc)
         dense = verify_attn.verify_attention_packed(q, k[:, :6], v[:, :6], kv_valid, **(
-            sc if ks is None else dict(layer=1, k_scale=ks[:, :6], v_scale=vs[:, :6])))
+            sc if ks is None else dict(sc, k_scale=ks[:, :6], v_scale=vs[:, :6])))
         for b in range(6):
             one = lambda t: t[b:b + 1].contiguous()  # noqa: E731
             alone = verify_attn.verify_attention_paged(one(q), k, v, one(slots), one(kv_valid),
@@ -591,12 +687,14 @@ def check_batch_invariance(gen) -> None:
             s1 = {} if ks is None else dict(k_scale=ks[:, b:b + 1].contiguous(),
                                              v_scale=vs[:, b:b + 1].contiguous())
             alone_dense = verify_attn.verify_attention_packed(one(q), k1, v1, one(kv_valid),
-                                                              layer=1, **s1)
+                                                              layer=1, causal=causal, **s1)
             torch.cuda.synchronize()
             if not torch.equal(alone[0], paged[b]) or not torch.equal(alone_dense[0], dense[b]):
-                raise AssertionError(f"attention {kv}: row {b} alone differs from the batch of 6")
-        print(f"kernel batch invariance {kv} Hq={hq} Hkv={hkv} D={d}: rows of a batch of 6 (paged "
-              f"and dense, kv_valid {kvv}) equal the same rows alone, bit for bit", flush=True)
+                raise AssertionError(f"attention {kv} Hq={hq} Hkv={hkv} D={d} Sq={sq} causal="
+                                     f"{causal}: row {b} alone differs from the batch of 6")
+        print(f"kernel batch invariance {kv} Hq={hq} Hkv={hkv} D={d} Sq={sq} Skv={skv}"
+              f"{'' if causal else ' non-causal'}: rows of a batch of 6 (paged and dense, "
+              f"kv_valid {kvv}) equal the same rows alone, bit for bit", flush=True)
 
 
 def check_ssd(records: dict) -> None:
@@ -2337,6 +2435,217 @@ def serve_dense_config(label: str, records: dict, bundle, prompts, *, max_new: i
                                            witness=True))
 
 
+# whisper's text context: the decoder's learned position table (arXiv:2212.04356)
+WHISPER_MAX_POS = 448
+# every attention entry the encdec phase's prefills and one-a-step decode
+# launch: per prefill 4 decoder layers (dense, causal) and 4 encoder + 4
+# cross calls (dense, non-causal); per step 4 self (paged) + 4 cross (paged,
+# non-causal)
+ENCDEC_PATH = {
+    "verify_attention_packed": ENCDEC_STREAMS * ENCDEC_L,
+    "verify_attention_packed_noncausal": ENCDEC_STREAMS * 2 * ENCDEC_L,
+    "verify_attention_paged": ENCDEC_NEW * ENCDEC_L,
+    "verify_attention_paged_noncausal": ENCDEC_NEW * ENCDEC_L,
+}
+
+
+def init_whisper():
+    """Full-width whisper-tiny on the card from a seed: (model, params)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model_zoo import build_model
+
+    cfg = get_config("whisper-tiny")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0),
+                               max_pos=WHISPER_MAX_POS)
+    torch.cuda.synchronize()
+    tensors = list(params.parameters())
+    print(f"init whisper-tiny: {cfg.num_layers} decoder + {cfg.encoder_layers} encoder layers of "
+          f"{cfg.d_model}, {sum(p.numel() for p in tensors)} parameters "
+          f"({cfg.param_count()} by the config), "
+          f"{sum(p.numel() * p.element_size() for p in tensors)} bytes, device memory "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return model, params
+
+
+def serve_encdec(records: dict, model, params) -> None:
+    """whisper-tiny's serving path on the card: 6 streams of prompt 64
+    behind 1500 stub frames each, prefilled one by one through
+    make_prefill_step(with_frontend=True) into a PagedKVCache of 7 rows,
+    then 32 greedy tokens one a step through the slot-indexed forward (the
+    paged verify step's forward at Sq = 1: speculative_verify takes K >= 1
+    drafts), then teacher-forced in windows of K+1 = 5 through
+    make_paged_verify_step, every argmax the one-a-step token up to near
+    ties (top-2 gap < LOGIT_TOL, printed)."""
+    from repro_torch.core import verification
+    from repro_torch.models.kvcache import PagedKVCache
+    from repro_torch.models.model_zoo import frontend_stub
+
+    cfg, dev = model.cfg, torch.device("cuda")
+    n, P, chunk = ENCDEC_STREAMS, ENCDEC_PROMPT, 32
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(n, P)).astype(np.int32)).to(dev)
+    frames = frontend_stub(cfg, n, torch.Generator(device=dev).manual_seed(5))
+    pool = PagedKVCache(model, n_slots=n, max_len=128, device=dev, attn_chunk=chunk,
+                        enc_len=cfg.encoder_seq)
+    prefill = verification.make_prefill_step(model, attn_chunk=chunk, with_frontend=True)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slot_ids, last = [], []
+    for i in range(n):
+        _, row, tok = prefill(params, pool.make_row_cache(), toks[i:i + 1], frames[i:i + 1])
+        slot = pool.alloc()
+        pool.write_slot(slot, row)
+        slot_ids.append(slot)
+        last.append(tok)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    slots = torch.tensor(slot_ids, dtype=torch.int32, device=dev)
+    idx = slots.long()
+    prev = torch.cat(last).to(torch.int32)
+    greedy = []
+    t0 = time.perf_counter()
+    for _ in range(ENCDEC_NEW):
+        h, cache = model.decode_forward(params, pool.cache, prev[:, None], attn_chunk=chunk,
+                                        slots=slots)
+        logits = model.lm_head(params, h)[:, -1]
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("encdec: a step's logits are not all finite")
+        prev = logits.argmax(-1).to(torch.int32)
+        length = cache["length"].clone()
+        length[idx] += 1
+        pool.cache = {**cache, "length": length}
+        greedy.append(prev)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    _record_launches("encdec", records, ENCDEC_PATH, _launches())
+    stream = torch.stack(greedy, dim=1)  # (n, 32)
+    print(f"encdec: {n} prefills of {P - 1} tokens behind {cfg.encoder_seq} frames in "
+          f"{prefill_s:.3f} s, {ENCDEC_NEW} steps in {decode_s:.3f} s "
+          f"({decode_s / ENCDEC_NEW * 1e3:.2f} ms a step, {n * ENCDEC_NEW / decode_s:.1f} "
+          f"tokens/s), bytes_per_slot {pool.bytes_per_slot()}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; distinct tokens per stream "
+          f"{[len(set(r)) for r in stream.tolist()]}", flush=True)
+
+    # after the steps, each slot's cross leaves are those of a fresh prefill
+    # of its stream, bit for bit (write_slot put each row in its slot and no
+    # step wrote them); a batched prefill of the 6 streams gives them within
+    # KERNEL_TIGHT
+    leaves = ("cross_k", "cross_v")
+    for i, slot in enumerate(slot_ids):
+        fresh = prefill(params, pool.make_row_cache(), toks[i:i + 1], frames[i:i + 1])[1]
+        for leaf in leaves:
+            if not torch.equal(pool.cache[leaf][:, slot], fresh[leaf][:, 0]):
+                raise AssertionError(f"encdec: pool row {slot}'s {leaf} differs from a fresh "
+                                     "prefill of its stream")
+    dense = model.make_cache(n, 128, device=dev, attn_chunk=chunk, enc_len=cfg.encoder_seq)
+    _, dense = model.prefill(params, toks[:, :-1], dense, attn_chunk=chunk, enc_frames=frames)
+    pooled = {leaf: pool.cache[leaf][:, idx] for leaf in leaves}
+    batched = max((dense[leaf].float() - pooled[leaf].float()).abs().max().item()
+                  for leaf in leaves)
+    same = all(torch.equal(dense[leaf], pooled[leaf]) for leaf in leaves)
+    print(f"encdec: each slot's cross leaves == a fresh prefill's bit for bit; a batched "
+          f"prefill's cross leaves max abs diff {batched:.4g} (bit-equal: {same})", flush=True)
+    if not batched <= KERNEL_TIGHT:
+        raise AssertionError(f"encdec: a batched prefill's cross leaves differ by {batched} "
+                             f"> {KERNEL_TIGHT}")
+    del dense, pooled
+
+    # teacher-forced windows through the paged verify step
+    length = pool.cache["length"].clone()
+    length[idx] = P - 1
+    pool.cache = {**pool.cache, "length": length}
+    seen = []
+    forced = dataclasses.replace(model, lm_head=lambda p, h: seen.append(model.lm_head(p, h))
+                                 or seen[-1])
+    step = verification.make_paged_verify_step(forced, scratch_slot=pool.scratch_slot,
+                                               attn_chunk=chunk)
+    prev = torch.cat(last).to(torch.int32)
+    W = ENCDEC_K + 1
+    windows = -(-ENCDEC_NEW // W)
+    padded = torch.cat([stream, torch.zeros((n, windows * W - ENCDEC_NEW), dtype=torch.int32,
+                                            device=dev)], dim=1)
+    ties, checked = [], 0
+    _reset_launches()
+    t0 = time.perf_counter()
+    for w in range(windows):
+        drafts = padded[:, w * W:w * W + ENCDEC_K]
+        batch = verification.make_verify_batch(prev, drafts,
+                                               torch.full((n,), ENCDEC_K, device=dev))
+        _, cache = step(params, pool.cache, slots, batch)
+        am = seen[-1].argmax(-1)  # (n, K+1)
+        for j in range(min(W, ENCDEC_NEW - w * W)):
+            pos = w * W + j
+            checked += n
+            for b in torch.nonzero(am[:, j] != stream[:, pos]).flatten().tolist():
+                top = torch.topk(seen[-1][b, j], 2).values
+                gap = float(top[0] - top[1])
+                ties.append((b, pos, gap))
+                print(f"encdec: stream {b} token {pos}: window argmax {int(am[b, j])}, one a "
+                      f"step {int(stream[b, pos])}; top-2 gap {gap:.4g}", flush=True)
+        length = cache["length"].clone()
+        length[idx] = P - 1 + (w + 1) * W  # teacher-forced: the whole window commits
+        pool.cache = {**cache, "length": length}
+        prev = padded[:, w * W + ENCDEC_K]
+    torch.cuda.synchronize()
+    window_s = time.perf_counter() - t0
+    path = {"verify_attention_paged": windows * ENCDEC_L,
+            "verify_attention_paged_noncausal": windows * ENCDEC_L}
+    _record_launches("encdec windows", records, path, _launches())
+    print(f"encdec: {windows} teacher-forced windows of {W} in {window_s:.3f} s: "
+          f"{checked - len(ties)}/{checked} argmaxes equal the one-a-step tokens, "
+          f"{len(ties)} near ties", flush=True)
+    bad = [t for t in ties if not t[2] < LOGIT_TOL]
+    if bad:
+        raise AssertionError(f"encdec: windows leave the one-a-step tokens at {bad} "
+                             f"(top-2 gaps >= {LOGIT_TOL})")
+
+
+def checkpoint_phase(params) -> None:
+    """The full-width whisper-tiny params (the bridge's JAX-layout tree of
+    torch tensors) saved from the card with repro_torch.checkpoint and
+    restored onto it: every tensor bit-equal, its dtype and shape kept."""
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge, checkpoint
+
+    tree = bridge.params_tree(params)
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(d, 0, tree)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(d).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        back, _ = checkpoint.restore(d, tree, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d)
+
+    def leaves(t, path=""):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from leaves(v, f"{path}/{k}")
+        else:
+            yield path, t
+
+    want, got = dict(leaves(tree)), dict(leaves(back))
+    if sorted(want) != sorted(got):
+        raise AssertionError("checkpoint: the restored tree has other keys")
+    for key, w in want.items():
+        g = got[key]
+        if not (g.is_cuda and g.dtype == w.dtype and torch.equal(g, w)):
+            raise AssertionError(f"checkpoint: {key} restored as {g.dtype} on {g.device}, "
+                                 "not bit-equal")
+    print(f"checkpoint: whisper-tiny, {len(want)} tensors, {nbytes} bytes on disk, save "
+          f"{save_s:.3f} s, restore onto the card {restore_s:.3f} s, every tensor bit-equal; "
+          f"temp dir removed: {not Path(d).exists()}", flush=True)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -2534,6 +2843,13 @@ def main() -> int:
                            max_new=max_new)
         del dc
         _free_card(arch)
+    # the encdec family (whisper-tiny at full width) and the port's
+    # checkpoints of its params
+    wh = _phase("init whisper-tiny", init_whisper)
+    _phase("encdec", lambda: serve_encdec(records, *wh))
+    _phase("checkpoint", lambda: checkpoint_phase(wh[1]))
+    del wh
+    _free_card("whisper-tiny")
     _phase("sim fig4", sim_fig4)
     _phase("tune", lambda: tune_on_card(records))
     _phase("cli", cli_on_card)

@@ -20,9 +20,11 @@ package serves them. A stream shed with an evicted replica ends its
 session with ``SessionResult.shed`` and is listed in
 ``ServeResult.lost_devices``; on the transport backend it fails the serve
 instead (the JAX package's client waits out its retries there). The
-dense, moe, ssm and hybrid families are served; ``paged_attention=False``
+dense, vlm, moe, ssm and hybrid families are served; ``paged_attention=False``
 selects the gather/scatter verify, which the ssm and hybrid families ride
-anyway (``System.build`` logs that fallback, as the JAX package does).
+anyway (``System.build`` logs that fallback, as the JAX package does). An
+encdec spec is refused at build: its prefill needs encoder frames that a
+serve does not carry (the JAX ``System`` crashes at its first prefill).
 
 Sessions on the engine and cluster backends interleave cooperatively: each
 ``generate()`` pump admits waiting sessions, submits ready drafts and steps
@@ -255,6 +257,20 @@ class System:
         Systems."""
         dev = resolve_device(device)
         spec.validate()
+        cfgs = [get_config(arch) for arch in (spec.model.arch, spec.model.draft_arch)]
+        if models is not None:
+            cfgs += [models.target_cfg, models.draft_cfg]
+        encdec = sorted({cfg.name for cfg in cfgs if cfg.is_encdec})
+        if encdec:
+            # the JAX System builds this spec and crashes at the first
+            # prefill (no enc_frames reach transformer.encode); refusing here
+            # is a departure, and a spec has no frames input to add
+            raise ValueError(
+                f"{', '.join(encdec)}: an encdec model needs its encoder frames (the "
+                "enc_frames of model_zoo.frontend_stub) at every prefill, and a serve "
+                "has no encoder frames to give it; run the family through "
+                "model_zoo.build_model and verification.make_prefill_step(with_frontend=True)"
+            )
         if spec.backend == "transport" and not spec.greedy and spec.transport.qmode == "none":
             # the clients would send no q and the server's admission refuses
             # a sampled round without one (a departure: the JAX package

@@ -6,10 +6,14 @@ bf16 moves bit-exactly through a 16-bit integer view, as the JAX
 checkpoint format stores it. Weights keep JAX's ``(in, out)`` layout, so a
 weight is a plain copy. The stacked ``(L, ...)`` leaves of
 ``params["layers"]`` become the per-layer blocks of ``Transformer.layers``
-(dense, vlm and moe families; a gelu MLP's ``wi``/``wd`` where a SwiGLU one
-has ``wg``/``wu``/``wd``; a moe layer's router and expert tables stacked
-``(L, E, ...)`` under ``params["layers"]["moe"]``) or ``Mamba2.layers``
-(ssm family); the hybrid family's
+(dense, vlm, moe and encdec families; a gelu MLP's ``wi``/``wd`` where a
+SwiGLU one has ``wg``/``wu``/``wd``; a moe layer's router and expert tables
+stacked ``(L, E, ...)`` under ``params["layers"]["moe"]``; a layernorm's
+``bias`` beside its ``scale``; an encdec decoder layer's ``ln_x`` and
+``xattn``) or ``Mamba2.layers`` (ssm family); a learned ``pos_embed`` and
+the encdec encoder's ``enc/{pos_embed,layers,final_norm}`` move as they
+are (the encoder's stacked layers into ``Transformer.enc.layers``); the
+hybrid family's
 ``params["ssm_layers"]`` become ``Hybrid.layers`` and its
 ``params["shared_attn"]`` the one ``Hybrid.shared`` block. Caches move leaf
 by leaf in their JAX layouts: bf16 or int8 K/V with the int8 scale leaves,
@@ -20,6 +24,9 @@ bf16 norm scales and SSM parameters where a 16-bit one has f32.
 
 Going back, bf16 tensors come out as their ``uint16`` bits (the checkpoint
 convention); ``arr.view(ml_dtypes.bfloat16)`` restores the dtype.
+``params_tree`` gives the same tree with torch tensors as its leaves (bf16
+kept as bf16), the form ``repro_torch.checkpoint`` saves and restores, and
+``params_from_jax`` also takes such a tree.
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ from repro_torch.runtime import resolve_device
 # stacked layers (params["layers"], the hybrid's params["ssm_layers"])
 _LAYER_PARAMS = {
     "dense": {
-        "ln1.scale": ("ln1", "scale"),
-        "ln2.scale": ("ln2", "scale"),
+        "ln1.scale": ("ln1", "scale"), "ln1.bias": ("ln1", "bias"),
+        "ln2.scale": ("ln2", "scale"), "ln2.bias": ("ln2", "bias"),
         "attn.wq": ("attn", "wq"), "attn.wk": ("attn", "wk"),
         "attn.wv": ("attn", "wv"), "attn.wo": ("attn", "wo"),
         "attn.bq": ("attn", "bq"), "attn.bk": ("attn", "bk"), "attn.bv": ("attn", "bv"),
@@ -56,18 +63,29 @@ _LAYER_PARAMS["moe"] = {
     **{f"moe.{name}": ("moe", name) for name in ("router", "wg", "wu", "wd")},
 }
 _LAYER_PARAMS["hybrid"] = _LAYER_PARAMS["ssm"]
-_LAYER_PARAMS["vlm"] = _LAYER_PARAMS["dense"]
+_LAYER_PARAMS["vlm"] = _LAYER_PARAMS["encdec"] = _LAYER_PARAMS["dense"]
+# what a decoder layer adds where ``cfg.is_encdec`` (as in JAX, the flag and
+# not the family decides): its cross-attention and the norm before it
+_CROSS_PARAMS = {
+    "ln_x.scale": ("ln_x", "scale"), "ln_x.bias": ("ln_x", "bias"),
+    **{f"xattn.{name}": ("xattn", name) for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv")},
+}
 _STACK_KEY = {"dense": "layers", "vlm": "layers", "moe": "layers", "ssm": "layers",
-              "hybrid": "ssm_layers"}
+              "hybrid": "ssm_layers", "encdec": "layers"}
 # the hybrid's shared block: port name under ``shared`` -> path under the
 # JAX params["shared_attn"] (the dense layer's names, without a stack axis)
 _SHARED_PARAMS = _LAYER_PARAMS["dense"]
 _MODELS = {"dense": Transformer, "vlm": Transformer, "moe": Transformer, "ssm": Mamba2,
-           "hybrid": Hybrid}
+           "hybrid": Hybrid, "encdec": Transformer}
+# the final norm's leaves (a layernorm has a bias)
+_NORM_PARAMS = {"scale": ("scale",), "bias": ("bias",)}
 
 
-def to_tensor(arr: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy -> torch, bf16 (ml_dtypes or JAX bfloat16) bit-exactly."""
+def to_tensor(arr, device="cpu") -> torch.Tensor:
+    """numpy -> torch, bf16 (ml_dtypes or JAX bfloat16) bit-exactly; a torch
+    tensor moves to ``device`` as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.to(device)
     arr = np.asarray(arr)
     if arr.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(arr).view(np.int16)
@@ -91,39 +109,66 @@ def _get(tree: Dict[str, Any], path) -> np.ndarray:
 
 def _family(cfg) -> str:
     if cfg.family not in _MODELS:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: the encdec family "
-            "(ROADMAP.md Queue A, 'Other model families')"
-        )
+        raise ValueError(f"unknown model family {cfg.family!r} (one of {sorted(_MODELS)})")
     return cfg.family
+
+
+def _layer_params(cfg) -> Dict[str, Any]:
+    """Port name -> JAX path of a stacked layer's leaves."""
+    names = _LAYER_PARAMS[_family(cfg)]
+    return {**names, **_CROSS_PARAMS} if cfg.is_encdec else names
 
 
 def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
     """The family's module (``Transformer``, ``Mamba2`` or ``Hybrid``) on
-    ``device`` holding the JAX params pytree's weights."""
+    ``device`` holding the JAX params pytree's weights (numpy leaves, or the
+    torch leaves of ``params_tree``)."""
     device = resolve_device(device)
     family = _family(cfg)
-    model = _MODELS[family](cfg, device=device)
+    kw = {"max_pos": tree["pos_embed"].shape[0]} if "pos_embed" in tree else {}
+    model = _MODELS[family](cfg, device=device, **kw)
     with torch.no_grad():
         _assign(model, "embed", to_tensor(tree["embed"], device))
-        _assign(model, "final_norm.scale", to_tensor(tree["final_norm"]["scale"], device))
+        _assign_block(model, "final_norm", model.final_norm, tree["final_norm"], _NORM_PARAMS,
+                      device)
         if model.lm_head_w is not None:
             _assign(model, "lm_head_w", to_tensor(tree["lm_head"], device))
-        for name, path in _LAYER_PARAMS[family].items():
-            if _dotted(model.layers[0], name) is None:
-                continue  # e.g. no QKV bias, or the other MLP's tables
-            stacked = to_tensor(_get(tree[_STACK_KEY[family]], path), device)
-            if stacked.shape[0] != cfg.num_layers:
-                raise ValueError(f"layers/{'/'.join(path)} has {stacked.shape[0]} layers, "
-                                 f"config has {cfg.num_layers}")
-            for li in range(cfg.num_layers):
-                _assign(model, f"layers.{li}.{name}", stacked[li])
+        if getattr(model, "pos_embed", None) is not None:
+            _assign(model, "pos_embed", to_tensor(tree["pos_embed"], device))
+        _assign_stack(model, "layers", tree[_STACK_KEY[family]], _layer_params(cfg), device)
+        if getattr(model, "enc", None) is not None:
+            enc = tree["enc"]
+            _assign(model, "enc.pos_embed", to_tensor(enc["pos_embed"], device))
+            _assign_stack(model, "enc.layers", enc["layers"], _LAYER_PARAMS["dense"], device)
+            _assign_block(model, "enc.final_norm", model.enc.final_norm, enc["final_norm"],
+                          _NORM_PARAMS, device)
         if family == "hybrid":
-            for name, path in _SHARED_PARAMS.items():
-                if _dotted(model.shared, name) is not None:
-                    _assign(model, f"shared.{name}",
-                            to_tensor(_get(tree["shared_attn"], path), device))
+            _assign_block(model, "shared", model.shared, tree["shared_attn"], _SHARED_PARAMS,
+                          device)
     return model
+
+
+def _assign_stack(model: CausalLM, prefix: str, stack: Dict[str, Any], names, device) -> None:
+    """The stacked (L, ...) leaves under ``stack`` into the blocks of the
+    ModuleList ``prefix``, for each port name the blocks have."""
+    blocks = _dotted(model, prefix)
+    for name, path in names.items():
+        if _dotted(blocks[0], name) is None:
+            continue  # e.g. no QKV bias, an RMSNorm's bias, or the other MLP's tables
+        stacked = to_tensor(_get(stack, path), device)
+        if stacked.shape[0] != len(blocks):
+            raise ValueError(f"{prefix}/{'/'.join(path)} has {stacked.shape[0]} layers, "
+                             f"the model has {len(blocks)}")
+        for li in range(len(blocks)):
+            _assign(model, f"{prefix}.{li}.{name}", stacked[li])
+
+
+def _assign_block(model: CausalLM, prefix: str, block, tree: Dict[str, Any], names,
+                  device) -> None:
+    """The leaves of one unstacked block (a norm, the hybrid's shared block)."""
+    for name, path in names.items():
+        if _dotted(block, name) is not None:
+            _assign(model, f"{prefix}.{name}", to_tensor(_get(tree, path), device))
 
 
 def _assign(model: CausalLM, name: str, value: torch.Tensor) -> None:
@@ -139,32 +184,60 @@ def _assign(model: CausalLM, name: str, value: torch.Tensor) -> None:
         model.set_weight(name, value.clone())
 
 
-def params_to_jax(model: CausalLM) -> Dict[str, Any]:
-    """The JAX params pytree layout, as numpy arrays (bf16 as uint16 bits)."""
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _stack_tree(blocks, names) -> Dict[str, Any]:
+    """The JAX stacked (L, ...) subtree of a ModuleList's blocks."""
+    tree: Dict[str, Any] = {}
+    for name, path in names.items():
+        if _dotted(blocks[0], name) is not None:
+            _put(tree, path, torch.stack([_dotted(blk, name) for blk in blocks]))
+    return tree
+
+
+def _block_tree(block, names) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, path in names.items():
+        if _dotted(block, name) is not None:
+            _put(tree, path, _dotted(block, name).detach())
+    return tree
+
+
+def params_tree(model: CausalLM) -> Dict[str, Any]:
+    """The JAX params pytree layout with torch tensors as leaves (bf16 kept
+    as bf16, on the model's device)."""
     family = _family(model.cfg)
-    layers: Dict[str, Any] = {}
-    for name, path in _LAYER_PARAMS[family].items():
-        if _dotted(model.layers[0], name) is None:
-            continue
-        stacked = torch.stack([_dotted(blk, name) for blk in model.layers])
-        node = layers
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = to_numpy(stacked)
     tree: Dict[str, Any] = {
-        "embed": to_numpy(model.embed),
-        "final_norm": {"scale": to_numpy(model.final_norm.scale)},
-        _STACK_KEY[family]: layers,
+        "embed": model.embed.detach(),
+        "final_norm": _block_tree(model.final_norm, _NORM_PARAMS),
+        _STACK_KEY[family]: _stack_tree(model.layers, _layer_params(model.cfg)),
     }
     if family == "hybrid":
-        shared: Dict[str, Any] = {}
-        for name, path in _SHARED_PARAMS.items():
-            if _dotted(model.shared, name) is not None:
-                shared.setdefault(path[0], {})[path[1]] = to_numpy(_dotted(model.shared, name))
-        tree["shared_attn"] = shared
+        tree["shared_attn"] = _block_tree(model.shared, _SHARED_PARAMS)
     if model.lm_head_w is not None:
-        tree["lm_head"] = to_numpy(model.lm_head_w)
+        tree["lm_head"] = model.lm_head_w.detach()
+    if getattr(model, "pos_embed", None) is not None:
+        tree["pos_embed"] = model.pos_embed.detach()
+    if getattr(model, "enc", None) is not None:
+        tree["enc"] = {
+            "pos_embed": model.enc.pos_embed.detach(),
+            "layers": _stack_tree(model.enc.layers, _LAYER_PARAMS["dense"]),
+            "final_norm": _block_tree(model.enc.final_norm, _NORM_PARAMS),
+        }
     return tree
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def params_to_jax(model: CausalLM) -> Dict[str, Any]:
+    """The JAX params pytree layout, as numpy arrays (bf16 as uint16 bits)."""
+    return _map(to_numpy, params_tree(model))
 
 
 def cache_from_jax(tree: Dict[str, np.ndarray], device="cuda") -> Dict[str, torch.Tensor]:
@@ -178,7 +251,12 @@ def cache_to_jax(cache: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 
 
 def _dotted(module, name: str):
+    """Attribute ``name`` (dotted) of ``module``; None where a part is None
+    (no QKV bias, an RMSNorm's bias, the other MLP's tables). A part the
+    module lacks raises AttributeError."""
     obj = module
     for part in name.split("."):
         obj = getattr(obj, part)
+        if obj is None:
+            return None
     return obj

@@ -219,9 +219,9 @@ def list_configs() -> List[str]:
 
 _LOADED = False
 
-# every config of the JAX package but whisper-tiny, whose encdec family is
-# not ported yet (ROADMAP.md Queue A, 'Other model families')
+# every config of the JAX package
 _CONFIG_MODULES = [
+    "whisper_tiny",
     "granite_34b",
     "phi3_mini_3_8b",
     "qwen15_32b",

@@ -155,11 +155,14 @@ def make_prefill_step(model, *, attn_chunk: int = 1024, with_frontend: bool = Fa
     Leaves the cache at ``length = prompt_len - 1`` (plus the stub's rows)
     and returns the last prompt token separately: the "all committed but
     the last" invariant, so the first verify round can feed it. With
-    ``with_frontend``, a vlm model's prompt is preceded by ``stub``, its
-    patch embeddings (``model_zoo.frontend_stub``)."""
+    ``with_frontend``, ``stub`` is the model's stub frontend
+    (``model_zoo.frontend_stub``): an encdec model's encoder frames, or a
+    vlm model's patch embeddings, which precede its prompt."""
 
     def prefill_step(params, cache, tokens, stub=None):
         kw = {}
+        if with_frontend and model.cfg.family == "encdec":
+            kw["enc_frames"] = stub
         if with_frontend and model.cfg.family == "vlm":
             kw["embeds_prefix"] = stub
         logits, cache = model.prefill(params, tokens[:, :-1], cache, attn_chunk=attn_chunk, **kw)

@@ -17,7 +17,11 @@
 // Math (that of _attend_chunk): for batch entry b and KV head h the Sq*G
 // query rows are packed as r = i*G + g (query i, head h*G + g). Query i sits
 // at absolute position kv_valid[b] - Sq + i, so KV position j is visible iff
-// j <= kv_valid[b] - Sq + i and j < Skv. The softmax runs online over
+// j <= kv_valid[b] - Sq + i and j < Skv. A non-causal call (causal == 0:
+// the encdec family's encoder over fresh K/V and its cross-attention over
+// the cross_k/cross_v leaves; the JAX package's flash_attention with
+// causal=False) gives every row the limit kv_valid[b] - 1 instead, in the
+// same splits, merge order and FMA chains. The softmax runs online over
 // 64-position chunks with f32 running max m, sum l and accumulator; scores
 // are f32 sums of bf16 products, and P is rounded to bf16 before the P.V
 // product (p.astype(v.dtype)). A row that sees no position gives 0.
@@ -38,7 +42,7 @@
 //     compile-time constant and the merge runs in split order, so a row's
 //     result depends only on its own row, its kv_valid and the cache: the
 //     same row gives the same bits at any B. A block whose split starts past
-//     its tile's causal limit exits at once.
+//     its tile's limit (the causal one, or kv_valid - 1) exits at once.
 //   - The plain version's arithmetic, in its order. A split is one of the
 //     plain version's 64-position chunks (its default block_k): P is rounded
 //     at the running max through the split (each split publishes its rows'
@@ -318,7 +322,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    int* __restrict__ sync,        // block counter, then [tile][split] flags
                    int n_split, int n_tiles, int sq, int hq, int hkv, int skv,
                    long long s_row, long long s_seq, long long s_head,
-                   long long sc_row, float scale) {
+                   long long sc_row, float scale, int causal) {
   using PV = PvLayout<D>;
   constexpr int D2 = D / 2;
   constexpr int DC = PV::kDC;  // output columns per thread in P.V
@@ -344,8 +348,10 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int valid = kv_valid[b];
   const long long row = slots != nullptr ? static_cast<long long>(slots[b])
                                          : static_cast<long long>(b);
+  // the last position query i sees: its own (causal) or the row's last
+  auto limit = [&](int i) { return causal ? valid - sq + i : valid - 1; };
   // the tile's last row sets how far its blocks must read
-  const int kv_end = max(0, min(skv, valid - sq + (r0 + rn - 1) / group + 1));
+  const int kv_end = max(0, min(skv, limit((r0 + rn - 1) / group) + 1));
   const int n_live = (kv_end + kSplit - 1) / kSplit;
   const int tile_id = bh * n_tiles + tile;
   int* flags = sync + 1 + static_cast<long long>(tile_id) * n_split;
@@ -414,7 +420,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   for (int vv = 0; vv < 4; ++vv) {
     if (vv >= nv) continue;
     const int r = rq + 8 * vv;
-    lim[vv] = min(valid - sq + (r0 + r) / group, skv - 1) - j_begin;
+    lim[vv] = min(limit((r0 + r) / group), skv - 1) - j_begin;
     float mx = kNegInf;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -566,7 +572,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* kv_valid, const void* slots, void* out,
            void* part, void* sync, int b, int sq, int hq, int hkv, int skv, long long layer,
            long long s_layer, long long s_row, long long s_seq, long long s_head,
-           long long sc_layer, long long sc_row, float scale, cudaStream_t stream) {
+           long long sc_layer, long long sc_row, float scale, int causal,
+           cudaStream_t stream) {
   const int n_tiles = (sq * (hq / hkv) + kTileRows - 1) / kTileRows;
   const int n_split = (skv + kSplit - 1) / kSplit;
   const long long n_part = static_cast<long long>(b) * hkv * n_tiles * n_split;
@@ -597,7 +604,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
       static_cast<const __nv_bfloat16*>(q), kl, vl, ksl, vsl,
       static_cast<const int*>(kv_valid), static_cast<const int*>(slots),
       static_cast<__nv_bfloat16*>(out), part_acc, part_ml, part_lm, static_cast<int*>(sync),
-      n_split, n_tiles, sq, hq, hkv, skv, s_row, s_seq, s_head, sc_row, scale);
+      n_split, n_tiles, sq, hq, hkv, skv, s_row, s_seq, s_head, sc_row, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -606,25 +613,26 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const void* kv_valid, const void* slots, void* out,
              void* part, void* sync, int b, int sq, int hq, int hkv, int d, int skv,
              long long layer, long long s_layer, long long s_row, long long s_seq,
-             long long s_head, long long sc_layer, long long sc_row, float scale, void* stream) {
+             long long s_head, long long sc_layer, long long sc_row, float scale, int causal,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
       return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, st);
+                            sc_row, scale, causal, st);
     case 64:
       return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, st);
+                            sc_row, scale, causal, st);
     case 96:
       return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, st);
+                            sc_row, scale, causal, st);
     case 128:
       return launch<128, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
                              sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                             sc_row, scale, st);
+                             sc_row, scale, causal, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -646,18 +654,19 @@ extern "C" void verify_attn_scratch(int b, int sq, int hq, int hkv, int d, int s
 
 // Plain C entry points (loaded with ctypes). slots == nullptr selects the
 // dense layout (row b of the cache for batch entry b). part and sync are
-// the scratch verify_attn_scratch sizes. Each returns the CUDA error code of
-// the launch (0 on success).
+// the scratch verify_attn_scratch sizes. causal != 0 selects the causal-offset
+// mask, 0 the non-causal one (every j < kv_valid). Each returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int verify_attn_bf16(const void* q, const void* k, const void* v,
                                 const void* kv_valid, const void* slots, void* out,
                                 void* part, void* sync,
                                 int b, int sq, int hq, int hkv, int d, int skv,
                                 long long layer, long long s_layer, long long s_row,
-                                long long s_seq, long long s_head, float scale,
+                                long long s_seq, long long s_head, float scale, int causal,
                                 void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, slots, out, part, sync,
                                  b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, 0,
-                                 0, scale, stream);
+                                 0, scale, causal, stream);
 }
 
 // int8 K/V with (L, rows, Hkv) f32 scale leaves: sc_layer / sc_row are their
@@ -669,9 +678,9 @@ extern "C" int verify_attn_int8(const void* q, const void* k, const void* v,
                                 int b, int sq, int hq, int hkv, int d, int skv,
                                 long long layer, long long s_layer, long long s_row,
                                 long long s_seq, long long s_head, long long sc_layer,
-                                long long sc_row, float scale, void* stream) {
+                                long long sc_row, float scale, int causal, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<int8_t>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b, sq,
                           hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                          sc_row, scale, stream);
+                          sc_row, scale, causal, stream);
 }

@@ -10,6 +10,10 @@ An int8 cache comes with its scale leaves in the cache's own layout,
 (rows, Hkv) or stacked (L, rows, Hkv) with ``layer``; the kernel reads
 them by the same (layer, row) addressing as the K/V rows, the plain
 version selects the rows it needs first.
+
+``causal=False`` (the encdec family's encoder and cross-attention) lets
+every query row see every position below its ``kv_valid``; the kernel
+takes it as a flag and counts such launches under their own names.
 """
 from __future__ import annotations
 
@@ -34,14 +38,16 @@ def verify_attention(
     block_k: int = 64,
     k_scale: Optional[torch.Tensor] = None,  # int8 cache: (B, Hkv) f32, or (L, B, Hkv)
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """SLED verification attention over a dense cache (see verify_attn.cu)."""
     if q.is_cuda:
         return verify_attn.verify_attention_packed(q, k, v, kv_valid, layer=layer,
-                                                   k_scale=k_scale, v_scale=v_scale)
+                                                   k_scale=k_scale, v_scale=v_scale,
+                                                   causal=causal)
     return ref.verify_attention_ref(q, _layer(k, layer), _layer(v, layer), kv_valid,
                                     block_k=block_k, k_scale=_layer(k_scale, layer),
-                                    v_scale=_layer(v_scale, layer))
+                                    v_scale=_layer(v_scale, layer), causal=causal)
 
 
 def verify_attention_paged(
@@ -55,14 +61,16 @@ def verify_attention_paged(
     block_k: int = 64,
     k_scale: Optional[torch.Tensor] = None,  # int8 pool: (n_slots+1, Hkv) f32, or stacked
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Slot-indexed verification attention straight out of the cache pool."""
     if q.is_cuda:
         return verify_attn.verify_attention_paged(q, k_pool, v_pool, slots, kv_valid,
-                                                  layer=layer, k_scale=k_scale, v_scale=v_scale)
+                                                  layer=layer, k_scale=k_scale, v_scale=v_scale,
+                                                  causal=causal)
     return ref.verify_attention_paged_ref(
         q, _layer(k_pool, layer), _layer(v_pool, layer), slots, kv_valid, block_k=block_k,
-        k_scale=_layer(k_scale, layer), v_scale=_layer(v_scale, layer),
+        k_scale=_layer(k_scale, layer), v_scale=_layer(v_scale, layer), causal=causal,
     )
 
 

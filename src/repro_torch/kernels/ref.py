@@ -11,6 +11,11 @@ chunk as ``(int8 -> f32 * scale) -> bf16``, the rounding of the JAX
 package's ``kv_dequant``. With ``block_k`` equal to the model's
 ``attn_chunk`` they follow the JAX serving path step for step.
 
+``causal=False`` (the encoder's self-attention and cross-attention) lets
+every query row see every position ``j < kv_valid`` (and ``j < Skv``), as
+the JAX package's ``flash_attention(causal=False)`` does, in the same
+chunk order.
+
 SSD scan (``kernels/csrc/ssd_scan.cu``): the chunked Mamba2 scan in f32,
 the arithmetic of the JAX package's Pallas ``ssd_scan._kernel`` and of its
 XLA ``mamba2.ssd_chunked`` (which pads a ragged last chunk with zeros; a
@@ -47,6 +52,15 @@ def dequant(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
     return (x.float() * scale[:, None, :, None].float()).to(torch.bfloat16)
 
 
+def query_limits(kv_valid: torch.Tensor, Sq: int, causal: bool, device) -> torch.Tensor:
+    """(B, Sq) the last position each query row sees: kv_valid - Sq + i
+    (query i's own position) when causal, else kv_valid - 1 for every row."""
+    kv = kv_valid.to(device, torch.int64)[:, None]
+    if causal:
+        return kv - Sq + torch.arange(Sq, device=device)[None]
+    return (kv - 1).expand(-1, Sq)
+
+
 def verify_attention_ref(
     q: torch.Tensor,         # (B, Sq, Hq, D) - the verify tokens' queries
     k: torch.Tensor,         # (B, Skv, Hkv, D) cache (buffer index == position)
@@ -57,9 +71,11 @@ def verify_attention_ref(
     block_k: int = 64,
     k_scale: Optional[torch.Tensor] = None,  # (B, Hkv) f32, for an int8 cache
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Causal-offset attention: query i sits at position kv_valid - Sq + i,
-    and sees positions j <= kv_valid - Sq + i with j < Skv. An int8 cache
+    and sees positions j <= kv_valid - Sq + i with j < Skv; with
+    ``causal=False`` every query sees every j < kv_valid. An int8 cache
     takes its per-(row, head) dequant scales."""
     if k.dtype == torch.int8 and (k_scale is None or v_scale is None):
         raise ValueError("an int8 cache needs k_scale and v_scale")
@@ -70,7 +86,7 @@ def verify_attention_ref(
         scale = 1.0 / math.sqrt(D)
     dev = q.device
     qg = q.reshape(B, Sq, Hkv, G, D).float()
-    q_pos = kv_valid.to(dev, torch.int64)[:, None] - Sq + torch.arange(Sq, device=dev)[None]
+    q_pos = query_limits(kv_valid, Sq, causal, dev)
     kv_end = min(Skv, int(kv_valid.max()))  # chunks past every row's limit add nothing
     m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
@@ -111,6 +127,7 @@ def verify_attention_split_ref(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """The CUDA kernel's decomposition (tests only): the cache in fixed
     ``split``-position splits, each computed on its own once the splits
@@ -130,7 +147,7 @@ def verify_attention_split_ref(
         scale = 1.0 / math.sqrt(D)
     dev = q.device
     qg = q.reshape(B, Sq, Hkv, G, D).float()
-    q_pos = kv_valid.to(dev, torch.int64)[:, None] - Sq + torch.arange(Sq, device=dev)[None]
+    q_pos = query_limits(kv_valid, Sq, causal, dev)
     kv_end = min(Skv, int(kv_valid.max()))
     splits = []  # per split: (masked S, visible, V rows), as every split computes them at once
     for j0 in range(0, kv_end, split):
@@ -171,6 +188,7 @@ def verify_attention_paged_ref(
     block_k: int = 64,
     k_scale: Optional[torch.Tensor] = None,  # (n_slots+1, Hkv) f32, int8 pool
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Pool-indexed version: gather the scheduled rows (and an int8 pool's
     scales), then dense attention. The gather is the traffic the kernel
@@ -183,7 +201,7 @@ def verify_attention_paged_ref(
     vs = v_scale[idx] if v_scale is not None else None
     return verify_attention_ref(
         q, k_pool[idx], v_pool[idx], kv_valid, scale=scale, block_k=block_k,
-        k_scale=ks, v_scale=vs,
+        k_scale=ks, v_scale=vs, causal=causal,
     )
 
 

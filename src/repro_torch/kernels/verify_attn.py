@@ -6,8 +6,13 @@ over a bf16 cache or an int8 cache with its per-(row, head) f32 scales.
 They take CUDA tensors only; ``kernels/ops.py`` routes CPU tensors to the
 plain versions in ``kernels/ref.py``. Each wrapper adds one to
 ``LAUNCHES[<its name>]`` per kernel launch and nowhere else (an int8 cache
-counts under ``<name>_int8``), so a run can show which kernels its path went
+counts under ``<name>_int8``, a non-causal call, ``causal=False``, under
+``<name>_noncausal``), so a run can show which kernels its path went
 through.
+
+``causal=False`` is the encdec family's case: the encoder's self-attention
+over fresh K/V and cross-attention over the ``cross_k``/``cross_v`` leaves,
+where every query row sees every position below its ``kv_valid``.
 
 The cache may be handed over as the model's stacked buffer
 (L, rows, Skv, Hkv, D) with a ``layer`` index, and an int8 cache's scales as
@@ -34,8 +39,8 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = {
-    "verify_attention_packed": 0, "verify_attention_paged": 0,
-    "verify_attention_packed_int8": 0, "verify_attention_paged_int8": 0,
+    f"verify_attention_{entry}{kv}{mask}": 0
+    for entry in ("packed", "paged") for kv in ("", "_int8") for mask in ("", "_noncausal")
 }
 HEAD_DIMS = (16, 64, 96, 128)  # 16: the reduced configs; the rest: the published ones
 
@@ -44,13 +49,13 @@ _ARGTYPES = {
         [ctypes.c_void_p] * 8       # q, k, v, kv_valid, slots, out, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
         + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
-        + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
     ),
     "verify_attn_int8": (
         [ctypes.c_void_p] * 10      # q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
         + [ctypes.c_longlong] * 7   # layer, s_layer, s_row, s_seq, s_head, sc_layer, sc_row
-        + [ctypes.c_float, ctypes.c_void_p]  # scale, stream
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
     ),
     "verify_attn_scratch": (
         [ctypes.c_int] * 6                               # B, Sq, Hq, Hkv, D, Skv
@@ -162,7 +167,8 @@ def _check_scales(k, k_scale, v_scale) -> None:
         raise ValueError("k_scale and v_scale must share one layout")
 
 
-def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale) -> torch.Tensor:
+def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale,
+            causal) -> torch.Tensor:
     _check(q, k, v, kv_valid, slots, k_scale, v_scale)
     li, s_layer = _cache_view(k, layer)
     B, Sq, Hq, D = q.shape
@@ -182,13 +188,15 @@ def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale) -> t
             rc = _function("verify_attn_int8")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
                 v_scale.data_ptr(), kv_valid.data_ptr(), slot_ptr, out.data_ptr(), *scratch,
-                *common, sc_layer, k_scale.stride(-2), float(scale), stream,
+                *common, sc_layer, k_scale.stride(-2), float(scale), int(causal), stream,
             )
         else:
             rc = _function("verify_attn_bf16")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), slot_ptr,
-                out.data_ptr(), *scratch, *common, float(scale), stream,
+                out.data_ptr(), *scratch, *common, float(scale), int(causal), stream,
             )
+    if not causal:
+        name += "_noncausal"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
@@ -205,12 +213,13 @@ def verify_attention_packed(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,  # int8 cache: (B, Hkv) f32, or (L, B, Hkv)
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Dense verification attention: batch entry b attends cache row b."""
     if k.shape[-4] != q.shape[0]:
         raise ValueError(f"cache has {k.shape[-4]} rows for a batch of {q.shape[0]}")
     return _launch("verify_attention_packed", q, k, v, kv_valid, None, layer, scale,
-                   k_scale, v_scale)
+                   k_scale, v_scale, causal)
 
 
 def verify_attention_paged(
@@ -224,9 +233,10 @@ def verify_attention_paged(
     scale: Optional[float] = None,
     k_scale: Optional[torch.Tensor] = None,  # int8 pool: (n_slots+1, Hkv) f32, or stacked
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
     """Slot-indexed verification attention straight out of the cache pool.
     Slot ids are not range-checked on the device (that would cost a sync);
     callers pass rows of the pool they own."""
     return _launch("verify_attention_paged", q, k_pool, v_pool, kv_valid, slots, layer, scale,
-                   k_scale, v_scale)
+                   k_scale, v_scale, causal)

@@ -1,17 +1,22 @@
 """Transformer layers: norms, RoPE, verification attention, MLP, MoE.
 
-The port of ``repro.models.layers`` for the dense, vlm and moe families. The
-modules hold their weights in the JAX package's ``(in, out)`` layout and
-run them as ``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
+The port of ``repro.models.layers`` for the dense, vlm, moe and encdec
+families (and the hybrid family's shared block). The modules hold their
+weights in the JAX package's ``(in, out)`` layout and run them as
+``x @ w``, so bridged weights need no transpose. Each op rounds to bf16
 where the JAX serving path does (f32 inside the norms and RoPE; bf16 after
 each projection), so the CPU path follows the XLA path to within summation
 order.
 
 Attention runs against a cache whose buffer index is the absolute position.
-Every attention call on the serving path has the verification kernels'
+Every self-attention call of a decoder has the verification kernels'
 semantics: query i of S fresh tokens sits at ``kv_valid - S + i`` with
-``kv_valid = cache_len + S``. ``flash_attention`` dispatches on the device:
-CUDA tensors run the Hopper kernels (``kernels/csrc/verify_attn.cu``), CPU
+``kv_valid = cache_len + S``. The encdec family adds two non-causal forms
+(``causal=False``: every query sees every position below ``kv_valid``):
+the encoder's cache-free self-attention (``Attention.encode``) and the
+decoder's cross-attention over the ``cross_k``/``cross_v`` cache leaves
+(``Attention.cross``). ``flash_attention`` dispatches on the device: CUDA
+tensors run the Hopper kernels (``kernels/csrc/verify_attn.cu``), CPU
 tensors their plain versions.
 
 An int8 cache (``kv_dtype="int8"``) stores K/V with a symmetric scale per
@@ -72,13 +77,23 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """The JAX package's rounding points: f32 mean, the variance of x - mu,
+    rsqrt(var + eps), scale and bias in f32, one cast back."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
+
+
 def apply_norm(x: torch.Tensor, norm: "RMSNorm", kind: str) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported yet: the encdec family's layernorm "
-            "(ROADMAP.md Queue A, 'Other model families')"
-        )
-    return rmsnorm(x, norm.scale)
+    """``rmsnorm`` for ``kind="rmsnorm"``, else ``layernorm`` (as in JAX)."""
+    if kind == "rmsnorm":
+        return rmsnorm(x, norm.scale)
+    return layernorm(x, norm.scale, norm.bias)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -100,22 +115,25 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def flash_attention(
     q: torch.Tensor,         # (B, Sq, Hq, D)
-    k: torch.Tensor,         # stacked cache (L, rows, Skv, Hkv, D)
+    k: torch.Tensor,         # stacked (L, rows, Skv, Hkv, D); (rows, Skv, Hkv, D) without layer
     v: torch.Tensor,
     kv_valid: torch.Tensor,  # (B,) int32, incl. the Sq fresh rows
     *,
-    layer: int,
+    layer: Optional[int],
     chunk: int,
     slots: Optional[torch.Tensor] = None,  # (B,) pool rows; None: row b
     k_scale: Optional[torch.Tensor] = None,  # int8 cache: stacked (L, rows, Hkv) f32
     v_scale: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Verification attention over layer ``layer`` of the stacked cache.
+    """Verification attention over layer ``layer`` of the stacked cache (or
+    over ``k``/``v`` themselves when ``layer`` is None); ``causal=False``
+    lets every query see every position below its ``kv_valid``.
 
     ``chunk`` is the model's ``attn_chunk``: the plain (CPU) version walks the
     cache in chunks of that size, as the JAX package's XLA path does, so the
     two agree to within summation order."""
-    kw = dict(layer=layer, block_k=chunk, k_scale=k_scale, v_scale=v_scale)
+    kw = dict(layer=layer, block_k=chunk, k_scale=k_scale, v_scale=v_scale, causal=causal)
     if slots is not None:
         return ops.verify_attention_paged(q, k, v, slots, kv_valid, **kw)
     return ops.verify_attention(q, k, v, kv_valid, **kw)
@@ -175,6 +193,21 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device),
                                   requires_grad=False)
+        self.register_parameter("bias", None)  # a layernorm's (LayerNorm)
+
+
+class LayerNorm(RMSNorm):
+    """The layernorm's f32 ``scale`` (ones) and ``bias`` (zeros)."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__(d, device=device)
+        self.bias = nn.Parameter(torch.zeros(d, dtype=torch.float32, device=device),
+                                 requires_grad=False)
+
+
+def make_norm(cfg, device=None) -> RMSNorm:
+    """The norm ``cfg.norm`` names: RMSNorm for ``"rmsnorm"``, else LayerNorm."""
+    return (RMSNorm if cfg.norm == "rmsnorm" else LayerNorm)(cfg.d_model, device=device)
 
 
 def _weight(*shape, device=None, dtype=torch.bfloat16) -> nn.Parameter:
@@ -218,19 +251,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         B, S, _ = x.shape
         hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        q = x @ self.wq
-        k = x @ self.wk
-        v = x @ self.wv
-        if self.bq is not None:
-            q = q + self.bq
-            k = k + self.bk
-            v = v + self.bv
-        q = q.reshape(B, S, hq, hd)
-        k = k.reshape(B, S, hkv, hd)
-        v = v.reshape(B, S, hkv, hd)
-        if cfg.use_rope:
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
+        q, k, v = self._qkv(x, positions)
         # the cache is updated in place (JAX returned a new buffer): only the
         # B * S fresh rows are written, and stale rows past a row's committed
         # length are masked by kv_valid, so rollback stays a length change
@@ -245,6 +266,53 @@ class Attention(nn.Module):
         out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots,
                               k_scale=k_scale, v_scale=v_scale)
         return out.reshape(B, S, hq * hd) @ self.wo
+
+    def _query(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        q = x @ self.wq
+        if self.bq is not None:
+            q = q + self.bq
+        return q.reshape(x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim)
+
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """q (B, S, Hq, D), k and v (B, S, Hkv, D) of x, biased and, with
+        RoPE, rotated at ``positions``."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q = self._query(x)
+        k = x @ self.wk
+        v = x @ self.wv
+        if self.bk is not None:
+            k = k + self.bk
+            v = v + self.bv
+        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def encode(self, x: torch.Tensor, positions: torch.Tensor, *, chunk: int) -> torch.Tensor:
+        """The cache-free, non-causal form (the encdec family's encoder):
+        fresh K/V of all F rows, every row seeing all of them."""
+        B, F, _ = x.shape
+        q, k, v = self._qkv(x, positions)
+        kv_valid = torch.full((B,), F, dtype=torch.int32, device=x.device)
+        out = flash_attention(q, k, v, kv_valid, layer=None, chunk=chunk, causal=False)
+        return out.reshape(B, F, -1) @ self.wo
+
+    def cross(self, x: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor, *,
+              layer: int, chunk: int, slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The decoder's cross-attention: q = x wq + bq (no RoPE), K/V layer
+        ``layer`` of the stacked cross leaves (L, rows, F, Hkv, D), rows b or
+        pool rows ``slots``, non-causal over all F frames. The leaves were
+        projected without ``bk``/``bv``, as in JAX."""
+        B, S, _ = x.shape
+        q = self._query(x)
+        kv_valid = torch.full((B,), cross_k.shape[2], dtype=torch.int32, device=x.device)
+        out = flash_attention(q, cross_k, cross_v, kv_valid, layer=layer, chunk=chunk,
+                              slots=slots, causal=False)
+        return out.reshape(B, S, -1) @ self.wo
 
     @staticmethod
     def _quantize_append(k, v, cache_len, k_scale, v_scale, layer, slots):

@@ -5,16 +5,17 @@
 ``hybrid.Hybrid`` module) as their first argument, as the JAX package's
 ``Model`` takes its parameter pytree:
 
-  init_params(generator)                 -> params on the generator's device
+  init_params(generator, max_pos=0)      -> params on the generator's device
   lm_head(params, hidden)                -> logits f32
   make_cache(batch, max_len, device=...) -> cache dict
   prefill(params, tokens, cache)         -> (last logits, cache)
   decode_forward(params, cache, toks)    -> (hidden, cache)   [verify]
   commit(cache, n_commit)                -> cache  [speculative rollback]
 
-The dense, vlm, moe, ssm and hybrid families are ported so far. The vlm
-family's stub frontend enters ``prefill`` as ``embeds_prefix``
-(``frontend_stub``), as in the JAX package.
+Every family of the JAX package is ported: dense, vlm, moe, encdec, ssm
+and hybrid. The stub frontends (``frontend_stub``) enter ``prefill`` as in
+the JAX package: the vlm family's patches as ``embeds_prefix``, the encdec
+family's frames as ``enc_frames``.
 """
 from __future__ import annotations
 
@@ -47,20 +48,15 @@ def _attn_commit(cache, n_commit: torch.Tensor):
 
 
 def build_model(cfg) -> Model:
-    if cfg.family in ("dense", "vlm", "moe"):
-        mod, commit = T, _attn_commit
-    elif cfg.family == "ssm":
+    if cfg.family == "ssm":
         mod, commit = M2, M2.select_checkpoint
     elif cfg.family == "hybrid":
         mod, commit = HY, HY.select_checkpoint
-    else:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet: the encdec family "
-            "(ROADMAP.md Queue A, 'Other model families')"
-        )
+    else:  # dense | vlm | moe | encdec
+        mod, commit = T, _attn_commit
     return Model(
         cfg=cfg,
-        init_params=lambda generator: mod.init_params(cfg, generator),
+        init_params=lambda generator, **kw: mod.init_params(cfg, generator, **kw),
         lm_head=mod.lm_head,
         make_cache=lambda batch, max_len, **kw: mod.make_cache(cfg, batch, max_len, **kw),
         prefill=lambda params, tokens, cache, **kw: mod.prefill(cfg, params, tokens, cache, **kw),
@@ -72,18 +68,17 @@ def build_model(cfg) -> Model:
 
 
 def frontend_stub(cfg, batch: int, generator: torch.Generator) -> Optional[torch.Tensor]:
-    """The vlm family's stub frontend: (batch, num_patches, d) bf16 patch
-    embeddings, N(0, 1) * 0.02 drawn in f32 from ``generator`` on its
-    device (the JAX stub's distribution; the draws differ). None for a
-    family without a frontend."""
+    """The stub frontends: the encdec family's (batch, encoder_seq, d) frame
+    embeddings, the vlm family's (batch, num_patches, d) patch embeddings;
+    bf16, N(0, 1) * 0.02 drawn in f32 from ``generator`` on its device (the
+    JAX stub's distribution; the draws differ). None for a family without
+    a frontend."""
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            "the encdec family's frame frontend is not ported yet "
-            "(ROADMAP.md Queue A, 'Other model families')"
-        )
-    if cfg.family != "vlm":
+        shape = (batch, cfg.encoder_seq, cfg.d_model)
+    elif cfg.family == "vlm":
+        shape = (batch, cfg.num_patches, cfg.d_model)
+    else:
         return None
-    shape = (batch, cfg.num_patches, cfg.d_model)
     draws = torch.randn(shape, generator=generator, device=generator.device)
     return (draws * 0.02).to(torch.bfloat16)
 

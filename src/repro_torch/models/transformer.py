@@ -1,6 +1,6 @@
-"""Decoder-only transformer (dense, vlm, moe): init, cache, prefill, SLED verify.
+"""Transformer (dense, vlm, moe, encdec): init, cache, prefill, SLED verify.
 
-The port of ``repro.models.transformer`` for the dense, vlm and moe
+The port of ``repro.models.transformer`` for the dense, vlm, moe and encdec
 families. The same ``decode_forward`` serves prefill (S = prompt length,
 cache_len = 0), the draft's one-token steps and SLED verification (S = K
 draft tokens + 1, cache_len = committed length), on a dense cache or, with
@@ -10,6 +10,17 @@ dropped, as the JAX engine drops it: serving reads the hidden states only.
 The vlm family (llava-next) is its dense backbone; its stub frontend's patch
 embeddings (``model_zoo.frontend_stub``) enter ``prefill`` as
 ``embeds_prefix`` and take the first P positions of the cache.
+
+The encdec family (whisper-tiny) adds a bidirectional encoder over stub
+frame embeddings (``encode``), learned position tables (``pos_embed``, no
+RoPE; a position past the decoder table's end takes its last row, as
+JAX's gather clamps) and, in each decoder block, cross-attention between
+self-attention and the MLP. ``prefill(enc_frames=)`` encodes the frames
+once and stores every layer's cross K/V (the shared encoder output times
+that layer's ``xattn.wk``/``wv``, without their biases, as in JAX) in the
+cache leaves ``cross_k``/``cross_v`` (L, B, F, Hkv, D), bf16 whatever the
+self-attention cache's dtype; ``decode_forward`` reads them, densely or
+through ``slots`` from a PagedKVCache pool, non-causally over all F frames.
 """
 from __future__ import annotations
 
@@ -23,14 +34,19 @@ from repro_torch.models.kvcache import init_kv_cache
 
 
 class Block(nn.Module):
-    """A pre-norm block: attention, then the MLP (``mlp``) or, for the moe
-    family, the routed experts (``moe``)."""
+    """A pre-norm block: attention, with ``cross`` (an encdec decoder layer)
+    a cross-attention (``ln_x``, ``xattn``), then the MLP (``mlp``) or, for
+    the moe family, the routed experts (``moe``). The norms are
+    ``cfg.norm``'s."""
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, cross: bool = False):
         super().__init__()
-        self.ln1 = L.RMSNorm(cfg.d_model, device=device)
+        self.ln1 = L.make_norm(cfg, device=device)
         self.attn = L.Attention(cfg, device=device)
-        self.ln2 = L.RMSNorm(cfg.d_model, device=device)
+        if cross:
+            self.ln_x = L.make_norm(cfg, device=device)
+            self.xattn = L.Attention(cfg, device=device)
+        self.ln2 = L.make_norm(cfg, device=device)
         if cfg.family == "moe":
             self.moe = L.MoE(cfg, device=device)
         else:
@@ -46,7 +62,7 @@ class CausalLM(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed = L._weight(cfg.vocab_size, cfg.d_model, device=device)
-        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.final_norm = L.make_norm(cfg, device=device)
         self.lm_head_w = None if cfg.tie_embeddings else L._weight(cfg.d_model, cfg.vocab_size, device=device)
         self._head_f32: Tuple[int, Optional[torch.Tensor]] = (-1, None)
 
@@ -75,39 +91,66 @@ class CausalLM(nn.Module):
         return cached
 
 
-class Transformer(CausalLM):
-    """Weights of one dense, vlm or moe model: the shared embedding, norm
-    and head, and the per-layer blocks (the JAX stack's leading L axis
-    unrolled into a ModuleList)."""
+class Encoder(nn.Module):
+    """The encdec family's encoder: a learned position table ``pos_embed``
+    (encoder_seq, d), ``encoder_layers`` blocks and ``final_norm``."""
 
     def __init__(self, cfg, device=None):
-        if cfg.family not in ("dense", "vlm", "moe"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: the encdec family "
-                "(ROADMAP.md Queue A, 'Other model families')"
-            )
+        super().__init__()
+        self.pos_embed = L._weight(cfg.encoder_seq, cfg.d_model, device=device)
+        self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.encoder_layers))
+        self.final_norm = L.make_norm(cfg, device=device)
+
+
+class Transformer(CausalLM):
+    """Weights of one dense, vlm, moe or encdec model: the shared embedding,
+    norm and head, and the per-layer blocks (the JAX stack's leading L axis
+    unrolled into a ModuleList); without RoPE the learned position table
+    ``pos_embed`` (max(max_pos, 1), d), and for encdec the ``enc`` encoder
+    and a cross-attention in every decoder block."""
+
+    def __init__(self, cfg, device=None, max_pos: int = 0):
         super().__init__(cfg, device=device)
-        self.layers = nn.ModuleList(Block(cfg, device=device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(Block(cfg, device=device, cross=cfg.is_encdec)
+                                    for _ in range(cfg.num_layers))
+        self.pos_embed = (None if cfg.use_rope
+                          else L._weight(max(max_pos, 1), cfg.d_model, device=device))
+        self.enc = Encoder(cfg, device=device) if cfg.is_encdec else None
 
 
-def init_params(cfg, generator: torch.Generator) -> Transformer:
+def _init_block_(blk: Block, cfg, gen: torch.Generator) -> None:
+    L.init_attention_(blk.attn, cfg, gen)
+    if hasattr(blk, "xattn"):
+        L.init_attention_(blk.xattn, cfg, gen)
+    if cfg.family == "moe":
+        L.init_moe_(blk.moe, cfg, gen)
+    else:
+        L.init_mlp_(blk.mlp, cfg, gen)
+
+
+def init_params(cfg, generator: torch.Generator, *, max_pos: int = 0) -> Transformer:
     """Seeded random weights with the JAX package's distributions (the draws
     differ from ``jax.random``'s; tests bridge JAX weights in instead). The
-    model lives on the generator's device."""
+    model lives on the generator's device. ``max_pos`` sizes the learned
+    position table of a model without RoPE, as in JAX."""
     dev = generator.device
-    model = Transformer(cfg, device=dev)
+
+    def normal_(w: torch.Tensor, std: float) -> None:
+        w.copy_(torch.randn(w.shape, generator=generator, device=dev) * std)
+
+    model = Transformer(cfg, device=dev, max_pos=max_pos)
     with torch.no_grad():
-        model.embed.copy_(torch.randn(model.embed.shape, generator=generator, device=dev) * 0.02)
+        normal_(model.embed, 0.02)
         for blk in model.layers:
-            L.init_attention_(blk.attn, cfg, generator)
-            if cfg.family == "moe":
-                L.init_moe_(blk.moe, cfg, generator)
-            else:
-                L.init_mlp_(blk.mlp, cfg, generator)
+            _init_block_(blk, cfg, generator)
         if model.lm_head_w is not None:
-            model.lm_head_w.copy_(
-                torch.randn(model.lm_head_w.shape, generator=generator, device=dev) * 0.02
-            )
+            normal_(model.lm_head_w, 0.02)
+        if model.pos_embed is not None:
+            normal_(model.pos_embed, 0.01)
+        if model.enc is not None:
+            normal_(model.enc.pos_embed, 0.01)
+            for blk in model.enc.layers:
+                _init_block_(blk, cfg, generator)
     return model
 
 
@@ -124,12 +167,14 @@ KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
 
 
 def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
-               kv_dtype: str = "bf16") -> Dict[str, torch.Tensor]:
+               kv_dtype: str = "bf16", enc_len: int = 0) -> Dict[str, torch.Tensor]:
     """Cache buffer rounded up to a multiple of the attention chunk.
 
     ``kv_dtype="int8"`` halves the K/V bytes and adds the per-(layer, row,
     KV head) dequant scales ``k_scale``/``v_scale`` (L, batch, Hkv) f32,
-    fixed at prefill (``layers.kv_fresh_scale``)."""
+    fixed at prefill (``layers.kv_fresh_scale``). An encdec model's cache
+    also holds the bf16 cross leaves ``cross_k``/``cross_v`` (L, batch,
+    enc_len or encoder_seq, Hkv, D), zeros until a prefill fills them."""
     if kv_dtype not in KV_DTYPES:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r} (one of {sorted(KV_DTYPES)})")
     max_len = -(-max_len // attn_chunk) * attn_chunk
@@ -139,6 +184,11 @@ def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
         shape = (cfg.num_layers, batch, cfg.num_kv_heads)
         cache["k_scale"] = torch.ones(shape, dtype=torch.float32, device=device)
         cache["v_scale"] = torch.ones(shape, dtype=torch.float32, device=device)
+    if cfg.is_encdec:
+        shape = (cfg.num_layers, batch, enc_len or cfg.encoder_seq, cfg.num_kv_heads,
+                 cfg.head_dim)
+        cache["cross_k"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        cache["cross_v"] = torch.zeros(shape, dtype=torch.bfloat16, device=device)
     return cache
 
 
@@ -168,6 +218,9 @@ def decode_forward(
 
     ``embeds`` (the vlm prefill's patches and token embeddings) stands in
     for the embedding of ``tokens``; the positions follow its rows.
+
+    An encdec cache's ``cross_k``/``cross_v`` leaves feed every layer's
+    cross-attention (rows b, or pool rows ``slots``), over all their frames.
     """
     x = L.embed_lookup(params.embed, tokens) if embeds is None else embeds.to(torch.bfloat16)
     B, S, _ = x.shape
@@ -180,12 +233,21 @@ def decode_forward(
         cache_len = cache["length"][slots.long()]
         write = L.CacheWrite.slots(cache_len, slots, S, s_max)
     positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    if params.pos_embed is not None:
+        x = x + learned_positions(params.pos_embed, positions)
     kv_valid = cache_len + S
+    cross = (cache["cross_k"], cache["cross_v"]) if cfg.is_encdec else None
     for li, blk in enumerate(params.layers):
         x = block_forward(cfg, blk, x, positions, ck, cv, kv_valid, write, layer=li,
                           chunk=attn_chunk, slots=slots, k_scale=cache.get("k_scale"),
-                          v_scale=cache.get("v_scale"))
+                          v_scale=cache.get("v_scale"), cross=cross)
     return L.apply_norm(x, params.final_norm, cfg.norm), cache
+
+
+def learned_positions(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Rows ``positions`` of a learned position table; a position past its
+    end takes the last row, as the JAX gather clamps its index."""
+    return table[positions.long().clamp(0, table.shape[0] - 1)]
 
 
 def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
@@ -193,13 +255,24 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                   write: L.CacheWrite, *, layer: int, chunk: int,
                   slots: Optional[torch.Tensor] = None,
                   k_scale: Optional[torch.Tensor] = None,
-                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  v_scale: Optional[torch.Tensor] = None,
+                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """One pre-norm block against layer ``layer`` of the stacked cache: the
-    dense and moe families' layers, and the hybrid family's shared block at
-    each of its applications."""
+    dense, moe and encdec families' decoder layers (``cross``: the stacked
+    cross leaves), and the hybrid family's shared block at each of its
+    applications."""
     h = L.apply_norm(x, blk.ln1, cfg.norm)
     a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=layer, chunk=chunk, slots=slots,
                  k_scale=k_scale, v_scale=v_scale)
+    if cross is not None:  # x + a in f32 for ln_x, as for ln2 below
+        x_mid = x.float() + a.float()
+        h = L.apply_norm(x_mid, blk.ln_x, cfg.norm).to(x.dtype)
+        x = x_mid.to(x.dtype)
+        a = blk.xattn.cross(h, cross[0], cross[1], layer=layer, chunk=chunk, slots=slots)
+    return _mlp_residual(cfg, blk, x, a)
+
+
+def _mlp_residual(cfg, blk: Block, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     # the JAX path's compiled block keeps x + a in f32 for the second norm
     # and rounds it to bf16 only for the MLP residual; mirroring that keeps
     # the CPU path bit-exact with it
@@ -207,6 +280,33 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
     h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
     m = L.moe_block(h, blk.moe, cfg)[0] if cfg.family == "moe" else blk.mlp(h)
     return x_mid.to(x.dtype) + m
+
+
+def encode(cfg, params: Transformer, frames: torch.Tensor, *,
+           attn_chunk: int = 1024) -> torch.Tensor:
+    """The encdec family's bidirectional encoder over stub frame embeddings
+    (B, F, d), F <= encoder_seq: frames cast to bf16 plus the first F rows
+    of ``enc.pos_embed``, each block's self-attention non-causal over all F
+    frames, then the encoder's final norm."""
+    enc = params.enc
+    B, F, _ = frames.shape
+    x = frames.to(torch.bfloat16) + enc.pos_embed[None, :F]
+    positions = torch.arange(F, dtype=torch.int32, device=x.device)[None].expand(B, F)
+    for blk in enc.layers:
+        h = L.apply_norm(x, blk.ln1, cfg.norm)
+        x = _mlp_residual(cfg, blk, x, blk.attn.encode(h, positions, chunk=attn_chunk))
+    return L.apply_norm(x, enc.final_norm, cfg.norm)
+
+
+def cross_kv(cfg, params: Transformer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every decoder layer's cross K and V of the shared encoder output,
+    stacked (L, B, F, Hkv, D): ``enc_out @ xattn.wk`` (and ``wv``), without
+    the biases, as the JAX ``_map_layers_xkv`` projects them."""
+    B, F, _ = enc_out.shape
+    shape = (B, F, cfg.num_kv_heads, cfg.head_dim)
+    ks = [(enc_out @ blk.xattn.wk).reshape(shape) for blk in params.layers]
+    vs = [(enc_out @ blk.xattn.wv).reshape(shape) for blk in params.layers]
+    return torch.stack(ks), torch.stack(vs)
 
 
 def prefill(
@@ -217,10 +317,20 @@ def prefill(
     *,
     attn_chunk: int = 1024,
     embeds_prefix: Optional[torch.Tensor] = None,  # (B, P, d) vlm patch embeddings
+    enc_frames: Optional[torch.Tensor] = None,  # (B, F, d) encdec stub frames
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fill the cache from a prompt; returns (last-position logits, cache).
     An ``embeds_prefix`` goes before the prompt's token embeddings, so the
-    cache's ``length`` grows by P + S_prompt."""
+    cache's ``length`` grows by P + S_prompt. An encdec model encodes
+    ``enc_frames`` and stores each layer's cross K/V as the cache's
+    ``cross_k``/``cross_v`` (shaped by the frames, as in JAX)."""
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: an encdec prefill needs enc_frames, the encoder's "
+                             "(B, F, d) frame embeddings (model_zoo.frontend_stub)")
+        enc_out = encode(cfg, params, enc_frames, attn_chunk=attn_chunk)
+        cks, cvs = cross_kv(cfg, params, enc_out)
+        cache = {**cache, "cross_k": cks, "cross_v": cvs}
     embeds = None
     if embeds_prefix is not None:
         tok = L.embed_lookup(params.embed, tokens)

@@ -11,7 +11,8 @@ numpy seed; bf16 tensors are rounded from f32 by PyTorch (round to nearest
 even). Tolerances are those of tests/test_kernels.py: attention bf16 2e-2;
 the SSD scan bf16 4e-2 for y, f32 3e-3 for the state. The attention
 kernel's batch invariance is exact (bit for bit). The cases at head_dim 96
-and G = 48 hold attention to ``ATTN_TIGHT`` (2e-3, chip_smoke.py's bound).
+and G = 48, and the non-causal case, hold attention to ``ATTN_TIGHT``
+(2e-3, chip_smoke.py's bound).
 """
 import numpy as np
 import pytest
@@ -371,6 +372,53 @@ def test_cuda_attention_at_head_dim_96_and_mqa(paged, Hq, Hkv, D, kv):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
                                rtol=0, atol=ATTN_TIGHT)
     for b in range(6):
+        alone = run(slice(b, b + 1))
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], got[b]), b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [300, 63, 5])
+@pytest.mark.parametrize("paged", [False, True])
+def test_cuda_noncausal_attention_matches_plain_version(paged, Sq):
+    """The non-causal case (``causal=False``: the encdec family's encoder
+    and cross-attention) at whisper-tiny's 6 heads on 6 of 64: 300 rows
+    over 300 fresh positions (an encoder of 300 frames, a ragged last
+    split), 63 rows (a prefill's cross-attention) and 5 (a verify's) over
+    uneven kv_valid (300, 64, 65, 129) and a layer of a stacked cache or
+    pool, within ``ATTN_TIGHT`` of the plain version, each row equal to
+    the same row alone bit for bit, and (with 63 rows or more) the causal
+    result far from it."""
+    dev = _card()
+    rng = np.random.default_rng(71 + Sq)
+    B, H, D, Skv, L = 4, 6, 64, 300, 2
+    kvv = [300, 64, 65, 129]
+    q = _bf16(rng.standard_normal((B, Sq, H, D)), dev)
+    k = _bf16(rng.standard_normal((L, B + 1, Skv, H, D)), dev)
+    v = _bf16(rng.standard_normal((L, B + 1, Skv, H, D)), dev)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    slots = torch.tensor([4, 0, 2, 1], dtype=torch.int32, device=dev)
+
+    def run(b, causal=False):
+        if paged:
+            return verify_attn.verify_attention_paged(q[b], k, v, slots[b], kv_valid[b],
+                                                      layer=1, causal=causal)
+        return verify_attn.verify_attention_packed(q[b], k[:, :B][:, b].contiguous(),
+                                                   v[:, :B][:, b].contiguous(), kv_valid[b],
+                                                   layer=1, causal=causal)
+
+    if paged:
+        want = ref.verify_attention_paged_ref(q, k[1], v[1], slots, kv_valid, causal=False)
+    else:
+        want = ref.verify_attention_ref(q, k[1, :B], v[1, :B], kv_valid, causal=False)
+    got = run(slice(None))
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               rtol=0, atol=ATTN_TIGHT)
+    if Sq > 5:  # the first rows see a few positions when causal, all of kv_valid when not
+        causal = run(slice(None), causal=True)
+        assert (causal.float() - got.float()).abs().max().item() > 10 * ATTN_TOL
+    for b in range(B):
         alone = run(slice(b, b + 1))
         torch.cuda.synchronize()
         assert torch.equal(alone[0], got[b]), b

@@ -288,18 +288,30 @@ def test_prefill_step_with_frontend_equals_jax():
 
 def test_frontend_stub_and_refusals():
     """The port's stub: (B, num_patches, d) bf16 at N(0, 0.02) for vlm, None
-    without a frontend; encdec stays refused, naming 'Other model
-    families', wherever the family is asked for."""
+    without a frontend; encdec (once refused here) builds, stubs its
+    (B, encoder_seq, d) frames and bridges the JAX tree, and
+    ``System.build`` refuses it (a serve carries no encoder frames;
+    tests/test_torch_encdec.py holds the family to JAX)."""
     gen = torch.Generator().manual_seed(0)
     stub = frontend_stub(get_config("llava-next-mistral-7b"), 2, gen)
     assert stub.shape == (2, 576, 4096) and stub.dtype == torch.bfloat16
     assert abs(stub.float().std().item() - 0.02) < 1e-3
     assert frontend_stub(get_config("granite-34b"), 2, gen) is None
-    whisper = _port_cfg(jax_config("whisper-tiny").reduced())
-    for call in (lambda: build_model(whisper), lambda: frontend_stub(whisper, 1, gen),
-                 lambda: bridge.params_from_jax(whisper, {}, device="cpu")):
-        with pytest.raises(NotImplementedError, match="encdec.*Other model families"):
-            call()
+    jwhisper = jax_config("whisper-tiny").reduced()
+    whisper = _port_cfg(jwhisper)
+    params = build_model(whisper).init_params(gen, max_pos=16)
+    assert params.enc is not None and params.pos_embed.shape == (16, whisper.d_model)
+    frames = frontend_stub(whisper, 1, gen)
+    assert frames.shape == (1, whisper.encoder_seq, whisper.d_model)
+    assert frames.dtype == torch.bfloat16
+    jp = jax.jit(functools.partial(jax_build_model(jwhisper).init_params, max_pos=16))(
+        jax.random.key(0))
+    bridged = bridge.params_from_jax(whisper, jax.tree.map(np.asarray, jp), device="cpu")
+    assert sorted(bridged.state_dict()) == sorted(params.state_dict())
+    spec = ServeSpec.from_json(SPEC_JSON)
+    with pytest.raises(ValueError, match="encoder frames"):
+        System.build(dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, arch="whisper-tiny", draft_arch="whisper-tiny")), device="cpu")
     with pytest.raises(ValueError, match="unknown act"):
         L.MLP(dataclasses.replace(get_config("granite-34b").reduced(), act="relu"))
 

@@ -160,11 +160,13 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     kq, ks = (torch.from_numpy(a[None]) for a in _quantize(k))
     ops.verify_attention(_torch(q, "bf16"), kq, kq, torch.from_numpy(kvv), layer=0,
                          k_scale=ks, v_scale=ks)
+    ops.verify_attention(_torch(q, "bf16"), _torch(k, "bf16"), _torch(v, "bf16"),
+                         torch.from_numpy(kvv), causal=False)
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, (1, 16, 2, 8, 8, 8))
     ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, h0)), chunk=8)
     assert set(verify_attn.LAUNCHES) == {
-        "verify_attention_packed", "verify_attention_paged",
-        "verify_attention_packed_int8", "verify_attention_paged_int8",
+        f"verify_attention_{entry}{kv}{mask}" for entry in ("packed", "paged")
+        for kv in ("", "_int8") for mask in ("", "_noncausal")
     }
     assert not any(verify_attn.LAUNCHES.values()) and ssd_scan.LAUNCHES == {"ssd_scan": 0}
 

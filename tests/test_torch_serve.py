@@ -311,7 +311,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.serving.cost_model, repro_torch.tuning, repro_torch.launch.tune\n"
         "import repro_torch.cli, repro_torch.launch.serve, repro_torch.telemetry.top\n"
         "import repro_torch.telemetry.logs, repro_torch.models.hybrid\n"
-        "import repro_torch.configs.zamba2_1_2b\n"
+        "import repro_torch.configs.zamba2_1_2b, repro_torch.configs.whisper_tiny\n"
+        "import repro_torch.checkpoint\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -365,19 +366,45 @@ _KILL = FaultSpec(events=(FaultEvent(kind="kill", replica=0, round=2),))
     {"family": "encdec", "act": "gelu", "tie_embeddings": True},
 ])
 def test_unported_specs_raise_not_implemented(change):
-    """What a later slice serves (the encdec family, whisper-shaped or not:
-    its layernorm, learned positions and gelu MLP) is refused where its
-    model is built, naming ROADMAP.md; every spec the port's configs can
-    name is served (``paged_attention=False`` and the hybrid family:
-    tests/test_torch_hybrid.py; the moe family: tests/test_torch_moe.py;
-    the vlm family and the gelu MLP: tests/test_torch_families.py), as are
-    the cluster and transport backends with in-process or remote replicas,
-    fault schedules and policies, sampling, quantized targets and fleets."""
+    """The encdec specs build and prefill as in JAX. The test keeps the name
+    of the refusal it replaced case for case (the encdec family, whisper-
+    shaped or not, was refused here before it was ported): the reduced
+    qwen2 with ``change`` (an encoder and
+    cross-attention; the encdec family's name alone; its layernorm and
+    learned positions; its gelu MLP with a tied head) builds in the port as
+    in JAX, and on the JAX weights (bridged) the prefill behind 32 stub
+    frames gives JAX's logits (within 2e-3) and greedy argmaxes. Every spec
+    the port's configs can name is served (``paged_attention=False`` and the
+    hybrid family: tests/test_torch_hybrid.py; the moe family:
+    tests/test_torch_moe.py; the vlm family and the gelu MLP:
+    tests/test_torch_families.py; the encdec family:
+    tests/test_torch_encdec.py), as are the cluster and transport backends
+    with in-process or remote replicas, fault schedules and policies,
+    sampling, quantized targets and fleets; ``System.build`` refuses an
+    encdec spec (a serve carries no encoder frames)."""
+    from repro.configs.base import get_config as jax_config
+    from repro.models.model_zoo import build_model as jax_build_model
+    from repro.models.model_zoo import frontend_stub as jax_frontend_stub
     from repro_torch.configs import get_config
 
+    jcfg = dataclasses.replace(jax_config("qwen2-1.5b").reduced(), **change)
     cfg = dataclasses.replace(get_config("qwen2-1.5b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg).init_params(torch.Generator().manual_seed(0))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    jm, pm = jax_build_model(jcfg), build_model(cfg)
+    jp = jm.init_params(jax.random.key(0), max_pos=64)
+    own = pm.init_params(torch.Generator().manual_seed(0), max_pos=64)
+    pp = bridge.params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    assert sorted(own.state_dict()) == sorted(pp.state_dict())
+    assert (pp.enc is not None) == cfg.is_encdec and (pp.pos_embed is None) == cfg.use_rope
+    frames = jax_frontend_stub(jcfg, 2, jax.random.key(7))[:, :32]
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, 11)).astype(np.int32)
+    jl, _ = jm.prefill(jp, jnp.asarray(toks), jm.make_cache(2, 64, attn_chunk=32, enc_len=32),
+                       attn_chunk=32, enc_frames=frames)
+    pl, _ = pm.prefill(pp, torch.from_numpy(toks),
+                       pm.make_cache(2, 64, device="cpu", attn_chunk=32, enc_len=32),
+                       attn_chunk=32, enc_frames=bridge.to_tensor(np.asarray(frames)))
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=2e-3, rtol=0)
+    assert pl.argmax(-1).tolist() == np.asarray(jl).argmax(-1).tolist()
 
 
 @pytest.mark.parametrize("change", [{"family": "vlm"}, {"act": "gelu"}])
