@@ -33,7 +33,14 @@ Phases, each of which must pass for the script to exit 0:
                and in a batch of 6 (causal, non-causal, and at the
                encoder's 1500 rows), and the causal result at the
                encoder's shape far from the non-causal one (a flag the
-               kernel ignored would pass neither);
+               kernel ignored would pass neither); since training, the
+               attention backward's three kernels (attn_bwd_stats,
+               attn_bwd_dkdv, attn_bwd_dq) at qwen2-1.5b's training rows,
+               whisper-tiny's encoder, decoder and cross-attention and small
+               rows at G 3, 4, 8, 48 and D 16, 96: dQ, dK, dV within
+               GRAD_TIGHT of the plain attention's autograd gradient, LSE and
+               Delta within STATS_TIGHT, two calls and an entry alone bit
+               for bit, a causal limit one position late outside the bound;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -197,13 +204,29 @@ Phases, each of which must pass for the script to exit 0:
                repro_torch.checkpoint (the JAX package's format) from the
                card and restored onto it, every tensor bit-equal; bytes
                and seconds each way;
-  10. sim fig4 - serving.simulator on the h100 profile in the setting of the
+  (train whisper runs after phase 2, on a card no serve bundle has used,
+  train qwen2 after phase 14:)
+  10. train qwen2 - full-width qwen2-1.5b trained 8 steps through
+               repro_torch.training (B 8, S 128, remat, chunks of 64): step
+               1's gradients with the backward kernels within GRAD_LEAF_TOL
+               of the same step with the plain attention, and a control
+               (the plain backward one position late) beyond it; the losses finite
+               and falling; each backward kernel launched 28 x 8 times;
+               seconds a step, tokens/s and peak memory printed;
+  11. train whisper - python -m repro_torch.launch.train --arch whisper-tiny
+               at full width (1500 stub frames, B 8, S 128): 6 steps
+               straight, then --fail-at 3 --ckpt-every 2 (a non-zero exit)
+               and a rerun that resumes at step 3; the step-6 checkpoints
+               (params and optimizer state) and the last losses bit-equal;
+               each run's launches of the backward kernels (12 a step) and
+               of the forward entries (8 causal, 12 non-causal a step);
+  12. sim fig4 - serving.simulator on the h100 profile in the setting of the
                JAX package's benchmarks/wstgr.py --quick (a prediction);
-  11. tune   - repro_torch.tuning.tune of examples/specs/fleet.json on the
+  13. tune   - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
                tune CLI once in its own process;
-  12. cli    - python -m repro_torch.cli in subprocesses on the card, each
+  14. cli    - python -m repro_torch.cli in subprocesses on the card, each
                with a timeout: serve --check of examples/specs/engine.json,
                of a hybrid target from flags and of a hybrid pair from a
                spec (the reference match printed OK), trace with the
@@ -225,6 +248,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -262,6 +286,8 @@ LOGIT_TOL = 5e-2
 SSD_TOL = {"y": 4e-2, "state": 3e-3}
 # calls per CUDA graph when a kernel is timed (two walks of 28 layers)
 GRAPH_CALLS = 56
+# and a backward kernel (one step's 28 layers)
+GRAD_CALLS = 28
 # scale of every layer's output projections in the served bundles, chosen so
 # that drafts are partly accepted (see full_width_bundle)
 RESID_SCALE = 0.5
@@ -282,12 +308,18 @@ REPLACES = {
     "verify_attention_packed_noncausal": "src/repro/models/layers.py:215",
     "verify_attention_paged_noncausal": "src/repro/models/layers.py:215",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:98",
+    # attention's gradient (training): no Pallas kernel has one; JAX
+    # autodiffs its XLA mirror
+    **{name: "no Pallas counterpart: JAX autodiffs src/repro/models/layers.py:215"
+       for name in ("attn_bwd_stats", "attn_bwd_dkdv", "attn_bwd_dq")},
 }
 SOURCES = {
     "verify_attn": "src/repro_torch/kernels/csrc/verify_attn.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "attn_bwd": "src/repro_torch/kernels/csrc/attn_bwd.cu",
 }
-SOURCE_OF = {name: SOURCES["ssd_scan" if name == "ssd_scan" else "verify_attn"]
+SOURCE_OF = {name: SOURCES[next((src for src in ("ssd_scan", "attn_bwd") if name.startswith(src)),
+                                "verify_attn")]
              for name in REPLACES}
 # the families whose recurrent state rounds to bf16 at every commit (see check())
 RECURRENT = ("ssm", "hybrid")
@@ -759,10 +791,192 @@ def check_ssd(records: dict) -> None:
         raise AssertionError("ssd_scan took P=24, which its 16-column slices do not cover")
 
 
+# the attention backward's bound: each of dQ, dK and dV within this share
+# of its largest element (max |kernel - plain| / max |plain|) of the plain
+# version's autograd gradient on the card. The plain backward
+# (kernels/ref.py attention_bwd_ref, the kernels' decomposition and
+# roundings) is within 6.2e-3 of that gradient on the CPU at the tested
+# shapes (P rounded to bf16 after the division by the row sum instead of
+# before, Delta from the bf16 O), so 2e-2 is ~3x that; a causal limit one
+# position late moves the gradients by 0.14 to 3 of their largest element
+# (tests/test_torch_training.py), so it fails this bound (the control below)
+GRAD_TIGHT = 2e-2
+# the backward's row statistics (LSE, Delta): f32 sums in another order
+STATS_TIGHT = 1e-4
+# (label, B, Sq, Skv, Hq, Hkv, D, kv_valid, causal): qwen2-1.5b's training
+# rows (the main case), whisper-tiny's encoder, its decoder's self- and
+# cross-attention at the launcher's B 8, S 128, and small rows at G 3, 4
+# (causal offset, Sq < Skv), 8 and 48 and at D 16 and 96
+BWD_CASES = [
+    ("qwen2 train", 8, 128, 128, 12, 2, 128, [128] * 8, True),
+    ("whisper encoder", 2, ENCDEC_F, ENCDEC_F, 6, 6, 64, [ENCDEC_F] * 2, False),
+    ("whisper cross", 8, 128, ENCDEC_F, 6, 6, 64, [ENCDEC_F] * 8, False),
+    ("whisper self", 8, 128, 128, 6, 6, 64, [128] * 8, True),
+    ("G 3", 2, 37, 37, 24, 8, 64, [37, 37], True),
+    ("G 4 offset", 2, 29, 70, 32, 8, 128, [70, 45], True),
+    ("G 8", 2, 20, 20, 32, 4, 64, [20, 20], True),
+    ("G 48 offset", 1, 16, 40, 48, 1, 128, [40], True),
+    ("D 16", 2, 16, 16, 4, 2, 16, [16, 16], True),
+    ("D 96", 2, 33, 33, 32, 32, 96, [33, 33], True),
+    ("non-causal Sq < Skv", 2, 7, 50, 6, 6, 64, [50, 23], False),
+]
+
+
+def _bwd_bound(kind, B, Sq, Skv, Hq, Hkv, D, kvv, causal) -> tuple:
+    """Least time for one backward kernel: the bytes it must move once (its
+    inputs read, its outputs written; K and V as far as the largest
+    kv_valid) at the HBM rate, or its products' operations over the visible
+    (row, position) pairs at the bf16 peak, whichever is larger: per pair
+    2D for S (stats), 2D each for S, dP, dV, dK (dkdv), for S, dP, dQ (dq)."""
+    pairs = 0
+    for n in kvv:
+        n = min(Skv, int(n))
+        for i in range(Sq):
+            pairs += max(0, min(n, n - Sq + i + 1)) if causal else n
+    pairs *= Hq
+    rows = B * Sq * Hq * D * 2            # one (B, Sq, Hq, D) bf16 tensor
+    kv = B * min(Skv, max(kvv)) * Hkv * D * 2
+    stats = B * Hq * Sq * 4               # one (B, Hq, Sq) f32 tensor
+    nbytes, ops = {
+        "attn_bwd_stats": (3 * rows + kv + 2 * stats, 2 * D * pairs),
+        "attn_bwd_dkdv": (2 * rows + 2 * kv + 2 * stats + 2 * B * Skv * Hkv * D * 2,
+                          8 * D * pairs),
+        "attn_bwd_dq": (3 * rows + 2 * kv + 2 * stats, 6 * D * pairs),
+    }[kind]
+    t_bytes = (nbytes + B * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _abs(got, want) -> float:
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return _abs(got, want) / want.float().abs().max().item()
+
+
+def check_attention_bwd(records: dict) -> None:
+    """The three backward kernels against the plain version's autograd
+    gradient on the card at BWD_CASES (dQ, dK, dV within GRAD_TIGHT; LSE
+    and Delta against attention_bwd_stats_ref within STATS_TIGHT), two calls
+    bit-equal, the first and last batch entries alone equal to the same
+    entries in the batch; the off-by-one control at every causal case;
+    graph and eager ms beside the bound, the plain parts' ms and SDPA's
+    autograd backward on the same rows (eager; by graph as forward and
+    backward less forward), a yardstick the port never calls."""
+    from repro_torch.kernels import attn_bwd, ref, verify_attn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    for idx, (label, B, Sq, Skv, Hq, Hkv, D, kvv, causal) in enumerate(BWD_CASES):
+        q, k, v = rnd(B, Sq, Hq, D), rnd(B, Skv, Hkv, D), rnd(B, Skv, Hkv, D)
+        kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+        out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+        dout = rnd(B, Sq, Hq, D)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(
+            ref.verify_attention_ref(*leaves, kv_valid, causal=causal), leaves, dout)
+        kw = dict(causal=causal)
+        stats = lambda: attn_bwd.stats(q, k, out, dout, kv_valid, **kw)  # noqa: E731
+        lse, delta = stats()
+        dkdv = lambda: attn_bwd.dkdv(q, k, v, dout, kv_valid, lse, delta, **kw)  # noqa: E731
+        dq = lambda: attn_bwd.dq(q, k, v, dout, kv_valid, lse, delta, **kw)  # noqa: E731
+        (dk, dv), dqv = dkdv(), dq()
+        torch.cuda.synchronize()
+        plain_stats = ref.attention_bwd_stats_ref(q, k, out, dout, kv_valid, **kw)
+        errs = {"lse": _rel(lse, plain_stats[0]), "delta": _rel(delta, plain_stats[1]),
+                "dq": _rel(dqv, want[0]), "dk": _rel(dk, want[1]), "dv": _rel(dv, want[2])}
+        plain_bwd = ref.attention_bwd_ref(q, k, v, out, dout, kv_valid, **kw)
+        errs.update({f"{n}_vs_ref_bwd": _rel(g, w) for n, g, w in
+                     zip(("dq", "dk", "dv"), (dqv, dk, dv), plain_bwd)})
+        abs_errs = {"stats": max(_abs(lse, plain_stats[0]), _abs(delta, plain_stats[1])),
+                    "dkdv": max(_abs(dk, want[1]), _abs(dv, want[2])), "dq": _abs(dqv, want[0])}
+        rel_errs = {"stats": max(errs["lse"], errs["delta"]),
+                    "dkdv": max(errs["dk"], errs["dv"]), "dq": errs["dq"]}
+        bad = [n for n in ("dq", "dk", "dv") if not errs[n] <= GRAD_TIGHT]
+        bad += [n for n in ("lse", "delta") if not errs[n] <= STATS_TIGHT]
+        if bad:
+            raise AssertionError(f"attention backward {label}: {bad} off ({errs}; bounds "
+                                 f"{GRAD_TIGHT} and {STATS_TIGHT} of the largest element)")
+        if causal:  # the control: a causal limit one position late fails the bound
+            late = ref.attention_bwd_ref(q, k, v, out, dout, kv_valid + 1, **kw)
+            errs["late_by_one"] = max(_rel(g, w) for g, w in zip(late, want))
+            if not errs["late_by_one"] > GRAD_TIGHT:
+                raise AssertionError(f"attention backward {label}: a limit one position late "
+                                     f"is only {errs['late_by_one']} off (<= {GRAD_TIGHT})")
+        # determinism and batch invariance
+        again = (*stats(), *dkdv(), dq())
+        for name, a, b in zip(("lse", "delta", "dk", "dv", "dq"), again, (lse, delta, dk, dv, dqv)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"attention backward {label}: {name} differs between calls")
+        for b in {0, B - 1}:
+            one = [t[b:b + 1].contiguous() for t in (q, k, v, out, dout, kv_valid)]
+            gq, gk, gv = attn_bwd.attention_bwd(*one, **kw)
+            if not (torch.equal(gq[0], dqv[b]) and torch.equal(gk[0], dk[b])
+                    and torch.equal(gv[0], dv[b])):
+                raise AssertionError(f"attention backward {label}: entry {b} alone differs "
+                                     "from the batch")
+        # times
+        big = Sq * Skv > 10**6
+        iters, calls = (5, 8) if big else (30, GRAD_CALLS)
+        sdpa_args = _sdpa_inputs(q, k, v, kv_valid, causal=causal)
+        dout_h = dout.transpose(1, 2)
+
+        def leaves():
+            return [t.detach().clone().requires_grad_() for t in sdpa_args[:3]]
+
+        eager = leaves()
+        o_lib = sdpa(*eager, attn_mask=sdpa_args[3])
+        lib_bwd = lambda: torch.autograd.grad(o_lib, eager, dout_h,  # noqa: E731
+                                              retain_graph=True)
+        lib_ms = _time_ms(lib_bwd, iters)
+        lib_graph = None
+        # SDPA's backward captured with leaves the eager calls never touched
+        # (the first case's capture was invalidated when it shared them)
+        try:
+            graphed = leaves()
+            lib_fwd = lambda: sdpa(*graphed, attn_mask=sdpa_args[3])  # noqa: E731
+            lib_both = lambda: torch.autograd.grad(lib_fwd(), graphed, dout_h)  # noqa: E731
+            lib_graph = _graph_ms([lib_both] * calls) - _graph_ms([lib_fwd] * calls)
+        except Exception as e:  # noqa: BLE001 - a yardstick only
+            print(f"kernel attention backward {label}: SDPA backward not captured in a graph "
+                  f"({type(e).__name__}: {str(e).splitlines()[0]}); not measured", flush=True)
+        plain = {
+            "attn_bwd_stats": lambda: ref.attention_bwd_stats_ref(q, k, out, dout, kv_valid, **kw),
+            "attn_bwd_dkdv": lambda: ref.attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse,
+                                                                delta, **kw),
+            "attn_bwd_dq": lambda: ref.attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta,
+                                                            **kw),
+        }
+        for name, fn, err_key in (("attn_bwd_stats", stats, "stats"),
+                                  ("attn_bwd_dkdv", dkdv, "dkdv"), ("attn_bwd_dq", dq, "dq")):
+            bound_ms, bound_by = _bwd_bound(name, B, Sq, Skv, Hq, Hkv, D, kvv, causal)
+            line = {"case": idx, "name": name, "shape": f"{label}: B={B} Sq={Sq} Skv={Skv} "
+                    f"Hq={Hq} Hkv={Hkv} D={D} kv_valid={kvv}{'' if causal else ' non-causal'}",
+                    "max_abs_err": abs_errs[err_key], "max_rel_err": rel_errs[err_key],
+                    "errs": errs,
+                    "ms": _time_ms(fn, iters), "graph_ms": _graph_ms([fn] * calls),
+                    "plain_ms": _time_ms(plain[name], max(iters // 5, 2)),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    # SDPA's backward computes dQ, dK and dV at once: the
+                    # yardstick of the three kernels' sum, beside dq and dkdv
+                    "library_ms": None if name == "attn_bwd_stats" else lib_ms,
+                    "library_graph_ms": None if name == "attn_bwd_stats" else lib_graph}
+            _record(records, name, idx, 0, line)
+
+
 def check_kernels(records: dict) -> None:
     """Phase 2: every kernel against its plain version at the paths' shapes."""
     check_attention(records)
     check_ssd(records)
+    check_attention_bwd(records)
 
 
 def full_width_bundle(arch: str = "qwen2-1.5b", resid_scale: float = RESID_SCALE,
@@ -845,16 +1059,17 @@ def serve_spec(backend: str, arch: str = "qwen2-1.5b", kv_dtype: str = "bf16", *
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels import ssd_scan, verify_attn
+    from repro_torch.kernels import attn_bwd, ssd_scan, verify_attn
 
     verify_attn.reset_launches()
     ssd_scan.reset_launches()
+    attn_bwd.reset_launches()
 
 
 def _launches() -> dict:
-    from repro_torch.kernels import ssd_scan, verify_attn
+    from repro_torch.kernels import attn_bwd, ssd_scan, verify_attn
 
-    return {**verify_attn.LAUNCHES, **ssd_scan.LAUNCHES}
+    return {**verify_attn.LAUNCHES, **ssd_scan.LAUNCHES, **attn_bwd.LAUNCHES}
 
 
 def _round_sink(rounds: dict):
@@ -931,16 +1146,17 @@ def serve(label: str, records: dict, bundle, prompts, *, spec, path: dict, kits=
             "tokens_per_s": res.total_tokens / wall}
 
 
-def _record_launches(label: str, records: dict, path: dict, launches: dict) -> None:
+def _record_launches(label: str, records: dict, path: dict, launches: dict, *,
+                     main_path: bool = True) -> None:
     """Each kernel entry of ``path`` must show the launches it maps to (None:
     at least one) in this path's run; a record's ``launches`` is the count
-    of the first path that runs it (its main path), ``launches_by_path``
-    every path's."""
+    of the first path that runs it (its main path) among those with
+    ``main_path``, ``launches_by_path`` every path's."""
     for name, want in path.items():
         n = launches[name]
         rec = records[name]
         rec.setdefault("launches_by_path", {})[label] = n
-        if not rec["launches"]:
+        if main_path and not rec["launches"]:
             rec["launches"] = n
         if n <= 0 or (want is not None and n != want):
             raise AssertionError(f"{label}: {name} launched {n} times on the path "
@@ -2646,6 +2862,239 @@ def checkpoint_phase(params) -> None:
           f"temp dir removed: {not Path(d).exists()}", flush=True)
 
 
+# the train qwen2 phase: the launcher's defaults (B 8, S 128, loss and
+# attention chunks 64, remat, lr 1e-3 with warmup 10), 8 steps
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 8, 8, 128
+# step 1's gradients with the kernels against the same step with the plain
+# attention on the card: each leaf within this relative Frobenius distance
+# (the kernels' backward and autograd of the plain forward differ by the
+# rounding of P and O, GRAD_TIGHT; the forward is the same kernel's bits).
+# The control, the kernels' forward with the plain backward at a causal
+# limit one position late, must lie beyond it.
+GRAD_LEAF_TOL = 5e-2
+
+
+def train_qwen2(records: dict) -> None:
+    """Full-width qwen2-1.5b (28 layers of 1536, vocab 151936) trained 8
+    steps through repro_torch.training on a card freed of the serve
+    bundles: step 1's gradients with the backward kernels against the same
+    step with the plain attention (a harness swap of ops.attention; the
+    port never runs it on the card), then 8 steps: seconds each, tokens/s,
+    peak memory, losses finite and falling; each backward kernel launched
+    layers x steps times, the forward kernel twice as often (remat)."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref, verify_attn
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.training import data, optimizer as O, train_step as TS
+
+    cfg = get_config("qwen2-1.5b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"train qwen2: init {time.perf_counter() - t0:.2f} s, "
+          f"{sum(p.numel() for p in params.parameters())} parameters", flush=True)
+    tcfg = TS.TrainConfig(
+        optimizer=O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS),
+        remat=True, loss_chunk=64, attn_chunk=64)
+    dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S + 1,
+                           global_batch=TRAIN_B)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in data.batch_at(dcfg, s).items()}
+               for s in range(TRAIN_STEPS)]
+    loss_fn = TS.make_loss_fn(model, tcfg)
+
+    class LateBackward(torch.autograd.Function):
+        """The control: the forward kernel, and the plain backward with the
+        causal limit one position late (kv_valid + 1)."""
+
+        @staticmethod
+        def forward(ctx, q, k, v, kv, causal):
+            out = verify_attn.verify_attention_packed(q, k, v, kv, causal=causal)
+            ctx.save_for_backward(q, k, v, out, kv)
+            ctx.causal = causal
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, kv = ctx.saved_tensors
+            return (*ref.attention_bwd_ref(q, k, v, out, dout, kv + 1, causal=ctx.causal),
+                    None, None)
+
+    swaps = {
+        "plain": lambda q, k, v, kv, *, causal=True, block_k=64: (
+            ref.verify_attention_ref(q, k, v, kv, block_k=block_k, causal=causal)),
+        "late": lambda q, k, v, kv, *, causal=True, block_k=64: (
+            LateBackward.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv, causal)),
+    }
+
+    def step1_grads(swap=None):
+        kernel = ops.attention
+        if swap is not None:
+            ops.attention = swaps[swap]
+        try:
+            for p in params.parameters():
+                p.requires_grad_(True)
+                p.grad = None
+            loss, _ = loss_fn(params, batches[0])
+            loss.backward()
+            grads = bridge.grads_tree(params)
+            for p in params.parameters():
+                p.grad = None
+            return loss.item(), grads
+        finally:
+            ops.attention = kernel
+
+    (loss_k, g_k), (loss_p, g_p) = step1_grads(), step1_grads("plain")
+    loss_c, g_c = step1_grads("late")
+    worst, control = _worst_leaf(g_k, g_p), _worst_leaf(g_c, g_p)
+    del g_k, g_p, g_c
+    torch.cuda.empty_cache()  # the plain attention's odd-sized blocks, before the big state
+    print(f"train qwen2: step 1 loss {loss_k!r} with the kernels, {loss_p!r} with the plain "
+          f"attention; the gradients' worst leaf {worst[1]} {worst[0]:.4g} relative "
+          f"(bound {GRAD_LEAF_TOL})", flush=True)
+    print(f"train qwen2: control (the kernels' forward, the plain backward one position "
+          f"late): loss {loss_c!r}, worst leaf {control[1]} {control[0]:.4g} relative, "
+          f"fails the bound: {control[0] > GRAD_LEAF_TOL}", flush=True)
+    if not worst[0] <= GRAD_LEAF_TOL:
+        raise AssertionError(f"train qwen2: leaf {worst[1]}'s gradient is {worst[0]} off the "
+                             f"plain attention's (> {GRAD_LEAF_TOL})")
+    if not control[0] > GRAD_LEAF_TOL:
+        raise AssertionError(f"train qwen2: the off-by-one control is within GRAD_LEAF_TOL "
+                             f"({control[0]} <= {GRAD_LEAF_TOL}): the bound cannot catch it")
+
+    step = TS.make_train_step(model, tcfg)
+    opt = O.adamw_init(bridge.params_tree(params))
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, err = [], [], None
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, batches[s])
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    launches = _launches()
+    tokens = TRAIN_B * TRAIN_S
+    steady = seconds[1:]
+    print(f"train qwen2: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens, seconds "
+          f"{[round(x, 4) for x in seconds]}, {tokens * len(steady) / sum(steady):.1f} tokens/s "
+          f"after the first step, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {losses}, last grad "
+          f"norm {float(m['grad_norm']):.4g}, lr {float(m['lr']):.4g}", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train qwen2: losses {losses} not finite and falling")
+    n = cfg.num_layers * TRAIN_STEPS
+    _record_launches("train qwen2", records, {"attn_bwd_stats": n, "attn_bwd_dkdv": n,
+                                              "attn_bwd_dq": n, "verify_attention_packed": 2 * n},
+                     launches)
+
+
+def _worst_leaf(got, want):
+    """(relative Frobenius distance, leaf) of the leaf of ``got`` furthest
+    from ``want``'s."""
+    worst = (0.0, None)
+    for key, g in _tree_items(got):
+        w = _tree_get(want, key).float()
+        worst = max(worst, (((g.float() - w).norm() / w.norm().clamp(min=1e-30)).item(), key))
+    return worst
+
+
+def _tree_items(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_items(v, path + (k,))
+    else:
+        yield "/".join(path), tree
+
+
+def _tree_get(tree, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def train_whisper(records: dict) -> None:
+    """python -m repro_torch.launch.train --arch whisper-tiny at full width
+    (1500 stub frames; the decoder at the launcher's B 8, S 128), 6 steps
+    straight and, in a second process at the same time, 6 steps with
+    --fail-at 3 --ckpt-every 2 (exits non-zero after steps 0-2, with the
+    checkpoint of the three); then a rerun that resumes at step 3: the
+    resumed run's step-6 checkpoint (params and optimizer state) and its
+    last loss equal the straight run's bit for bit. Each run's launches, which the launcher prints, are those of the
+    steps it ran: a step runs each backward kernel once for each of the 4
+    encoder layers' self-attentions and the 4 decoder layers' self- and
+    cross-attentions, the causal forward twice a decoder layer (remat) and
+    the non-causal one once an encoder layer and twice a cross-attention.
+    Recorded under the path "train whisper" (their sum), which is no
+    kernel's main path."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-tiny")
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    per_step = {"attn_bwd_stats": enc + 2 * dec, "attn_bwd_dkdv": enc + 2 * dec,
+                "attn_bwd_dq": enc + 2 * dec, "verify_attention_packed": 2 * dec,
+                "verify_attention_packed_noncausal": enc + 2 * dec}
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "whisper-tiny",
+            "--steps", "6"]
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([*base, *args], capture_output=True, text=True, env=env,
+                              cwd=root, timeout=600)
+        secs = time.perf_counter() - t0
+        print(f"train whisper: {' '.join(args)}: exit {proc.returncode} in {secs:.2f} s; "
+              f"{' | '.join(proc.stdout.strip().splitlines())}", flush=True)
+        return proc
+
+    try:
+        with ThreadPoolExecutor(2) as pool:  # the two first runs share the card at once
+            straight = pool.submit(run, "--ckpt-dir", str(d / "straight"))
+            broken = pool.submit(run, "--ckpt-dir", str(d / "broken"), "--ckpt-every", "2",
+                                 "--fail-at", "3")
+            straight, broken = straight.result(), broken.result()
+        resumed = run("--ckpt-dir", str(d / "broken"), "--ckpt-every", "2")
+        if straight.returncode != 0 or resumed.returncode != 0:
+            raise AssertionError(f"train whisper: a run failed:\n{straight.stderr[-3000:]}\n"
+                                 f"{resumed.stderr[-3000:]}")
+        if broken.returncode == 0 or "[resume] restored step 3" not in resumed.stdout:
+            raise AssertionError("train whisper: --fail-at 3 did not fail, or the rerun did not "
+                                 "resume at step 3")
+        total = dict.fromkeys(per_step, 0)
+        for label, proc, marker, steps in (("straight", straight, "done.", 6),
+                                           ("crash", broken, "crashed.", 3),
+                                           ("resume", resumed, "done.", 3)):
+            line = next((ln for ln in proc.stdout.splitlines() if ln.startswith(marker)), "")
+            got = json.loads(line.split(" launches ", 1)[1]) if " launches " in line else {}
+            want = {name: n * steps for name, n in per_step.items()}
+            print(f"train whisper: {label} run, {steps} steps: launches {got}", flush=True)
+            if got != want:
+                raise AssertionError(f"train whisper: the {label} run launched {got}, "
+                                     f"expected {want}")
+            total = {name: total[name] + got[name] for name in total}
+        _record_launches("train whisper", records, total, total, main_path=False)
+        a = np.load(d / "straight" / "step_000000006" / "arrays.npz")
+        b = np.load(d / "broken" / "step_000000006" / "arrays.npz")
+        differ = sorted(set(a.files) ^ set(b.files)) + [
+            k for k in sorted(set(a.files) & set(b.files)) if not np.array_equal(a[k], b[k])]
+        same = not differ
+        last = [ln.split(" launches ", 1)[0] for p in (straight, resumed)
+                for ln in p.stdout.splitlines() if ln.startswith("done.")]
+        print(f"train whisper: {len(a.files)} arrays of the step-6 checkpoints bit-equal: "
+              f"{same} (differing: {differ}); last lines {last}", flush=True)
+        if not same or len(last) != 2 or last[0] != last[1]:
+            raise AssertionError("train whisper: the resumed run differs from the straight one")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -2671,7 +3120,7 @@ def _free_card(what: str) -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     print(f"freed {what}: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          "allocated", flush=True)
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", flush=True)
 
 
 def _phase(name: str, fn):
@@ -2703,6 +3152,14 @@ def main() -> int:
     }
     _phase("build", build_kernels)
     _phase("kernels", lambda: check_kernels(records))
+    # the launcher's training runs first, on a card no serve bundle has
+    # used: they are processes of their own, which cannot use the blocks
+    # this process's allocator keeps reserved (tens of GB by the end of the
+    # serve phases, pinned by small live tensors even after empty_cache);
+    # train qwen2 runs last in this process for the same reason (it leaves
+    # ~38 GB reserved, which the spawned workers of the serve phases need)
+    _free_card("the kernels' inputs")
+    _phase("train whisper", lambda: train_whisper(records))
     prompts = np.random.default_rng(2).integers(0, 151936, size=(6, 200)).astype(np.int32)
 
     qwen = _phase("init qwen2-1.5b", lambda: full_width_bundle("qwen2-1.5b"))
@@ -2853,6 +3310,8 @@ def main() -> int:
     _phase("sim fig4", sim_fig4)
     _phase("tune", lambda: tune_on_card(records))
     _phase("cli", cli_on_card)
+    _free_card("the serve phases")
+    _phase("train qwen2", lambda: train_qwen2(records))
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(records.values())}))

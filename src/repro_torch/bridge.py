@@ -30,6 +30,7 @@ kept as bf16), the form ``repro_torch.checkpoint`` saves and restores, and
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -86,11 +87,10 @@ def to_tensor(arr, device="cpu") -> torch.Tensor:
     tensor moves to ``device`` as it is."""
     if isinstance(arr, torch.Tensor):
         return arr.to(device)
-    arr = np.asarray(arr)
+    arr = np.array(arr, order="C")  # a C-ordered copy; a 0-d leaf stays 0-d
     if arr.dtype.name == "bfloat16":
-        bits = np.ascontiguousarray(arr).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -127,6 +127,26 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
     family = _family(cfg)
     kw = {"max_pos": tree["pos_embed"].shape[0]} if "pos_embed" in tree else {}
     model = _MODELS[family](cfg, device=device, **kw)
+    _load(model, tree, device)
+    return model
+
+
+def load_params_(model: CausalLM, tree: Dict[str, Any]) -> CausalLM:
+    """Copy a params tree (the JAX layout; numpy or torch leaves, any float
+    dtype) into ``model``'s parameters in place, each converted to the
+    parameter's own dtype (round to nearest even, as JAX's ``astype``):
+    the train step's ``cast_like`` of the f32 master weights, without a
+    second tree."""
+    _load(model, tree, model.device, cast=True)
+    return model
+
+
+def _load(model: CausalLM, tree: Dict[str, Any], device, cast: bool = False) -> None:
+    cfg = model.cfg
+    family = _family(cfg)
+    _assign = functools.partial(_assign_leaf, cast=cast)
+    _assign_stack = functools.partial(_assign_stack_leaves, assign=_assign)
+    _assign_block = functools.partial(_assign_block_leaves, assign=_assign)
     with torch.no_grad():
         _assign(model, "embed", to_tensor(tree["embed"], device))
         _assign_block(model, "final_norm", model.final_norm, tree["final_norm"], _NORM_PARAMS,
@@ -145,10 +165,10 @@ def params_from_jax(cfg, tree: Dict[str, Any], device="cuda") -> CausalLM:
         if family == "hybrid":
             _assign_block(model, "shared", model.shared, tree["shared_attn"], _SHARED_PARAMS,
                           device)
-    return model
 
 
-def _assign_stack(model: CausalLM, prefix: str, stack: Dict[str, Any], names, device) -> None:
+def _assign_stack_leaves(model: CausalLM, prefix: str, stack: Dict[str, Any], names, device,
+                         assign) -> None:
     """The stacked (L, ...) leaves under ``stack`` into the blocks of the
     ModuleList ``prefix``, for each port name the blocks have."""
     blocks = _dotted(model, prefix)
@@ -160,25 +180,26 @@ def _assign_stack(model: CausalLM, prefix: str, stack: Dict[str, Any], names, de
             raise ValueError(f"{prefix}/{'/'.join(path)} has {stacked.shape[0]} layers, "
                              f"the model has {len(blocks)}")
         for li in range(len(blocks)):
-            _assign(model, f"{prefix}.{li}.{name}", stacked[li])
+            assign(model, f"{prefix}.{li}.{name}", stacked[li])
 
 
-def _assign_block(model: CausalLM, prefix: str, block, tree: Dict[str, Any], names,
-                  device) -> None:
+def _assign_block_leaves(model: CausalLM, prefix: str, block, tree: Dict[str, Any], names,
+                         device, assign) -> None:
     """The leaves of one unstacked block (a norm, the hybrid's shared block)."""
     for name, path in names.items():
         if _dotted(block, name) is not None:
-            _assign(model, f"{prefix}.{name}", to_tensor(_get(tree, path), device))
+            assign(model, f"{prefix}.{name}", to_tensor(_get(tree, path), device))
 
 
-def _assign(model: CausalLM, name: str, value: torch.Tensor) -> None:
-    """Copy ``value`` into parameter ``name``; a leaf whose dtype differs
-    from the module's (the bf16 norm scales and SSM parameters of a
-    quantized JAX bundle, f32 in a 16-bit one) replaces the parameter."""
+def _assign_leaf(model: CausalLM, name: str, value: torch.Tensor, cast: bool = False) -> None:
+    """Copy ``value`` into parameter ``name``; unless ``cast``, a leaf whose
+    dtype differs from the module's (the bf16 norm scales and SSM
+    parameters of a quantized JAX bundle, f32 in a 16-bit one) replaces the
+    parameter."""
     param = _dotted(model, name)
     if param.shape != value.shape:
         raise ValueError(f"{name}: shape {tuple(value.shape)}, the model has {tuple(param.shape)}")
-    if param.dtype == value.dtype:
+    if cast or param.dtype == value.dtype:
         param.copy_(value)
     else:
         model.set_weight(name, value.clone())
@@ -190,45 +211,61 @@ def _put(tree: Dict[str, Any], path, value) -> None:
     tree[path[-1]] = value
 
 
-def _stack_tree(blocks, names) -> Dict[str, Any]:
+def _detached(p: torch.Tensor) -> torch.Tensor:
+    return p.detach()
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    return p.grad if p.grad is not None else torch.zeros_like(p)
+
+
+def _stack_tree(blocks, names, leaf=_detached) -> Dict[str, Any]:
     """The JAX stacked (L, ...) subtree of a ModuleList's blocks."""
     tree: Dict[str, Any] = {}
     for name, path in names.items():
         if _dotted(blocks[0], name) is not None:
-            _put(tree, path, torch.stack([_dotted(blk, name) for blk in blocks]))
+            _put(tree, path, torch.stack([leaf(_dotted(blk, name)) for blk in blocks]))
     return tree
 
 
-def _block_tree(block, names) -> Dict[str, Any]:
+def _block_tree(block, names, leaf=_detached) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for name, path in names.items():
         if _dotted(block, name) is not None:
-            _put(tree, path, _dotted(block, name).detach())
+            _put(tree, path, leaf(_dotted(block, name)))
     return tree
 
 
-def params_tree(model: CausalLM) -> Dict[str, Any]:
+def params_tree(model: CausalLM, leaf=_detached) -> Dict[str, Any]:
     """The JAX params pytree layout with torch tensors as leaves (bf16 kept
-    as bf16, on the model's device)."""
+    as bf16, on the model's device); ``leaf`` maps each parameter to the
+    tensor stored for it (``grads_tree`` takes its gradient)."""
     family = _family(model.cfg)
     tree: Dict[str, Any] = {
-        "embed": model.embed.detach(),
-        "final_norm": _block_tree(model.final_norm, _NORM_PARAMS),
-        _STACK_KEY[family]: _stack_tree(model.layers, _layer_params(model.cfg)),
+        "embed": leaf(model.embed),
+        "final_norm": _block_tree(model.final_norm, _NORM_PARAMS, leaf),
+        _STACK_KEY[family]: _stack_tree(model.layers, _layer_params(model.cfg), leaf),
     }
     if family == "hybrid":
-        tree["shared_attn"] = _block_tree(model.shared, _SHARED_PARAMS)
+        tree["shared_attn"] = _block_tree(model.shared, _SHARED_PARAMS, leaf)
     if model.lm_head_w is not None:
-        tree["lm_head"] = model.lm_head_w.detach()
+        tree["lm_head"] = leaf(model.lm_head_w)
     if getattr(model, "pos_embed", None) is not None:
-        tree["pos_embed"] = model.pos_embed.detach()
+        tree["pos_embed"] = leaf(model.pos_embed)
     if getattr(model, "enc", None) is not None:
         tree["enc"] = {
-            "pos_embed": model.enc.pos_embed.detach(),
-            "layers": _stack_tree(model.enc.layers, _LAYER_PARAMS["dense"]),
-            "final_norm": _block_tree(model.enc.final_norm, _NORM_PARAMS),
+            "pos_embed": leaf(model.enc.pos_embed),
+            "layers": _stack_tree(model.enc.layers, _LAYER_PARAMS["dense"], leaf),
+            "final_norm": _block_tree(model.enc.final_norm, _NORM_PARAMS, leaf),
         }
     return tree
+
+
+def grads_tree(model: CausalLM) -> Dict[str, Any]:
+    """The parameters' gradients in the JAX params layout (what
+    ``jax.value_and_grad`` returns): bf16 for bf16 parameters, zeros where
+    a parameter took no gradient (JAX's zero cotangent)."""
+    return params_tree(model, _grad)
 
 
 def _map(fn, tree):

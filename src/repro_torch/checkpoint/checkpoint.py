@@ -67,7 +67,7 @@ def _host(leaf: Any) -> Tuple[np.ndarray, str]:
     else:
         arr = np.array(leaf)
         if arr.dtype.name == "bfloat16":
-            return np.ascontiguousarray(arr).view(np.uint16), "bfloat16"
+            return arr.view(np.uint16), "bfloat16"
     return arr, str(arr.dtype)
 
 
@@ -145,10 +145,10 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def _tensor(arr: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
-    arr = np.ascontiguousarray(arr)
+    arr = np.array(arr, order="C")  # a C-ordered copy; a 0-d leaf (a step) stays 0-d
     if dtype_name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _rebuild(tree_like: Any, path: Tuple, load) -> Any:

@@ -1,0 +1,147 @@
+"""Launch wrappers for the Hopper attention-backward kernels.
+
+``attention_bwd`` runs the three kernels of ``csrc/attn_bwd.cu`` on
+PyTorch's current stream: ``stats`` (each query row's log-sum-exp and
+Delta = rowsum(dO * O), f32), ``dkdv`` (dK and dV of each 64-position KV
+block, summed over the G query heads of its KV head) and ``dq``. They are
+the gradient of the forward kernel's dense entry over fresh K/V
+(``verify_attn.verify_attention_packed`` with no layer), causal-offset or
+non-causal, and ``kernels/ops.py``'s ``attention`` calls them from its
+backward. Each wrapper adds one to ``LAUNCHES[<its kernel>]`` per launch
+and nowhere else.
+
+The wrappers take CUDA tensors only; the plain versions are
+``kernels/ref.py``'s ``attention_bwd_stats_ref``, ``attention_bwd_dkdv_ref``
+and ``attention_bwd_dq_ref`` (``attention_bwd_ref`` runs all three).
+Nothing is cached between calls: LSE and Delta are (B, Hq, Sq) f32 tensors
+the call allocates.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+LAUNCHES = {"attn_bwd_stats": 0, "attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
+HEAD_DIMS = (16, 64, 96, 128)
+
+_TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = {
+    "attn_bwd_stats": [ctypes.c_void_p] * 7 + _TAIL,  # q, k, out, dout, kv_valid, lse, delta
+    "attn_bwd_dkdv": [ctypes.c_void_p] * 9 + _TAIL,   # q, k, v, dout, kv_valid, lse, delta, dk, dv
+    "attn_bwd_dq": [ctypes.c_void_p] * 8 + _TAIL,     # q, k, v, dout, kv_valid, lse, delta, dq
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _function(symbol: str):
+    fn = getattr(build.load("attn_bwd"), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, kv_valid, rows) -> Tuple[int, ...]:
+    """(B, Sq, Hq, Hkv, D, Skv) of a call, after checking what the kernels take."""
+    tensors = [q, k, v, kv_valid, *rows]
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("the CUDA attention-backward kernels take CUDA tensors only")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("the attention-backward tensors must be on one device")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"q must be (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D), got "
+                         f"{tuple(q.shape)} and {tuple(k.shape)}")
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported by the CUDA kernel (one of {HEAD_DIMS})")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
+        raise ValueError(f"k and v must be ({B}, Skv, Hkv, {D}) with Hkv dividing {Hq}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    for t in (q, k, v, *rows):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("q, k, v, out and dout must be contiguous 16-byte aligned bfloat16")
+    for t in rows:
+        if t.shape != q.shape:
+            raise ValueError(f"out and dout must have q's shape {tuple(q.shape)}")
+    if kv_valid.dtype != torch.int32 or kv_valid.shape != (B,) or not kv_valid.is_contiguous():
+        raise ValueError(f"kv_valid must be a contiguous ({B},) int32 tensor")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"empty attention {tuple(q.shape)} over {Skv} positions")
+    return B, Sq, Hq, Hkv, D, Skv
+
+
+def _launch(name: str, q: torch.Tensor, *ptrs, dims, causal) -> None:
+    scale = 1.0 / math.sqrt(q.shape[-1])  # the forward's, which these kernels differentiate
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _function(name)(*ptrs, *dims, scale, int(causal), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+
+
+def stats(q, k, out, dout, kv_valid, *, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LSE, Delta), each (B, Hq, Sq) f32."""
+    dims = _check(q, k, k, kv_valid, (out, dout))
+    B, Sq, Hq = dims[:3]
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    _launch("attn_bwd_stats", q, q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), dims=dims, causal=causal)
+    return lse, delta
+
+
+def _check_stats(q, lse, delta) -> None:
+    B, Sq, Hq, _ = q.shape
+    for t in (lse, delta):
+        if (t.dtype != torch.float32 or t.shape != (B, Hq, Sq) or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"lse and delta must be contiguous ({B}, {Hq}, {Sq}) float32 "
+                             "tensors on q's device")
+
+
+def dkdv(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV), each shaped and typed as k."""
+    dims = _check(q, k, v, kv_valid, (dout,))
+    _check_stats(q, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("attn_bwd_dkdv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dims=dims, causal=causal)
+    return dk, dv
+
+
+def dq(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True) -> torch.Tensor:
+    """dQ, shaped and typed as q."""
+    dims = _check(q, k, v, kv_valid, (dout,))
+    _check_stats(q, lse, delta)
+    out = torch.empty_like(q)
+    _launch("attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), out.data_ptr(), dims=dims, causal=causal)
+    return out
+
+
+def attention_bwd(
+    q: torch.Tensor,         # (B, Sq, Hq, D) bf16
+    k: torch.Tensor,         # (B, Skv, Hkv, D) bf16
+    v: torch.Tensor,
+    out: torch.Tensor,       # (B, Sq, Hq, D) the forward's output
+    dout: torch.Tensor,      # (B, Sq, Hq, D) its gradient
+    kv_valid: torch.Tensor,  # (B,) int32
+    *,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of attention over fresh K/V: the three kernels in turn."""
+    lse, delta = stats(q, k, out, dout, kv_valid, causal=causal)
+    dk, dv = dkdv(q, k, v, dout, kv_valid, lse, delta, causal=causal)
+    return dq(q, k, v, dout, kv_valid, lse, delta, causal=causal), dk, dv

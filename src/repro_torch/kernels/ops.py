@@ -14,6 +14,12 @@ version selects the rows it needs first.
 ``causal=False`` (the encdec family's encoder and cross-attention) lets
 every query row see every position below its ``kv_valid``; the kernel
 takes it as a flag and counts such launches under their own names.
+
+``attention`` is the differentiable form over fresh K/V (training: the
+cache-free forward's self- and cross-attention, the encoder): on CUDA
+tensors a ``torch.autograd.Function`` whose forward is the dense kernel
+and whose backward is ``kernels/attn_bwd.py``'s three kernels; on CPU
+tensors the plain version, which autograd differentiates itself.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref, ssd_scan as ssd_kernel, verify_attn
+from repro_torch.kernels import attn_bwd, ref, ssd_scan as ssd_kernel, verify_attn
 
 
 def _layer(t: Optional[torch.Tensor], layer: Optional[int]) -> Optional[torch.Tensor]:
@@ -48,6 +54,41 @@ def verify_attention(
     return ref.verify_attention_ref(q, _layer(k, layer), _layer(v, layer), kv_valid,
                                     block_k=block_k, k_scale=_layer(k_scale, layer),
                                     v_scale=_layer(v_scale, layer), causal=causal)
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel (dense entry, no layer) and its backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, causal):
+        out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+        ctx.save_for_backward(q, k, v, out, kv_valid)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, kv_valid = ctx.saved_tensors
+        dq, dk, dv = attn_bwd.attention_bwd(q, k, v, out, dout.contiguous(), kv_valid,
+                                            causal=ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def attention(
+    q: torch.Tensor,         # (B, Sq, Hq, D)
+    k: torch.Tensor,         # (B, Skv, Hkv, D) fresh K/V
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,) int32
+    *,
+    causal: bool = True,
+    block_k: int = 64,
+) -> torch.Tensor:
+    """Attention over fresh K/V with a gradient: query i sees j <= kv_valid -
+    Sq + i (``causal``) or j < kv_valid (not). On a CUDA tensor the forward
+    and backward kernels run (or raise); never the plain version."""
+    if q.is_cuda:
+        return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv_valid, causal)
+    return ref.verify_attention_ref(q, k, v, kv_valid, block_k=block_k, causal=causal)
 
 
 def verify_attention_paged(

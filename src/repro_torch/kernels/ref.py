@@ -205,6 +205,97 @@ def verify_attention_paged_ref(
     )
 
 
+def _bwd_scale(q: torch.Tensor) -> float:
+    """The forward's score scale 1 / sqrt(D), which the backward differentiates."""
+    return 1.0 / math.sqrt(q.shape[-1])
+
+
+def _bwd_scores(q, k, kv_valid, causal):
+    """f32 scores (B, Sq, Hkv, G, Skv) of the backward and their mask."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D).float()
+    s = torch.einsum("bshgd,bchd->bshgc", qg, k.float()) * _bwd_scale(q)
+    lim = query_limits(kv_valid, Sq, causal, q.device)
+    visible = (torch.arange(Skv, device=q.device)[None, None, :] <= lim[:, :, None])
+    return s, visible[:, :, None, None, :]
+
+
+def attention_bwd_stats_ref(q, k, out, dout, kv_valid, *, causal: bool = True):
+    """The plain version of ``attn_bwd_stats``: each query row's log-sum-exp
+    over the positions it sees (f32; 0 for a row that sees none) and
+    Delta = sum_d dO * O (f32), both (B, Hq, Sq)."""
+    B, Sq, Hq, D = q.shape
+    s, visible = _bwd_scores(q, k, kv_valid, causal)
+    s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.where(visible, torch.exp(s - m), torch.zeros((), device=q.device)).sum(-1)
+    lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.zeros((), device=q.device))
+    delta = (dout.float() * out.float()).sum(-1)  # (B, Sq, Hq)
+    return lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous(), delta.transpose(1, 2).contiguous()
+
+
+def _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal):
+    """P = exp(S - LSE) under the mask (f32) and dS = P * (dP - Delta), with
+    dP = dO V^T, each (B, Sq, Hkv, G, Skv)."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    s, visible = _bwd_scores(q, k, kv_valid, causal)
+    lse_r = lse.transpose(1, 2).reshape(B, Sq, Hkv, G, 1)
+    p = torch.where(visible, torch.exp(s - lse_r), torch.zeros((), device=q.device))
+    dog = dout.reshape(B, Sq, Hkv, G, D).float()
+    dp = torch.einsum("bshgd,bchd->bshgc", dog, v.float())
+    ds = p * (dp - delta.transpose(1, 2).reshape(B, Sq, Hkv, G, 1))
+    return p, ds, dog
+
+
+def attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True):
+    """The plain version of ``attn_bwd_dkdv``: dV = P^T dO with P rounded to
+    the value dtype first (as the forward rounds it before P.V) and dK =
+    dS^T Q * scale, summed over the G query heads of each KV head in f32."""
+    p, ds, dog = _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal)
+    qg = q.reshape(dog.shape).float()
+    dv = torch.einsum("bshgc,bshgd->bchd", p.to(v.dtype).float(), dog)
+    dk = torch.einsum("bshgc,bshgd->bchd", ds, qg) * _bwd_scale(q)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True):
+    """The plain version of ``attn_bwd_dq``: dQ = dS K * scale."""
+    B, Sq, Hq, D = q.shape
+    _, ds, _ = _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal)
+    dq = torch.einsum("bshgc,bchd->bshgd", ds, k.float()) * _bwd_scale(q)
+    return dq.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,         # (B, Sq, Hq, D)
+    k: torch.Tensor,         # (B, Skv, Hkv, D) fresh K/V (no cache, no layer)
+    v: torch.Tensor,
+    out: torch.Tensor,       # (B, Sq, Hq, D) the forward's output
+    dout: torch.Tensor,      # (B, Sq, Hq, D) its gradient
+    kv_valid: torch.Tensor,  # (B,)
+    *,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of ``verify_attention_ref`` in the backward kernels'
+    decomposition (``kernels/csrc/attn_bwd.cu``): the row LSE recomputed in
+    f32, Delta = rowsum(dO * O), P = exp(S - LSE) under the forward's mask
+    (causal-offset limit ``kv_valid - Sq + i``, or ``kv_valid - 1`` when
+    not causal), dV = P^T dO with P rounded to the value dtype, dS = P *
+    (dP - Delta), dQ = dS K * scale, dK = dS^T Q * scale; for GQA dK and dV
+    sum over the G query heads in f32. It differs from autograd of the
+    forward only where the forward rounds: P before P.V (there P is rounded
+    before the division by the row sum) and O to its dtype (Delta takes the
+    rounded O); with f32 inputs it is autograd's result to f32 precision."""
+    lse, delta = attention_bwd_stats_ref(q, k, out, dout, kv_valid, causal=causal)
+    dk, dv = attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
+    dq = attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
+    return dq, dk, dv
+
+
 def ssd_scan_ref(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H) f32, post-softplus

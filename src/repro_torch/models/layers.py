@@ -13,11 +13,19 @@ Every self-attention call of a decoder has the verification kernels'
 semantics: query i of S fresh tokens sits at ``kv_valid - S + i`` with
 ``kv_valid = cache_len + S``. The encdec family adds two non-causal forms
 (``causal=False``: every query sees every position below ``kv_valid``):
-the encoder's cache-free self-attention (``Attention.encode``) and the
+the encoder's cache-free self-attention (``Attention.fresh``) and the
 decoder's cross-attention over the ``cross_k``/``cross_v`` cache leaves
 (``Attention.cross``). ``flash_attention`` dispatches on the device: CUDA
 tensors run the Hopper kernels (``kernels/csrc/verify_attn.cu``), CPU
 tensors their plain versions.
+
+Training (``transformer.forward``) runs the cache-free forms with a
+gradient: ``Attention.fresh`` (causal over the fresh K/V, or not for the
+encoder), ``Attention.cross_fresh`` (K/V projected afresh from the encoder
+output) and ``moe_block_train``. Their attention goes through
+``ops.attention``, whose backward on the card is
+``kernels/csrc/attn_bwd.cu``. The parameters are built without gradients;
+a trainer turns them on for its own model only.
 
 An int8 cache (``kv_dtype="int8"``) stores K/V with a symmetric scale per
 (layer, row, KV head), fixed at the first append into an empty row: that
@@ -292,14 +300,33 @@ class Attention(nn.Module):
             k = rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def encode(self, x: torch.Tensor, positions: torch.Tensor, *, chunk: int) -> torch.Tensor:
-        """The cache-free, non-causal form (the encdec family's encoder):
-        fresh K/V of all F rows, every row seeing all of them."""
-        B, F, _ = x.shape
+    def fresh(self, x: torch.Tensor, positions: torch.Tensor, *, chunk: int,
+              causal: bool = True) -> torch.Tensor:
+        """The cache-free form over the fresh K/V of all S rows of x: causal
+        (the training forward's self-attention, row i seeing rows <= i) or
+        not (the encdec family's encoder, every row seeing all of them).
+        It has a gradient: on the card the forward and backward kernels
+        (``ops.attention``)."""
+        B, S, _ = x.shape
         q, k, v = self._qkv(x, positions)
+        kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
+        out = ops.attention(q, k, v, kv_valid, causal=causal, block_k=chunk)
+        return out.reshape(B, S, -1) @ self.wo
+
+    def cross_fresh(self, x: torch.Tensor, enc_out: torch.Tensor, *, chunk: int) -> torch.Tensor:
+        """The training form of cross-attention: K/V projected afresh from
+        the encoder output (B, F, d) without ``bk``/``bv`` (as the JAX
+        ``forward`` projects them), non-causal over all F frames, with a
+        gradient into the encoder."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        F = enc_out.shape[1]
+        q = self._query(x)
+        k = (enc_out @ self.wk).reshape(B, F, cfg.num_kv_heads, cfg.head_dim)
+        v = (enc_out @ self.wv).reshape(B, F, cfg.num_kv_heads, cfg.head_dim)
         kv_valid = torch.full((B,), F, dtype=torch.int32, device=x.device)
-        out = flash_attention(q, k, v, kv_valid, layer=None, chunk=chunk, causal=False)
-        return out.reshape(B, F, -1) @ self.wo
+        out = ops.attention(q, k, v, kv_valid, causal=False, block_k=chunk)
+        return out.reshape(B, S, -1) @ self.wo
 
     def cross(self, x: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor, *,
               layer: int, chunk: int, slots: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -454,19 +481,21 @@ def _top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[:, :k], idx[:, :k]
 
 
-def _expert_products(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _expert_products(a: torch.Tensor, w: torch.Tensor, widen: bool = False) -> torch.Tensor:
     """(E, C, i) x (E, i, o) bf16 operands, f32 products and sums, as JAX's
     einsum with ``preferred_element_type=f32``. The CPU build has no bf16 x
     bf16 -> f32 product and widens both operands (exactly); on the card the
-    expert tables are read as they are."""
-    if a.is_cuda:
+    expert tables are read as they are, unless ``widen`` (training: the
+    widened product has a derivative)."""
+    if a.is_cuda and not widen:
         return torch.bmm(a, w, out_dtype=torch.float32)
     return torch.bmm(a.float(), w.float())
 
 
-def _moe_local(x_flat: torch.Tensor, p: MoE, cfg,
-               capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The JAX ``_moe_local`` over every expert: (out (T, d), aux loss).
+def _moe_local(x_flat: torch.Tensor, p: MoE, cfg, capacity: int,
+               widen: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX ``_moe_local`` over every expert: (out (T, d), aux loss, the
+    call's int64 (assignments, dropped)).
 
     Assignment (t, k) takes slot ``pos`` of its expert, the count of the
     expert's earlier assignments in row-major (t, k) order, and is dropped
@@ -491,9 +520,7 @@ def _moe_local(x_flat: torch.Tensor, p: MoE, cfg,
 
     pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
     keep = pos < capacity
-    tally = moe_tally(dev)
-    tally[0] += T * K
-    tally[1] += (~keep).sum()
+    counts = torch.stack([torch.full_like(pos[0], T * K), (~keep).sum()])
 
     dest = torch.where(keep, expert * capacity + pos, E * capacity)
     token = torch.arange(T * K, device=dev) // K
@@ -501,9 +528,9 @@ def _moe_local(x_flat: torch.Tensor, p: MoE, cfg,
     disp.index_put_((dest,), x_flat[token])  # dropped assignments all land on the sink row
     disp = disp[:-1].view(E, capacity, d)
 
-    h = _expert_products(disp, p.wg)
-    u = _expert_products(disp, p.wu)
-    y = _expert_products((silu(h) * u).to(x_flat.dtype), p.wd)  # (E, capacity, d) f32
+    h = _expert_products(disp, p.wg, widen)
+    u = _expert_products(disp, p.wu, widen)
+    y = _expert_products((silu(h) * u).to(x_flat.dtype), p.wd, widen)  # (E, capacity, d) f32
 
     src = torch.where(keep, dest, 0)
     vals = y.reshape(E * capacity, d)[src] * (top_vals.reshape(-1, 1) * keep.reshape(-1, 1))
@@ -513,13 +540,25 @@ def _moe_local(x_flat: torch.Tensor, p: MoE, cfg,
     out = vals[:, 0]
     for k in range(1, K):
         out = out + vals[:, k]
-    return out.to(x_flat.dtype), aux
+    return out.to(x_flat.dtype), aux, counts
 
 
 def moe_block(x: torch.Tensor, p: MoE, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> ((B, S, d), aux loss), every B * S token of the call
     competing for ``moe_capacity(B * S, cfg)`` slots per expert (the JAX
-    ``moe_block`` without a mesh)."""
+    ``moe_block`` without a mesh); the call's counts go to ``moe_tally``."""
+    out, aux, counts = moe_block_train(x, p, cfg, widen=False)
+    moe_tally(x.device).add_(counts)
+    return out, aux
+
+
+def moe_block_train(x: torch.Tensor, p: MoE, cfg, widen: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training form of ``moe_block``: ((B, S, d), aux loss, the call's
+    (assignments, dropped)), the expert products widened on the card too (a
+    product with a derivative) and nothing added to the tally, so that a
+    block recomputed for its gradient is not counted twice: the training
+    forward adds the counts of each block's first run."""
     B, S, d = x.shape
-    out, aux = _moe_local(x.reshape(B * S, d), p, cfg, moe_capacity(B * S, cfg))
-    return out.reshape(B, S, d), aux
+    out, aux, counts = _moe_local(x.reshape(B * S, d), p, cfg, moe_capacity(B * S, cfg), widen)
+    return out.reshape(B, S, d), aux, counts

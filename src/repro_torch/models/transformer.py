@@ -5,7 +5,8 @@ families. The same ``decode_forward`` serves prefill (S = prompt length,
 cache_len = 0), the draft's one-token steps and SLED verification (S = K
 draft tokens + 1, cache_len = committed length), on a dense cache or, with
 ``slots``, straight against a PagedKVCache pool. A moe layer's aux loss is
-dropped, as the JAX engine drops it: serving reads the hidden states only.
+dropped, as the JAX engine drops it: serving reads the hidden states only
+(``forward``, the training form, returns it).
 
 The vlm family (llava-next) is its dense backbone; its stub frontend's patch
 embeddings (``model_zoo.frontend_stub``) enter ``prefill`` as
@@ -21,12 +22,21 @@ that layer's ``xattn.wk``/``wv``, without their biases, as in JAX) in the
 cache leaves ``cross_k``/``cross_v`` (L, B, F, Hkv, D), bf16 whatever the
 self-attention cache's dtype; ``decode_forward`` reads them, densely or
 through ``slots`` from a PagedKVCache pool, non-causally over all F frames.
+
+Training runs ``forward``, the cache-free form of the JAX package's
+``forward``: every block's self-attention over its fresh K/V (causal),
+the encdec decoder's cross-attention over K/V projected afresh from the
+encoder output, the moe aux losses summed, each block optionally
+recomputed in the backward (``remat``); ``train_lm_head`` takes the
+logits against the live output table, with a gradient to it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import layers as L
@@ -294,8 +304,93 @@ def encode(cfg, params: Transformer, frames: torch.Tensor, *,
     positions = torch.arange(F, dtype=torch.int32, device=x.device)[None].expand(B, F)
     for blk in enc.layers:
         h = L.apply_norm(x, blk.ln1, cfg.norm)
-        x = _mlp_residual(cfg, blk, x, blk.attn.encode(h, positions, chunk=attn_chunk))
+        x = _mlp_residual(cfg, blk, x, blk.attn.fresh(h, positions, chunk=attn_chunk, causal=False))
     return L.apply_norm(x, enc.final_norm, cfg.norm)
+
+
+def forward(
+    cfg,
+    params: Transformer,
+    tokens: torch.Tensor,  # (B, S) int
+    *,
+    embeds_prefix: Optional[torch.Tensor] = None,  # (B, P, d) vlm patch embeddings
+    enc_frames: Optional[torch.Tensor] = None,  # (B, F, d) encdec stub frames
+    remat: bool = False,
+    attn_chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache-free training forward: (hidden (B, S_total, d), aux loss).
+    Use ``train_lm_head`` for the logits.
+
+    The port of the JAX ``forward``: token embeddings (the vlm family's
+    patches ``embeds_prefix`` in front), learned positions where the model
+    has no RoPE, the encdec family's encoder over ``enc_frames`` and each
+    decoder layer's cross-attention over it, every block's self-attention
+    causal over the fresh K/V, the moe blocks' aux losses summed in f32.
+    ``remat`` recomputes each block in the backward
+    (``torch.utils.checkpoint``, as JAX checkpoints its scan body). The
+    embedding and position lookups are ``F.embedding`` (its backward sums
+    a row's contributions in a fixed order on the card); a moe block's
+    (assignments, dropped) go to ``layers.moe_tally`` once per forward,
+    not again when remat recomputes the block."""
+    x = torch.nn.functional.embedding(tokens.long(), params.embed)
+    if embeds_prefix is not None:
+        x = torch.cat([embeds_prefix.to(x.dtype), x], dim=1)
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    if params.pos_embed is not None:
+        idx = positions.long().clamp(0, params.pos_embed.shape[0] - 1)
+        x = x + torch.nn.functional.embedding(idx, params.pos_embed)
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name}: an encdec forward needs enc_frames, the encoder's "
+                             "(B, F, d) frame embeddings (model_zoo.frontend_stub)")
+        enc_out = encode(cfg, params, enc_frames, attn_chunk=attn_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(2, dtype=torch.int64, device=x.device)
+    for blk in params.layers:
+        fn = functools.partial(_train_block, cfg, blk, positions=positions, chunk=attn_chunk)
+        if remat:
+            x, a, c = torch.utils.checkpoint.checkpoint(fn, x, enc_out, use_reentrant=False)
+        else:
+            x, a, c = fn(x, enc_out)
+        aux = aux + a
+        counts = counts + c
+    if cfg.family == "moe":
+        L.moe_tally(x.device).add_(counts)
+    return L.apply_norm(x, params.final_norm, cfg.norm), aux
+
+
+def _train_block(cfg, blk: Block, x: torch.Tensor, enc_out: Optional[torch.Tensor], *,
+                 positions: torch.Tensor, chunk: int):
+    """One block of the training forward: (x, aux, moe counts). The rounding
+    points are the serving block's (x + a kept in f32 for the next norm)."""
+    h = L.apply_norm(x, blk.ln1, cfg.norm)
+    a = blk.attn.fresh(h, positions, chunk=chunk)
+    if enc_out is not None:
+        x_mid = x.float() + a.float()
+        h = L.apply_norm(x_mid, blk.ln_x, cfg.norm).to(x.dtype)
+        x = x_mid.to(x.dtype)
+        a = blk.xattn.cross_fresh(h, enc_out, chunk=chunk)
+    x_mid = x.float() + a.float()
+    h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
+    if cfg.family == "moe":
+        m, aux, counts = L.moe_block_train(h, blk.moe, cfg)
+    else:
+        m = blk.mlp(h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        counts = torch.zeros(2, dtype=torch.int64, device=x.device)
+    return x_mid.to(x.dtype) + m, aux, counts
+
+
+def train_lm_head(params: CausalLM, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits of bf16 hidden states against the live output table (the
+    tied ``embed`` or ``lm_head_w``), with a gradient to it: both operands
+    widened exactly and the products summed in f32, as JAX's einsum with
+    ``preferred_element_type=f32``. The serving ``lm_head`` reads a cached
+    f32 copy, which has no gradient."""
+    w = params.embed.t() if params.cfg.tie_embeddings else params.lm_head_w
+    return h.float() @ w.float()
 
 
 def cross_kv(cfg, params: Transformer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -202,3 +202,16 @@ def test_restore_defaults_to_the_card():
         ckpt.save(d, 1, {"x": torch.zeros(2)})
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ckpt.restore(d, {"x": torch.zeros(2)})
+
+
+def test_a_zero_dim_leaf_restores_zero_dim():
+    """A 0-d leaf (an optimizer's step) keeps its shape both ways."""
+    tree = {"step": torch.tensor(3, dtype=torch.int32), "w": torch.ones(2, dtype=torch.bfloat16)}
+    with tempfile.TemporaryDirectory() as d:
+        ckpt.save(d, 1, tree)
+        back, _ = ckpt.restore(d, tree, device="cpu")
+        theirs, _ = jckpt.restore(d, {"step": jnp.zeros((), jnp.int32),
+                                      "w": jnp.zeros(2, jnp.bfloat16)})
+    assert back["step"].shape == () and back["step"].dtype == torch.int32 and int(back["step"]) == 3
+    assert np.asarray(theirs["step"]).shape == () and int(theirs["step"]) == 3
+    assert bridge.to_tensor(np.asarray(theirs["step"])).shape == ()

@@ -12,16 +12,21 @@ even). Tolerances are those of tests/test_kernels.py: attention bf16 2e-2;
 the SSD scan bf16 4e-2 for y, f32 3e-3 for the state. The attention
 kernel's batch invariance is exact (bit for bit). The cases at head_dim 96
 and G = 48, and the non-causal case, hold attention to ``ATTN_TIGHT``
-(2e-3, chip_smoke.py's bound).
+(2e-3, chip_smoke.py's bound). The attention backward's kernels
+(``attn_bwd``) are held to the plain version's autograd gradient within
+``GRAD_TIGHT`` (2e-2 of the largest element, chip_smoke.py's bound), and
+two calls to each other bit for bit; ``ops.attention`` on CUDA tensors
+runs the kernels, forward and backward.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ref, ssd_scan, verify_attn
+from repro_torch.kernels import attn_bwd, ops, ref, ssd_scan, verify_attn
 
 ATTN_TOL = 2e-2
 ATTN_TIGHT = 2e-3
+GRAD_TIGHT = 2e-2
 SSD_TOL = {"bf16": 4e-2, "f32": 3e-3}
 
 
@@ -422,3 +427,51 @@ def test_cuda_noncausal_attention_matches_plain_version(paged, Sq):
         alone = run(slice(b, b + 1))
         torch.cuda.synchronize()
         assert torch.equal(alone[0], got[b]), b
+
+
+# (B, Sq, Skv, Hq, Hkv, D, kv_valid, causal): qwen2-1.5b's training rows,
+# a causal offset at G 3, a non-causal cross-attention (Sq < Skv), D 16
+_BWD_SHAPES = [
+    (2, 128, 128, 12, 2, 128, [128, 128], True),
+    (2, 29, 70, 24, 8, 64, [70, 45], True),
+    (2, 33, 150, 6, 6, 64, [150, 97], False),
+    (2, 16, 16, 4, 2, 16, [16, 16], True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(_BWD_SHAPES)))
+def test_cuda_attention_backward_matches_plain_gradient(shape):
+    """dQ, dK, dV of the three backward kernels against autograd of the
+    plain attention, within GRAD_TIGHT of the largest element; two calls
+    bit-equal; ops.attention's gradient is the kernels'."""
+    dev = _card()
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = _BWD_SHAPES[shape]
+    rng = np.random.default_rng(41 + shape)
+    q, k, v = (_bf16(rng.standard_normal(s), dev) for s in
+               ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    dout = _bf16(rng.standard_normal((B, Sq, Hq, D)), dev)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.verify_attention_ref(*leaves, kv_valid, causal=causal),
+                               leaves, dout)
+    out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+    got = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, causal=causal)
+    again = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, causal=causal)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    through_ops = torch.autograd.grad(ops.attention(*leaves, kv_valid, causal=causal), leaves,
+                                      dout)
+    torch.cuda.synchronize()
+    for name, g, w, a, o in zip("qkv", got, want, again, through_ops):
+        err = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        assert err <= GRAD_TIGHT, (name, err)
+        assert torch.equal(g, a) and torch.equal(g, o), name
+
+
+@pytest.mark.cuda
+def test_cuda_attention_backward_rejects_unsupported_inputs():
+    dev = _card()
+    q = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16, device=dev)
+    kvv = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_bwd.attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q, kvv)

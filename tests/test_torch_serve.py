@@ -312,7 +312,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.cli, repro_torch.launch.serve, repro_torch.telemetry.top\n"
         "import repro_torch.telemetry.logs, repro_torch.models.hybrid\n"
         "import repro_torch.configs.zamba2_1_2b, repro_torch.configs.whisper_tiny\n"
-        "import repro_torch.checkpoint\n"
+        "import repro_torch.checkpoint, repro_torch.kernels.attn_bwd\n"
+        "import repro_torch.training.train_step, repro_torch.launch.train\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
