@@ -37,10 +37,13 @@ Phases, each of which must pass for the script to exit 0:
                attention backward's three kernels (attn_bwd_stats,
                attn_bwd_dkdv, attn_bwd_dq) at qwen2-1.5b's training rows,
                whisper-tiny's encoder, decoder and cross-attention and small
-               rows at G 3, 4, 8, 48 and D 16, 96: dQ, dK, dV within
-               GRAD_TIGHT of the plain attention's autograd gradient, LSE and
-               Delta within STATS_TIGHT, two calls and an entry alone bit
-               for bit, a causal limit one position late outside the bound;
+               rows at G 3, 4, 8, 48 and D 16, 96 (and the tiling's ragged
+               edges: G 6 at D 128 over 200 positions, D 96 at Sq 100): dQ,
+               dK, dV within GRAD_TIGHT of the plain attention's autograd
+               gradient, LSE and Delta within STATS_TIGHT, two calls and an
+               entry alone bit for bit, a causal limit one position late
+               outside the bound; the registers and spill bytes of the dq and
+               dkdv kernels from nvcc's report;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -321,6 +324,8 @@ SOURCES = {
 SOURCE_OF = {name: SOURCES[next((src for src in ("ssd_scan", "attn_bwd") if name.startswith(src)),
                                 "verify_attn")]
              for name in REPLACES}
+# nvcc's output for each source, kept by build_kernels for the kernels phase
+BUILD_LOGS: dict = {}
 # the families whose recurrent state rounds to bf16 at every commit (see check())
 RECURRENT = ("ssm", "hybrid")
 # the kernel entries a qwen2 serve on a bf16 / an int8 pool must launch
@@ -805,8 +810,11 @@ GRAD_TIGHT = 2e-2
 STATS_TIGHT = 1e-4
 # (label, B, Sq, Skv, Hq, Hkv, D, kv_valid, causal): qwen2-1.5b's training
 # rows (the main case), whisper-tiny's encoder, its decoder's self- and
-# cross-attention at the launcher's B 8, S 128, and small rows at G 3, 4
-# (causal offset, Sq < Skv), 8 and 48 and at D 16 and 96
+# cross-attention at the launcher's B 8, S 128, small rows at G 3, 4
+# (causal offset, Sq < Skv), 8 and 48 and at D 16 and 96, and the edges of
+# the kernels' 64 x 64 tiles: a ragged position block and query tile under
+# a head split (G 6, D 128), and D 96 with Sq not a multiple of 64 (entry
+# 1's first 23 rows see no position)
 BWD_CASES = [
     ("qwen2 train", 8, 128, 128, 12, 2, 128, [128] * 8, True),
     ("whisper encoder", 2, ENCDEC_F, ENCDEC_F, 6, 6, 64, [ENCDEC_F] * 2, False),
@@ -819,6 +827,8 @@ BWD_CASES = [
     ("D 16", 2, 16, 16, 4, 2, 16, [16, 16], True),
     ("D 96", 2, 33, 33, 32, 32, 96, [33, 33], True),
     ("non-causal Sq < Skv", 2, 7, 50, 6, 6, 64, [50, 23], False),
+    ("G 6 ragged", 2, 100, 200, 12, 2, 128, [200, 131], True),
+    ("D 96 ragged", 2, 100, 100, 8, 4, 96, [100, 77], True),
 ]
 
 
@@ -857,6 +867,26 @@ def _rel(got, want) -> float:
     return _abs(got, want) / want.float().abs().max().item()
 
 
+def _ptxas_report(log: str, kernels) -> str:
+    """``kernel<D>: N registers, S spill bytes`` for each instantiation of
+    ``kernels`` in nvcc's -Xptxas -v report (spill stores + loads)."""
+    import re
+
+    out, name, spill = [], None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:  # mangled: <length><name>ILi<D>E
+            entry = re.search(r"\d([a-z_]+)ILi(\d+)E", ln)
+            name = (f"{entry.group(1)}<{entry.group(2)}>"
+                    if entry and entry.group(1) in kernels else None)
+        elif name and "spill stores" in ln:
+            spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
+        elif name and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append(f"{name}: {regs.group(1) if regs else '?'} registers, {spill} spill bytes")
+            name = None
+    return "; ".join(out) or "no report (the library was not rebuilt in this run)"
+
+
 def check_attention_bwd(records: dict) -> None:
     """The three backward kernels against the plain version's autograd
     gradient on the card at BWD_CASES (dQ, dK, dV within GRAD_TIGHT; LSE
@@ -868,6 +898,9 @@ def check_attention_bwd(records: dict) -> None:
     backward less forward), a yardstick the port never calls."""
     from repro_torch.kernels import attn_bwd, ref, verify_attn
 
+    print("kernel attention backward, nvcc: "
+          + _ptxas_report(BUILD_LOGS.get("attn_bwd", ""), ("dkdv_kernel", "dq_kernel")),
+          flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -3103,6 +3136,7 @@ def build_kernels() -> None:
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         results = dict(zip(SOURCES, pool.map(build.build, SOURCES)))
     for name, res in results.items():
+        BUILD_LOGS[name] = res.log
         print(f"build: {name} {res.seconds:.2f} s -> {res.path}", flush=True)
         for ln in res.log.splitlines():
             if "registers" in ln or "smem" in ln or "error" in ln.lower() or "spill" in ln:

@@ -10,17 +10,26 @@ non-causal, and ``kernels/ops.py``'s ``attention`` calls them from its
 backward. Each wrapper adds one to ``LAUNCHES[<its kernel>]`` per launch
 and nowhere else.
 
+``dq`` and ``dkdv`` run every product on the tensor cores and round dS to
+bf16 for its two products (``ref.attention_bwd_split_ref`` restates their
+decomposition). ``dkdv`` runs one block per (64-position block, query
+head, batch entry), as ``dkdv_plan`` says from the shape alone: with G > 1
+each block writes f32 partials to a workspace the call allocates, and the
+last block of each (position block, KV head, entry) sums them in head
+order. It finds out that it is last from a ticket counter, which it
+returns to 0: the counters are the one thing kept between calls, a zeroed
+int32 buffer per device (calls on two streams at once would share it).
+
 The wrappers take CUDA tensors only; the plain versions are
 ``kernels/ref.py``'s ``attention_bwd_stats_ref``, ``attention_bwd_dkdv_ref``
-and ``attention_bwd_dq_ref`` (``attention_bwd_ref`` runs all three).
-Nothing is cached between calls: LSE and Delta are (B, Hq, Sq) f32 tensors
-the call allocates.
+and ``attention_bwd_dq_ref`` (``attention_bwd_ref`` runs all three). LSE
+and Delta are (B, Hq, Sq) f32 tensors the call allocates.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -28,13 +37,49 @@ from repro_torch.kernels import build
 
 LAUNCHES = {"attn_bwd_stats": 0, "attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
 HEAD_DIMS = (16, 64, 96, 128)
+POSITIONS = 64  # KV positions of one dkdv block
 
 _TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = {
     "attn_bwd_stats": [ctypes.c_void_p] * 7 + _TAIL,  # q, k, out, dout, kv_valid, lse, delta
-    "attn_bwd_dkdv": [ctypes.c_void_p] * 9 + _TAIL,   # q, k, v, dout, kv_valid, lse, delta, dk, dv
+    # q, k, v, dout, kv_valid, lse, delta, dk, dv, work, tickets
+    "attn_bwd_dkdv": [ctypes.c_void_p] * 11 + _TAIL,
     "attn_bwd_dq": [ctypes.c_void_p] * 8 + _TAIL,     # q, k, v, dout, kv_valid, lse, delta, dq
 }
+_TICKETS: Dict[torch.device, torch.Tensor] = {}
+
+
+class DkdvPlan(NamedTuple):
+    """How ``attn_bwd_dkdv`` cuts the work of one batch entry."""
+    position_blocks: int          # ceil(Skv / 64): the grid's x
+    query_heads: int              # one block per query head: the grid's y
+    work_shape: Tuple[int, ...]   # f32 partials (Hkv, blocks, G, dK|dV, 64, D); () when G = 1
+    tickets: int                  # counters, one per (KV head, block); 0 when G = 1
+
+
+def dkdv_plan(Sq: int, Skv: int, Hq: int, Hkv: int, D: int) -> DkdvPlan:
+    """The split of ``dkdv`` for one batch entry, and so its sum order: a
+    function of the shape that takes no batch size, so an entry's gradient
+    is the same bits alone and in any batch."""
+    blocks = -(-Skv // POSITIONS)
+    G = Hq // Hkv
+    if G == 1:
+        return DkdvPlan(blocks, Hq, (), 0)
+    return DkdvPlan(blocks, Hq, (Hkv, blocks, G, 2, POSITIONS, D), Hkv * blocks)
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` zeroed int32 counters on ``device``: the kernel returns each one
+    it takes to 0, so one buffer serves every call. A buffer first needed
+    inside a CUDA graph's capture is that call's own (its zeroing is
+    captured with it)."""
+    have = _TICKETS.get(device)
+    if have is None or have.numel() < n:
+        fresh = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        if torch.cuda.is_current_stream_capturing():
+            return fresh
+        _TICKETS[device] = have = fresh
+    return have
 
 
 def reset_launches() -> None:
@@ -114,10 +159,17 @@ def dkdv(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True) -> Tuple[t
     """(dK, dV), each shaped and typed as k."""
     dims = _check(q, k, v, kv_valid, (dout,))
     _check_stats(q, lse, delta)
+    B, Sq, Hq, Hkv, D, Skv = dims
+    plan = dkdv_plan(Sq, Skv, Hq, Hkv, D)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    work = tickets = None
+    if plan.work_shape:
+        work = torch.empty((B, *plan.work_shape), dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, B * plan.tickets)
     _launch("attn_bwd_dkdv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dims=dims, causal=causal)
+            dv.data_ptr(), None if work is None else work.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), dims=dims, causal=causal)
     return dk, dv
 
 

@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), shared
-// by verify_attn.cu (the copies, the bf16 packing) and ssd_scan.cu (the
-// tensor-core products); kernels/build.py hashes this header into each
-// library's name, so an edit rebuilds both.
+// by verify_attn.cu (the copies, the bf16 packing), ssd_scan.cu (the
+// tensor-core products) and attn_bwd.cu (all of them, and ldmatrix);
+// kernels/build.py hashes this header into each library's name, so an edit
+// rebuilds all three.
 //
 // Fragment layouts of mma.sync (g = lane / 4, t = lane % 4; row-major A,
 // column-major B, i.e. B given as B[k][n]):
@@ -65,6 +66,33 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: four (x4) or two (x2) 8x8 bf16 matrices from shared memory, one
+// register each; lane l gives the address of row l % 8 of matrix l / 8 (x2:
+// lanes 0-15), each row 16 contiguous bytes. Lane l receives (row l / 4,
+// columns 2(l % 4), 2(l % 4) + 1) of each matrix, or with .trans (rows
+// 2(l % 4), 2(l % 4) + 1, column l / 4): a row-major tile gives an A or a
+// column-major B fragment as stored, and the other one transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
 }
 
 // 16 bytes global -> shared without passing through registers; live ==

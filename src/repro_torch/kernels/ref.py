@@ -24,13 +24,15 @@ zero-padded row changes neither the outputs nor the state).
 The CPU path of the port runs these; the CUDA path never calls them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
 
-Two more plain versions restate the kernels' own decompositions and serve
-the tests only (nothing on a serving path calls them):
+Three more plain versions restate the kernels' own decompositions and
+serve the tests only (nothing on a serving or training path calls them):
 ``verify_attention_split_ref`` cuts the cache into fixed splits, each
-rounded at its running max, and merges them in split order, and
-``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
-P-slice by P-slice, optionally with the chunk's running sum in the kernel's
-order (``warp_scan_cumsum``).
+rounded at its running max, and merges them in split order,
+``attention_bwd_split_ref`` is the backward kernels' (dS rounded to bf16
+for dQ and dK, dK and dV as per-query-head f32 partials summed in head
+order), and ``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and
+the rest P-slice by P-slice, optionally with the chunk's running sum in the
+kernel's order (``warp_scan_cumsum``).
 """
 from __future__ import annotations
 
@@ -294,6 +296,30 @@ def attention_bwd_ref(
     dk, dv = attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
     dq = attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
     return dq, dk, dv
+
+
+def attention_bwd_split_ref(q, k, v, out, dout, kv_valid, *, causal: bool = True):
+    """(dQ, dK, dV) in the decomposition of ``kernels/csrc/attn_bwd.cu``'s
+    dq and dkdv kernels (tests only): ``attention_bwd_ref``'s LSE, Delta, P
+    and dS in f32, then dS rounded to bf16 (round to nearest even) for dQ =
+    bf16(dS) K * scale and dK = bf16(dS)^T Q * scale, and dK and dV taken
+    per query head as f32 partials, summed over the G heads of their KV head
+    in head order (head 0 first) before the scale and the rounding to the
+    output dtype."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    lse, delta = attention_bwd_stats_ref(q, k, out, dout, kv_valid, causal=causal)
+    p, ds, dog = _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal)
+    ds = ds.to(torch.bfloat16).float()
+    qg = q.reshape(dog.shape).float()
+    dv_parts = torch.einsum("bshgc,bshgd->bchgd", p.to(v.dtype).float(), dog)
+    dk_parts = torch.einsum("bshgc,bshgd->bchgd", ds, qg)
+    dk, dv = dk_parts[:, :, :, 0], dv_parts[:, :, :, 0]
+    for g in range(1, Hq // Hkv):
+        dk, dv = dk + dk_parts[:, :, :, g], dv + dv_parts[:, :, :, g]
+    dq = torch.einsum("bshgc,bchd->bshgd", ds, k.float()) * _bwd_scale(q)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), (dk * _bwd_scale(q)).to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_scan_ref(

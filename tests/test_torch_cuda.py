@@ -430,12 +430,16 @@ def test_cuda_noncausal_attention_matches_plain_version(paged, Sq):
 
 
 # (B, Sq, Skv, Hq, Hkv, D, kv_valid, causal): qwen2-1.5b's training rows,
-# a causal offset at G 3, a non-causal cross-attention (Sq < Skv), D 16
+# a causal offset at G 3, a non-causal cross-attention (Sq < Skv), D 16, and
+# the edges of the kernels' 64 x 64 tiles: a ragged position block and query
+# tile under a head split (G 6, D 128), D 96 with Sq not a multiple of 64
 _BWD_SHAPES = [
     (2, 128, 128, 12, 2, 128, [128, 128], True),
     (2, 29, 70, 24, 8, 64, [70, 45], True),
     (2, 33, 150, 6, 6, 64, [150, 97], False),
     (2, 16, 16, 4, 2, 16, [16, 16], True),
+    (2, 100, 200, 12, 2, 128, [200, 131], True),
+    (2, 100, 100, 8, 4, 96, [100, 77], True),
 ]
 
 

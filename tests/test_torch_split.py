@@ -3,16 +3,26 @@ plain versions and the JAX package.
 
 ``ref.verify_attention_split_ref`` is the attention kernel's split-KV
 algorithm (fixed splits computed side by side, each rounded at its running
-max, merged in split order); ``ref.ssd_scan_sliced_ref`` is the SSD
-kernel's (C.B^T once per (b, chunk), the rest in P slices). Both serve the
-tests only. Inputs come from a numpy seed. Tolerances:
+max, merged in split order); ``ref.attention_bwd_split_ref`` is the
+backward kernels' (dS rounded to bf16 for dQ and dK, dK and dV as
+per-query-head f32 partials summed in head order); ``ref.ssd_scan_sliced_ref``
+is the SSD kernel's (C.B^T once per (b, chunk), the rest in P slices). All
+serve the tests only. Inputs come from a numpy seed. Tolerances:
   - against the port's plain versions: attention with ``split`` equal to
     the plain version's ``block_k`` takes the same steps, so it must agree
     bit for bit (the kernel relies on it); the SSD scan 1e-5 relative and
-    absolute (all f32, sums in another order);
+    absolute (all f32, sums in another order); the backward
+    ``SPLIT_BWD_TOL`` (1e-2 of each gradient's largest element, half of
+    chip_smoke.py's GRAD_TIGHT: the one new rounding, dS to bf16, moves
+    dQ and dK by one or two bf16 steps of their largest element);
   - against the JAX package, those of tests/test_kernels.py: attention
-    bf16 2e-2, f32 2e-3; SSD f32 3e-3.
+    bf16 2e-2, f32 2e-3; SSD f32 3e-3; the backward bf16 2e-2 of each
+    gradient's largest element (``jax.vjp`` of the XLA mirror
+    ``flash_attention`` on the same bf16 inputs).
 """
+import inspect
+
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -20,12 +30,14 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro.models import mamba2 as jmamba2
-from repro_torch.kernels import ref
+from repro_torch.kernels import attn_bwd, ref
 
 JAX_TOL = {"bf16": 2e-2, "f32": 2e-3}
 SSD_TIGHT = 1e-5
 SSD_JAX_TOL = 3e-3
+SPLIT_BWD_TOL = 1e-2
 
 
 def _torch(a: np.ndarray, dt: str) -> torch.Tensor:
@@ -170,3 +182,110 @@ def test_kernel_cumsum_order_within_chip_tolerance():
     yp, hp = ref.ssd_scan_ref(*args, chunk=256)
     for got, want, tol in ((y, yp, 4e-2), (h, hp, 3e-3)):
         assert ((got.float() - want.float()).abs() / (1 + want.float().abs())).max() <= tol
+
+
+# (B, Sq, Skv, Hq, Hkv, D, kv_valid, causal): G 1, 6 and 48; D 16, 64, 96, 128
+BWD_CASES = [
+    (2, 16, 16, 2, 2, 16, [16, 16], True),      # G 1, D 16, Sq = Skv = kv_valid
+    (2, 20, 40, 12, 2, 128, [40, 27], True),    # G 6 (qwen2's), causal offset, ragged
+    (1, 16, 40, 48, 1, 128, [40], True),        # G 48 (granite-34b's)
+    (2, 7, 50, 6, 6, 64, [50, 23], False),      # non-causal, Sq < Skv (cross-attention)
+    (2, 33, 33, 4, 2, 96, [33, 33], True),      # D 96
+]
+
+
+def _rel(got: torch.Tensor, want) -> float:
+    """max |got - want| over max |want|."""
+    want = np.asarray(want.float().numpy() if isinstance(want, torch.Tensor) else want,
+                      np.float32)
+    return float(np.abs(got.float().numpy() - want).max() / np.abs(want).max())
+
+
+def _jax_attention_grads(arrs, kv_valid, causal):
+    """(dQ, dK, dV) by jax.vjp of the XLA mirror flash_attention, the query
+    rows at the causal offset kv_valid - Sq + i (compiled at XLA's backend
+    optimisation level 0, as tests/test_torch_training.py does)."""
+    Sq = arrs[0].shape[1]
+    kv = jnp.asarray(kv_valid, jnp.int32)
+    q_pos = kv[:, None] - Sq + jnp.arange(Sq)[None]
+
+    def grads(q, k, v, dout):
+        _, vjp = jax.vjp(lambda q, k, v: jlayers.flash_attention(
+            q, k, v, q_pos=q_pos, kv_valid=kv, causal=causal), q, k, v)
+        return vjp(dout)
+
+    args = [jnp.asarray(a.astype(ml_dtypes.bfloat16)) for a in arrs]
+    fn = jax.jit(grads).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    return [np.asarray(g, np.float32) for g in fn(*args)]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_split_attention_bwd_matches_plain_and_jax(case):
+    """The backward kernels' decomposition against the plain backward
+    (SPLIT_BWD_TOL) and JAX's gradient (bf16 2e-2); a causal limit one
+    position late is outside the JAX bound."""
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = case
+    rng = np.random.default_rng(Sq + Skv + Hq + D)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D), (B, Sq, Hq, D))]
+    q, k, v, dout = (_torch(a, "bf16") for a in arrs)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32)
+    out = ref.verify_attention_ref(q, k, v, kv_valid, causal=causal)
+    got = ref.attention_bwd_split_ref(q, k, v, out, dout, kv_valid, causal=causal)
+    plain = ref.attention_bwd_ref(q, k, v, out, dout, kv_valid, causal=causal)
+    want = _jax_attention_grads(arrs, kvv, causal)
+    for name, g, p, w in zip("qkv", got, plain, want):
+        assert g.dtype == torch.bfloat16 and g.shape == p.shape, name
+        assert _rel(g, p) <= SPLIT_BWD_TOL, (name, _rel(g, p))
+        assert _rel(g, w) <= JAX_TOL["bf16"], (name, _rel(g, w))
+    if causal:
+        late = ref.attention_bwd_split_ref(q, k, v, out, dout, kv_valid + 1, causal=causal)
+        worst = max(_rel(g, w) for g, w in zip(late, want))
+        assert worst > JAX_TOL["bf16"], worst
+
+
+def test_split_attention_bwd_dv_is_the_plain_dv_summed_by_head():
+    """dV has no new rounding: at G 1 the split version's dV is the plain
+    version's bit for bit (the same products; only the head sum differs
+    at G > 1)."""
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (_torch(rng.standard_normal(s).astype(np.float32), "bf16") for s in
+                     ((2, 9, 3, 16), (2, 21, 3, 16), (2, 21, 3, 16), (2, 9, 3, 16)))
+    kv_valid = torch.tensor([21, 12], dtype=torch.int32)
+    out = ref.verify_attention_ref(q, k, v, kv_valid)
+    got = ref.attention_bwd_split_ref(q, k, v, out, dout, kv_valid)
+    plain = ref.attention_bwd_ref(q, k, v, out, dout, kv_valid)
+    assert torch.equal(got[2], plain[2])
+
+
+# (Sq, Skv, Hq, Hkv, D, blocks a batch entry): qwen2-1.5b's training rows,
+# whisper-tiny's encoder, the G 48 case, G 1
+PLANS = [
+    ((128, 128, 12, 2, 128), 24),
+    ((1500, 1500, 6, 6, 64), 144),
+    ((16, 40, 48, 1, 128), 48),
+    ((33, 33, 32, 32, 96), 32),
+]
+
+
+@pytest.mark.parametrize("shape,blocks", PLANS)
+def test_dkdv_plan_takes_no_batch_size(shape, blocks):
+    """The dkdv kernel's split (and so its sum order) is a function of
+    (Sq, Skv, Hq, Hkv, D) alone: the plan's signature has no batch size,
+    and qwen2's rows give 2 x 12 x 8 = 192 blocks at B 8, the encoder's 288
+    at B 2, G 48's 48 at B 1, with a workspace of B Skv Hq D 8 bytes
+    (Skv rounded up to 64) only where G > 1."""
+    assert list(inspect.signature(attn_bwd.dkdv_plan).parameters) == ["Sq", "Skv", "Hq", "Hkv", "D"]
+    Sq, Skv, Hq, Hkv, D = shape
+    plan = attn_bwd.dkdv_plan(*shape)
+    assert plan.position_blocks * plan.query_heads == blocks
+    assert plan.position_blocks == -(-Skv // attn_bwd.POSITIONS) and plan.query_heads == Hq
+    if Hq == Hkv:
+        assert plan.work_shape == () and plan.tickets == 0
+    else:
+        assert plan.work_shape == (Hkv, plan.position_blocks, Hq // Hkv, 2, 64, D)
+        assert int(np.prod(plan.work_shape)) * 4 == plan.position_blocks * 64 * Hq * D * 8
+        assert plan.tickets == Hkv * plan.position_blocks
+    if shape == (128, 128, 12, 2, 128):  # qwen2's training rows, B 8
+        assert 8 * blocks == 192 and 8 * int(np.prod(plan.work_shape)) * 4 == 12_582_912
