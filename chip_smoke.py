@@ -34,16 +34,21 @@ Phases, each of which must pass for the script to exit 0:
                encoder's 1500 rows), and the causal result at the
                encoder's shape far from the non-causal one (a flag the
                kernel ignored would pass neither); since training, the
-               attention backward's three kernels (attn_bwd_stats,
-               attn_bwd_dkdv, attn_bwd_dq) at qwen2-1.5b's training rows,
+               attention backward's three kernels (attn_bwd_delta,
+               attn_bwd_dkdv, attn_bwd_dq) on the LSE the forward kernel
+               keeps (verify_attention_packed(return_lse=True), its output
+               the same bits as without it) at qwen2-1.5b's training rows,
                whisper-tiny's encoder, decoder and cross-attention and small
                rows at G 3, 4, 8, 48 and D 16, 96 (and the tiling's ragged
                edges: G 6 at D 128 over 200 positions, D 96 at Sq 100): dQ,
                dK, dV within GRAD_TIGHT of the plain attention's autograd
                gradient, LSE and Delta within STATS_TIGHT, two calls and an
                entry alone bit for bit, a causal limit one position late
-               outside the bound; the registers and spill bytes of the dq and
-               dkdv kernels from nvcc's report;
+               outside the bound; the three kernels' graph ms summed beside
+               SDPA's whole backward, and the forward's with and without the
+               LSE beside SDPA's forward at the three training shapes; the
+               registers and spill bytes of the backward kernels from nvcc's
+               report;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -314,7 +319,7 @@ REPLACES = {
     # attention's gradient (training): no Pallas kernel has one; JAX
     # autodiffs its XLA mirror
     **{name: "no Pallas counterpart: JAX autodiffs src/repro/models/layers.py:215"
-       for name in ("attn_bwd_stats", "attn_bwd_dkdv", "attn_bwd_dq")},
+       for name in ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")},
 }
 SOURCES = {
     "verify_attn": "src/repro_torch/kernels/csrc/verify_attn.cu",
@@ -374,15 +379,16 @@ def _graph_ms(calls, reps: int = 5) -> float:
 
 
 def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2,
-           causal=True) -> tuple:
+           causal=True, lse=False) -> tuple:
     """Least time for one attention call: the bytes it must move once at the
     HBM rate, or the two products' flops at the bf16 peak, whichever is
     larger. K/V bytes count each distinct cache row once, as far as the
     largest kv_valid any entry gives it (duplicate scratch slots read one
     row), at the cache's element size, plus an int8 row's two f32 scales per
-    head; q is read and out written once; kv_valid (and slots, for a paged
-    call) read once. The flops count the positions each query row sees:
-    up to its own position when causal, all kv_valid of its row when not."""
+    head; q is read and out written once (and with ``lse`` each row's f32
+    LSE written once); kv_valid (and slots, for a paged call) read once.
+    The flops count the positions each query row sees: up to its own
+    position when causal, all kv_valid of its row when not."""
     B, Sq, Hq, D = q.shape
     rows = slots_host if slots_host is not None else range(B)
     seen_row: dict = {}
@@ -392,6 +398,8 @@ def _bound(q, kv_valid_host, slots_host, skv, hkv, group, kv_elem_bytes=2,
     if kv_elem_bytes == 1:
         kv_bytes += len(seen_row) * hkv * 4 * 2
     io_bytes = 2 * q.numel() * 2 + B * 4 * (1 if slots_host is None else 2)
+    if lse:
+        io_bytes += B * Sq * Hq * 4
     flops = 0
     for n in kv_valid_host:
         n = min(skv, int(n))
@@ -837,7 +845,8 @@ def _bwd_bound(kind, B, Sq, Skv, Hq, Hkv, D, kvv, causal) -> tuple:
     inputs read, its outputs written; K and V as far as the largest
     kv_valid) at the HBM rate, or its products' operations over the visible
     (row, position) pairs at the bf16 peak, whichever is larger: per pair
-    2D for S (stats), 2D each for S, dP, dV, dK (dkdv), for S, dP, dQ (dq)."""
+    2D each for S, dP, dV, dK (dkdv), for S, dP, dQ (dq); delta reads O and
+    dO and writes Delta, 2D operations a row and head."""
     pairs = 0
     for n in kvv:
         n = min(Skv, int(n))
@@ -848,7 +857,7 @@ def _bwd_bound(kind, B, Sq, Skv, Hq, Hkv, D, kvv, causal) -> tuple:
     kv = B * min(Skv, max(kvv)) * Hkv * D * 2
     stats = B * Hq * Sq * 4               # one (B, Hq, Sq) f32 tensor
     nbytes, ops = {
-        "attn_bwd_stats": (3 * rows + kv + 2 * stats, 2 * D * pairs),
+        "attn_bwd_delta": (2 * rows + stats, 2 * D * B * Sq * Hq),
         "attn_bwd_dkdv": (2 * rows + 2 * kv + 2 * stats + 2 * B * Skv * Hkv * D * 2,
                           8 * D * pairs),
         "attn_bwd_dq": (3 * rows + 2 * kv + 2 * stats, 6 * D * pairs),
@@ -888,19 +897,24 @@ def _ptxas_report(log: str, kernels) -> str:
 
 
 def check_attention_bwd(records: dict) -> None:
-    """The three backward kernels against the plain version's autograd
-    gradient on the card at BWD_CASES (dQ, dK, dV within GRAD_TIGHT; LSE
-    and Delta against attention_bwd_stats_ref within STATS_TIGHT), two calls
-    bit-equal, the first and last batch entries alone equal to the same
-    entries in the batch; the off-by-one control at every causal case;
-    graph and eager ms beside the bound, the plain parts' ms and SDPA's
-    autograd backward on the same rows (eager; by graph as forward and
-    backward less forward), a yardstick the port never calls."""
+    """The three backward kernels, on the LSE the forward kernel keeps,
+    against the plain version's autograd gradient on the card at BWD_CASES
+    (dQ, dK, dV within GRAD_TIGHT; the forward's output with the LSE equal
+    to its output without it bit for bit; the LSE against attention_lse_ref
+    and Delta against attention_bwd_delta_ref within STATS_TIGHT), two calls
+    bit-equal, the first and last batch entries alone (forward and
+    backward) equal to the same entries in the batch; the off-by-one control
+    at every causal case; graph and eager ms beside the bound, the plain
+    parts' ms and SDPA's autograd backward on the same rows (eager; by graph
+    as forward and backward less forward), a yardstick the port never
+    calls, and the three kernels' graph ms summed beside it; at the three
+    training shapes (the first three rows) the forward's graph ms with and
+    without the LSE beside SDPA's forward."""
     from repro_torch.kernels import attn_bwd, ref, verify_attn
 
     print("kernel attention backward, nvcc: "
-          + _ptxas_report(BUILD_LOGS.get("attn_bwd", ""), ("dkdv_kernel", "dq_kernel")),
-          flush=True)
+          + _ptxas_report(BUILD_LOGS.get("attn_bwd", ""),
+                          ("delta_kernel", "dkdv_kernel", "dq_kernel")), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -911,28 +925,36 @@ def check_attention_bwd(records: dict) -> None:
     for idx, (label, B, Sq, Skv, Hq, Hkv, D, kvv, causal) in enumerate(BWD_CASES):
         q, k, v = rnd(B, Sq, Hq, D), rnd(B, Skv, Hkv, D), rnd(B, Skv, Hkv, D)
         kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
-        out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+        kw = dict(causal=causal)
+        fwd = lambda: verify_attn.verify_attention_packed(q, k, v, kv_valid, **kw)  # noqa: E731
+        fwd_lse = lambda: verify_attn.verify_attention_packed(  # noqa: E731
+            q, k, v, kv_valid, return_lse=True, **kw)
+        out, lse = fwd_lse()
+        out_no_lse = fwd()
         dout = rnd(B, Sq, Hq, D)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         want = torch.autograd.grad(
-            ref.verify_attention_ref(*leaves, kv_valid, causal=causal), leaves, dout)
-        kw = dict(causal=causal)
-        stats = lambda: attn_bwd.stats(q, k, out, dout, kv_valid, **kw)  # noqa: E731
-        lse, delta = stats()
-        dkdv = lambda: attn_bwd.dkdv(q, k, v, dout, kv_valid, lse, delta, **kw)  # noqa: E731
-        dq = lambda: attn_bwd.dq(q, k, v, dout, kv_valid, lse, delta, **kw)  # noqa: E731
+            ref.verify_attention_ref(*leaves, kv_valid, **kw), leaves, dout)
+        delta = lambda: attn_bwd.delta(out, dout)  # noqa: E731
+        dl = delta()
+        dkdv = lambda: attn_bwd.dkdv(q, k, v, dout, kv_valid, lse, dl, **kw)  # noqa: E731
+        dq = lambda: attn_bwd.dq(q, k, v, dout, kv_valid, lse, dl, **kw)  # noqa: E731
         (dk, dv), dqv = dkdv(), dq()
         torch.cuda.synchronize()
-        plain_stats = ref.attention_bwd_stats_ref(q, k, out, dout, kv_valid, **kw)
-        errs = {"lse": _rel(lse, plain_stats[0]), "delta": _rel(delta, plain_stats[1]),
+        if not torch.equal(out, out_no_lse):
+            raise AssertionError(f"attention backward {label}: the forward's output with the "
+                                 "LSE differs from its output without it")
+        plain_lse = ref.attention_lse_ref(q, k, kv_valid, **kw)
+        plain_delta = ref.attention_bwd_delta_ref(out, dout)
+        errs = {"lse": _rel(lse, plain_lse), "delta": _rel(dl, plain_delta),
                 "dq": _rel(dqv, want[0]), "dk": _rel(dk, want[1]), "dv": _rel(dv, want[2])}
         plain_bwd = ref.attention_bwd_ref(q, k, v, out, dout, kv_valid, **kw)
         errs.update({f"{n}_vs_ref_bwd": _rel(g, w) for n, g, w in
                      zip(("dq", "dk", "dv"), (dqv, dk, dv), plain_bwd)})
-        abs_errs = {"stats": max(_abs(lse, plain_stats[0]), _abs(delta, plain_stats[1])),
+        abs_errs = {"delta": _abs(dl, plain_delta),
                     "dkdv": max(_abs(dk, want[1]), _abs(dv, want[2])), "dq": _abs(dqv, want[0])}
-        rel_errs = {"stats": max(errs["lse"], errs["delta"]),
-                    "dkdv": max(errs["dk"], errs["dv"]), "dq": errs["dq"]}
+        rel_errs = {"delta": errs["delta"], "dkdv": max(errs["dk"], errs["dv"]),
+                    "dq": errs["dq"]}
         bad = [n for n in ("dq", "dk", "dv") if not errs[n] <= GRAD_TIGHT]
         bad += [n for n in ("lse", "delta") if not errs[n] <= STATS_TIGHT]
         if bad:
@@ -945,14 +967,17 @@ def check_attention_bwd(records: dict) -> None:
                 raise AssertionError(f"attention backward {label}: a limit one position late "
                                      f"is only {errs['late_by_one']} off (<= {GRAD_TIGHT})")
         # determinism and batch invariance
-        again = (*stats(), *dkdv(), dq())
-        for name, a, b in zip(("lse", "delta", "dk", "dv", "dq"), again, (lse, delta, dk, dv, dqv)):
+        again = (*fwd_lse(), delta(), *dkdv(), dq())
+        for name, a, b in zip(("out", "lse", "delta", "dk", "dv", "dq"), again,
+                              (out, lse, dl, dk, dv, dqv)):
             if not torch.equal(a, b):
                 raise AssertionError(f"attention backward {label}: {name} differs between calls")
         for b in {0, B - 1}:
-            one = [t[b:b + 1].contiguous() for t in (q, k, v, out, dout, kv_valid)]
-            gq, gk, gv = attn_bwd.attention_bwd(*one, **kw)
-            if not (torch.equal(gq[0], dqv[b]) and torch.equal(gk[0], dk[b])
+            q1, k1, v1, dout1, kv1 = (t[b:b + 1].contiguous() for t in (q, k, v, dout, kv_valid))
+            o1, l1 = verify_attn.verify_attention_packed(q1, k1, v1, kv1, return_lse=True, **kw)
+            gq, gk, gv = attn_bwd.attention_bwd(q1, k1, v1, o1, dout1, kv1, l1, **kw)
+            if not (torch.equal(o1[0], out[b]) and torch.equal(l1[0], lse[b])
+                    and torch.equal(gq[0], dqv[b]) and torch.equal(gk[0], dk[b])
                     and torch.equal(gv[0], dv[b])):
                 raise AssertionError(f"attention backward {label}: entry {b} alone differs "
                                      "from the batch")
@@ -970,26 +995,29 @@ def check_attention_bwd(records: dict) -> None:
         lib_bwd = lambda: torch.autograd.grad(o_lib, eager, dout_h,  # noqa: E731
                                               retain_graph=True)
         lib_ms = _time_ms(lib_bwd, iters)
-        lib_graph = None
+        lib_graph = lib_fwd_graph = None
         # SDPA's backward captured with leaves the eager calls never touched
         # (the first case's capture was invalidated when it shared them)
         try:
             graphed = leaves()
             lib_fwd = lambda: sdpa(*graphed, attn_mask=sdpa_args[3])  # noqa: E731
             lib_both = lambda: torch.autograd.grad(lib_fwd(), graphed, dout_h)  # noqa: E731
-            lib_graph = _graph_ms([lib_both] * calls) - _graph_ms([lib_fwd] * calls)
+            lib_fwd_graph = _graph_ms([lib_fwd] * calls)
+            lib_graph = _graph_ms([lib_both] * calls) - lib_fwd_graph
         except Exception as e:  # noqa: BLE001 - a yardstick only
             print(f"kernel attention backward {label}: SDPA backward not captured in a graph "
                   f"({type(e).__name__}: {str(e).splitlines()[0]}); not measured", flush=True)
         plain = {
-            "attn_bwd_stats": lambda: ref.attention_bwd_stats_ref(q, k, out, dout, kv_valid, **kw),
+            "attn_bwd_delta": lambda: ref.attention_bwd_delta_ref(out, dout),
             "attn_bwd_dkdv": lambda: ref.attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse,
-                                                                delta, **kw),
-            "attn_bwd_dq": lambda: ref.attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta,
+                                                                dl, **kw),
+            "attn_bwd_dq": lambda: ref.attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, dl,
                                                             **kw),
         }
-        for name, fn, err_key in (("attn_bwd_stats", stats, "stats"),
-                                  ("attn_bwd_dkdv", dkdv, "dkdv"), ("attn_bwd_dq", dq, "dq")):
+        graph_sum = 0.0
+        for name, fn in (("attn_bwd_delta", delta), ("attn_bwd_dkdv", dkdv),
+                         ("attn_bwd_dq", dq)):
+            err_key = name[len("attn_bwd_"):]
             bound_ms, bound_by = _bwd_bound(name, B, Sq, Skv, Hq, Hkv, D, kvv, causal)
             line = {"case": idx, "name": name, "shape": f"{label}: B={B} Sq={Sq} Skv={Skv} "
                     f"Hq={Hq} Hkv={Hkv} D={D} kv_valid={kvv}{'' if causal else ' non-causal'}",
@@ -1000,9 +1028,28 @@ def check_attention_bwd(records: dict) -> None:
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     # SDPA's backward computes dQ, dK and dV at once: the
                     # yardstick of the three kernels' sum, beside dq and dkdv
-                    "library_ms": None if name == "attn_bwd_stats" else lib_ms,
-                    "library_graph_ms": None if name == "attn_bwd_stats" else lib_graph}
+                    "library_ms": None if name == "attn_bwd_delta" else lib_ms,
+                    "library_graph_ms": None if name == "attn_bwd_delta" else lib_graph}
+            graph_sum += line["graph_ms"]
             _record(records, name, idx, 0, line)
+        lib_txt = ("not measured" if lib_graph is None
+                   else f"{lib_graph:.4f} ms (the kernels {graph_sum / lib_graph:.3f}x)")
+        print(f"kernel attention backward {label}: delta + dkdv + dq {graph_sum:.4f} ms by "
+              f"graph, SDPA's whole backward {lib_txt}", flush=True)
+        if idx < 3:  # the training shapes: the forward with and without the LSE
+            bound_ms, bound_by = _bound(q, kvv, None, Skv, Hkv, Hq // Hkv, causal=causal,
+                                        lse=True)
+            fline = {"shape": f"{label}: B={B} Sq={Sq} Skv={Skv} Hq={Hq} Hkv={Hkv} D={D}"
+                     f"{'' if causal else ' non-causal'}",
+                     "graph_ms": _graph_ms([fwd] * calls),
+                     "lse_graph_ms": _graph_ms([fwd_lse] * calls),
+                     "ms": _time_ms(fwd, iters), "lse_ms": _time_ms(fwd_lse, iters),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_graph_ms": lib_fwd_graph, "lse_max_abs_err": _abs(lse, plain_lse),
+                     "lse_max_rel_err": errs["lse"]}
+            fline["lse_over_without"] = fline["lse_graph_ms"] / fline["graph_ms"]
+            records["verify_attention_packed"].setdefault("training_forward", []).append(fline)
+            print("kernel attention forward", json.dumps(fline), flush=True)
 
 
 def check_kernels(records: dict) -> None:
@@ -3018,7 +3065,7 @@ def train_qwen2(records: dict) -> None:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train qwen2: losses {losses} not finite and falling")
     n = cfg.num_layers * TRAIN_STEPS
-    _record_launches("train qwen2", records, {"attn_bwd_stats": n, "attn_bwd_dkdv": n,
+    _record_launches("train qwen2", records, {"attn_bwd_delta": n, "attn_bwd_dkdv": n,
                                               "attn_bwd_dq": n, "verify_attention_packed": 2 * n},
                      launches)
 
@@ -3068,7 +3115,7 @@ def train_whisper(records: dict) -> None:
 
     cfg = get_config("whisper-tiny")
     enc, dec = cfg.encoder_layers, cfg.num_layers
-    per_step = {"attn_bwd_stats": enc + 2 * dec, "attn_bwd_dkdv": enc + 2 * dec,
+    per_step = {"attn_bwd_delta": enc + 2 * dec, "attn_bwd_dkdv": enc + 2 * dec,
                 "attn_bwd_dq": enc + 2 * dec, "verify_attention_packed": 2 * dec,
                 "verify_attention_packed_noncausal": enc + 2 * dec}
 

@@ -1,12 +1,14 @@
 """Launch wrappers for the Hopper attention-backward kernels.
 
 ``attention_bwd`` runs the three kernels of ``csrc/attn_bwd.cu`` on
-PyTorch's current stream: ``stats`` (each query row's log-sum-exp and
-Delta = rowsum(dO * O), f32), ``dkdv`` (dK and dV of each 64-position KV
-block, summed over the G query heads of its KV head) and ``dq``. They are
-the gradient of the forward kernel's dense entry over fresh K/V
+PyTorch's current stream: ``delta`` (Delta = rowsum(dO * O) of each query
+row, f32), ``dkdv`` (dK and dV of each 64-position KV block, summed over
+the G query heads of its KV head) and ``dq``. They are the gradient of the
+forward kernel's dense entry over fresh K/V
 (``verify_attn.verify_attention_packed`` with no layer), causal-offset or
-non-causal, and ``kernels/ops.py``'s ``attention`` calls them from its
+non-causal, and take each row's log-sum-exp from that forward
+(``return_lse=True``), which computes it in its merge: no kernel here
+computes it again. ``kernels/ops.py``'s ``attention`` calls them from its
 backward. Each wrapper adds one to ``LAUNCHES[<its kernel>]`` per launch
 and nowhere else.
 
@@ -21,9 +23,9 @@ returns to 0: the counters are the one thing kept between calls, a zeroed
 int32 buffer per device (calls on two streams at once would share it).
 
 The wrappers take CUDA tensors only; the plain versions are
-``kernels/ref.py``'s ``attention_bwd_stats_ref``, ``attention_bwd_dkdv_ref``
-and ``attention_bwd_dq_ref`` (``attention_bwd_ref`` runs all three). LSE
-and Delta are (B, Hq, Sq) f32 tensors the call allocates.
+``kernels/ref.py``'s ``attention_bwd_delta_ref``, ``attention_bwd_dkdv_ref``
+and ``attention_bwd_dq_ref`` (``attention_bwd_ref`` runs all three, with
+``attention_lse_ref`` for the LSE). LSE and Delta are (B, Hq, Sq) f32.
 """
 from __future__ import annotations
 
@@ -35,13 +37,14 @@ import torch
 
 from repro_torch.kernels import build
 
-LAUNCHES = {"attn_bwd_stats": 0, "attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
+LAUNCHES = {"attn_bwd_delta": 0, "attn_bwd_dkdv": 0, "attn_bwd_dq": 0}
 HEAD_DIMS = (16, 64, 96, 128)
 POSITIONS = 64  # KV positions of one dkdv block
 
 _TAIL = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _ARGTYPES = {
-    "attn_bwd_stats": [ctypes.c_void_p] * 7 + _TAIL,  # q, k, out, dout, kv_valid, lse, delta
+    # out, dout, delta, B, Sq, Hq, D, stream
+    "attn_bwd_delta": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     # q, k, v, dout, kv_valid, lse, delta, dk, dv, work, tickets
     "attn_bwd_dkdv": [ctypes.c_void_p] * 11 + _TAIL,
     "attn_bwd_dq": [ctypes.c_void_p] * 8 + _TAIL,     # q, k, v, dout, kv_valid, lse, delta, dq
@@ -95,13 +98,22 @@ def _function(symbol: str):
     return fn
 
 
-def _check(q, k, v, kv_valid, rows) -> Tuple[int, ...]:
-    """(B, Sq, Hq, Hkv, D, Skv) of a call, after checking what the kernels take."""
-    tensors = [q, k, v, kv_valid, *rows]
+def _check_device(tensors) -> None:
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the CUDA attention-backward kernels take CUDA tensors only")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("the attention-backward tensors must be on one device")
+
+
+def _check_rows(rows) -> None:
+    for t in rows:
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("q, k, v, out and dout must be contiguous 16-byte aligned bfloat16")
+
+
+def _check(q, k, v, kv_valid, rows) -> Tuple[int, ...]:
+    """(B, Sq, Hq, Hkv, D, Skv) of a call, after checking what the kernels take."""
+    _check_device([q, k, v, kv_valid, *rows])
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q must be (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D), got "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -112,9 +124,7 @@ def _check(q, k, v, kv_valid, rows) -> Tuple[int, ...]:
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D or Hq % Hkv:
         raise ValueError(f"k and v must be ({B}, Skv, Hkv, {D}) with Hkv dividing {Hq}, got "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
-    for t in (q, k, v, *rows):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("q, k, v, out and dout must be contiguous 16-byte aligned bfloat16")
+    _check_rows((q, k, v, *rows))
     for t in rows:
         if t.shape != q.shape:
             raise ValueError(f"out and dout must have q's shape {tuple(q.shape)}")
@@ -125,30 +135,42 @@ def _check(q, k, v, kv_valid, rows) -> Tuple[int, ...]:
     return B, Sq, Hq, Hkv, D, Skv
 
 
-def _launch(name: str, q: torch.Tensor, *ptrs, dims, causal) -> None:
-    scale = 1.0 / math.sqrt(q.shape[-1])  # the forward's, which these kernels differentiate
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _function(name)(*ptrs, *dims, scale, int(causal), stream)
+def _launch(name: str, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = _function(name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
 
 
-def stats(q, k, out, dout, kv_valid, *, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(LSE, Delta), each (B, Hq, Sq) f32."""
-    dims = _check(q, k, k, kv_valid, (out, dout))
-    B, Sq, Hq = dims[:3]
-    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    _launch("attn_bwd_stats", q, q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(),
-            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), dims=dims, causal=causal)
-    return lse, delta
+def _tail(q, dims, causal) -> tuple:
+    """dkdv's and dq's shape arguments, then the forward's scale, which these
+    kernels differentiate, and the mask."""
+    return (*dims, 1.0 / math.sqrt(q.shape[-1]), int(causal))
 
 
-def _check_stats(q, lse, delta) -> None:
+def delta(out, dout) -> torch.Tensor:
+    """Delta = sum_d dO * O of each query row and head, (B, Hq, Sq) f32."""
+    _check_device([out, dout])
+    _check_rows((out, dout))
+    if out.dim() != 4 or dout.shape != out.shape:
+        raise ValueError(f"out and dout must be one (B, Sq, Hq, D) shape, got "
+                         f"{tuple(out.shape)} and {tuple(dout.shape)}")
+    B, Sq, Hq, D = out.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported by the CUDA kernel (one of {HEAD_DIMS})")
+    if B * Sq * Hq == 0:
+        raise ValueError(f"empty attention output {tuple(out.shape)}")
+    res = torch.empty((B, Hq, Sq), dtype=torch.float32, device=out.device)
+    _launch("attn_bwd_delta", out.device, out.data_ptr(), dout.data_ptr(), res.data_ptr(),
+            B, Sq, Hq, D)
+    return res
+
+
+def _check_stats(q, *stats) -> None:
     B, Sq, Hq, _ = q.shape
-    for t in (lse, delta):
+    for t in stats:
         if (t.dtype != torch.float32 or t.shape != (B, Hq, Sq) or not t.is_contiguous()
                 or t.device != q.device):
             raise ValueError(f"lse and delta must be contiguous ({B}, {Hq}, {Sq}) float32 "
@@ -166,10 +188,10 @@ def dkdv(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True) -> Tuple[t
     if plan.work_shape:
         work = torch.empty((B, *plan.work_shape), dtype=torch.float32, device=q.device)
         tickets = _tickets(q.device, B * plan.tickets)
-    _launch("attn_bwd_dkdv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), None if work is None else work.data_ptr(),
-            None if tickets is None else tickets.data_ptr(), dims=dims, causal=causal)
+    _launch("attn_bwd_dkdv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), None if work is None else work.data_ptr(),
+            None if tickets is None else tickets.data_ptr(), *_tail(q, dims, causal))
     return dk, dv
 
 
@@ -178,8 +200,9 @@ def dq(q, k, v, dout, kv_valid, lse, delta, *, causal: bool = True) -> torch.Ten
     dims = _check(q, k, v, kv_valid, (dout,))
     _check_stats(q, lse, delta)
     out = torch.empty_like(q)
-    _launch("attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), out.data_ptr(), dims=dims, causal=causal)
+    _launch("attn_bwd_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            kv_valid.data_ptr(), lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
+            *_tail(q, dims, causal))
     return out
 
 
@@ -190,10 +213,12 @@ def attention_bwd(
     out: torch.Tensor,       # (B, Sq, Hq, D) the forward's output
     dout: torch.Tensor,      # (B, Sq, Hq, D) its gradient
     kv_valid: torch.Tensor,  # (B,) int32
+    lse: torch.Tensor,       # (B, Hq, Sq) f32, the forward's (return_lse=True)
     *,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) of attention over fresh K/V: the three kernels in turn."""
-    lse, delta = stats(q, k, out, dout, kv_valid, causal=causal)
-    dk, dv = dkdv(q, k, v, dout, kv_valid, lse, delta, causal=causal)
-    return dq(q, k, v, dout, kv_valid, lse, delta, causal=causal), dk, dv
+    _check_stats(q, lse)
+    dl = delta(out, dout)
+    dk, dv = dkdv(q, k, v, dout, kv_valid, lse, dl, causal=causal)
+    return dq(q, k, v, dout, kv_valid, lse, dl, causal=causal), dk, dv

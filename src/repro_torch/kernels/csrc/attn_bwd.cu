@@ -10,10 +10,11 @@
 // position j iff j <= lim(i) and j < Skv, lim(i) = kv_valid - Sq + i when
 // causal (the forward's causal-offset mask), kv_valid - 1 when not (the
 // encoder and cross-attention). S = q.k * scale, scores f32 sums of bf16
-// products.
-//   attn_bwd_stats: LSE(i) = log sum_j exp(S_ij) over the visible j (an online
-//       max and sum, f32; 0 for a row that sees nothing) and
-//       Delta(i) = sum_d dO_id * O_id (f32), both (B, Hq, Sq).
+// products. LSE(i) = log sum_j exp(S_ij) over the visible j (f32; 0 for a
+// row that sees nothing) is the forward's: verify_attn.cu writes it from its
+// merge when training asks for it (verify_attention_packed(return_lse=True)),
+// so no kernel here computes it again.
+//   attn_bwd_delta: Delta(i) = sum_d dO_id * O_id (f32), (B, Hq, Sq).
 //   attn_bwd_dkdv:  P = exp(S - LSE) under the mask, dP = dO.v, dS = P * (dP -
 //       Delta); dV_j = sum_i bf16(P_ij) dO_i (P rounded as the forward rounds
 //       it before P.V), dK_j = scale * sum_i bf16(dS_ij) q_i, summed over the
@@ -26,10 +27,12 @@
 // order, so two calls give the same bits, and a batch entry's result does
 // not depend on the other entries of its call.
 //
-// Design. Bound on an H100: operations at training shapes (qwen2-1.5b: S
-// 128, 12 query heads on 2 of 128; whisper-tiny's encoder: 1500 rows over
-// 1500 positions), bytes at a decode-like Sq; at qwen2's rows the grid's
-// latency more than either. Every product of dq and dkdv runs on the
+// Design. Bound on an H100: dq and dkdv by operations at training shapes
+// (qwen2-1.5b: S 128, 12 query heads on 2 of 128; whisper-tiny's encoder:
+// 1500 rows over 1500 positions), by bytes at a decode-like Sq; at qwen2's
+// rows the grid's latency more than either. delta by bytes: it reads O and
+// dO once (3.1 MB at qwen2's rows, ~1 us at 3.35 TB/s), so a launch's
+// latency sets its time. Every product of dq and dkdv runs on the
 // tensor cores (mma.sync m16n8k16, bf16 operands, f32 sums) with its
 // fragments read by ldmatrix from bf16 tiles in shared memory; the tiles
 // come in by 16-byte cp.async, double-buffered, so that the next tile is in
@@ -53,14 +56,15 @@
 //     it returns to 0 (so a CUDA graph can replay the call), sums the G
 //     partials in head order and writes bf16. The split and the order
 //     depend on (Sq, Skv, Hq, Hkv, D) only.
-//   - stats: a simple kernel (FMA chains on the CUDA cores over f32 copies
-//     of the tiles), one block (128 threads) per (32-row tile, query head,
-//     b) looping over the 64-position chunks its last row sees.
-// wgmma, TMA and an LSE kept by the forward are later work (ROADMAP Queue
-// B).
+//   - delta: a bandwidth-bound reduction, one warp per (b, i) token row
+//     reading its Hq * D contiguous elements of O and dO in 16-byte loads,
+//     4 rows a block (256 blocks at qwen2's 1024 token rows, ~2 on each of
+//     the 132 SMs), a fixed lane and shuffle order (see delta_kernel).
+// wgmma and TMA are later work (ROADMAP Queue B).
 //
 // Layouts: q, out, dout, dq (B, Sq, Hq, D); k, v, dk, dv (B, Skv, Hkv, D);
-// all contiguous bf16. kv_valid (B,) int32; lse, delta (B, Hq, Sq) f32.
+// all contiguous bf16. kv_valid (B,) int32; lse (the forward's), delta
+// (B, Hq, Sq) f32.
 // dkdv's workspace (B, Hkv, ceil(Skv/64), G, 2, 64, D) f32 (dK's partial,
 // then dV's) and its tickets (B, Hkv, ceil(Skv/64)) int32, both unused
 // when G = 1.
@@ -76,161 +80,70 @@
 
 namespace {
 
-constexpr int kRows = 32;     // stats: query rows per tile
-constexpr int kPos = 64;      // KV positions per chunk / block
-constexpr int kTile = 64;     // dq, dkdv: query rows per tile
-constexpr int kPLd = kPos + 8; // padded stride of a bf16 P or dS row
-constexpr float kNegInf = -1e30f;
+constexpr int kPos = 64;        // KV positions per chunk / block
+constexpr int kTile = 64;       // dq, dkdv: query rows per tile
+constexpr int kPLd = kPos + 8;  // padded stride of a bf16 P or dS row
+constexpr int kDeltaWarps = 4;  // delta: token rows (warps) per block
+constexpr int kDeltaBatch = 4;  // delta: head steps whose loads go out together
 
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ int row_limit(int kv, int sq, int i, int causal, int skv) {
   const int lim = causal ? kv - sq + i : kv - 1;
   return lim < skv - 1 ? lim : skv - 1;
 }
 
-// stats: n rows of D bf16 (row stride ld elements) into shared f32 rows of
-// stride D + 1; rows at and past ``valid`` are zero. 16-byte loads of 8
-// elements.
-template <int D, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const bf16* src, long long ld, int n,
-                                          int valid) {
+// ---------------------------------------------------------------------------
+// attn_bwd_delta: Delta = rowsum(dO * O) of one token row's Hq heads
+// ---------------------------------------------------------------------------
+
+// One warp per (b, i) token row, its Hq * D bf16 elements of O and dO
+// contiguous. Each head row is kLanes lanes of one 16-byte vector each (the
+// power of two at or above D / 8: 2, 8, 16, 16 at D = 16, 64, 96, 128; at
+// D = 96 four lanes of each group read nothing), so a warp takes 32 / kLanes
+// heads at once and kDeltaBatch such steps' loads go out before any sum. A
+// lane's 8 products are one f32 FMA chain in column order, and the group's
+// sums meet in a butterfly (xor kLanes / 2 down to 1), which leaves the same
+// bits in every lane of the group: a head's Delta depends on its row alone.
+template <int D>
+__global__ void __launch_bounds__(kDeltaWarps * 32)
+delta_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+             float* __restrict__ delta, int rows, int sq, int hq) {
   constexpr int kVec = D / 8;
-  for (int idx = threadIdx.x; idx < n * kVec; idx += NT) {
-    const int r = idx / kVec, c = (idx % kVec) * 8;
-    float* d = dst + r * (D + 1) + c;
-    if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * ld + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  constexpr int kLanes = kVec <= 2 ? 2 : kVec <= 8 ? 8 : 16;
+  constexpr int kHeads = 32 / kLanes;
+  const int lane = threadIdx.x & 31, sub = lane % kLanes, slot = lane / kLanes;
+  const int t = blockIdx.x * kDeltaWarps + (threadIdx.x >> 5);  // b * sq + i
+  if (t >= rows) return;  // the whole warp
+  const long long row0 = static_cast<long long>(t) * hq * D;
+  const long long stat0 = static_cast<long long>(t / sq) * hq * sq + t % sq;
+  for (int h0 = 0; h0 < hq; h0 += kHeads * kDeltaBatch) {
+    uint4 o[kDeltaBatch], g[kDeltaBatch];
+#pragma unroll
+    for (int u = 0; u < kDeltaBatch; ++u) {
+      const int h = h0 + u * kHeads + slot;
+      const bool live = h < hq && sub < kVec;
+      const long long at = row0 + h * D + sub * 8;
+      o[u] = live ? __ldg(reinterpret_cast<const uint4*>(out + at)) : make_uint4(0, 0, 0, 0);
+      g[u] = live ? __ldg(reinterpret_cast<const uint4*>(dout + at)) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kDeltaBatch; ++u) {
+      const __nv_bfloat162* ov = reinterpret_cast<const __nv_bfloat162*>(&o[u]);
+      const __nv_bfloat162* gv = reinterpret_cast<const __nv_bfloat162*>(&g[u]);
+      float acc = 0.f;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        d[2 * e] = f.x;
-        d[2 * e + 1] = f.y;
+        const float2 x = __bfloat1622float2(ov[e]), y = __bfloat1622float2(gv[e]);
+        acc = fmaf(y.x, x.x, acc);
+        acc = fmaf(y.y, x.y, acc);
       }
-    } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = 0.f;
-    }
-  }
-}
-
-// s[a][b] = sum_d A[rq + step*a][d] * Bm[cq + 16*b][d]: one FMA chain over d
-// in order per element (A and Bm shared f32 rows of stride D + 1).
-template <int D, int RA>
-__device__ __forceinline__ void dot_tile(float (&s)[RA][4], const float* A, const float* Bm,
-                                         int rq, int cq, int step) {
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[RA], bv[4];
-#pragma unroll
-    for (int a = 0; a < RA; ++a) av[a] = A[(rq + step * a) * (D + 1) + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) bv[b] = Bm[(cq + 16 * b) * (D + 1) + d];
-#pragma unroll
-    for (int a = 0; a < RA; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) s[a][b] = fmaf(av[a], bv[b], s[a][b]);
-  }
-}
-
-// the 16 lanes of a half-warp share a row of the score tile
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// ---------------------------------------------------------------------------
-// attn_bwd_stats: LSE and Delta of one 32-row tile of one query head
-// ---------------------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(128)
-stats_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ out, const bf16* __restrict__ dout,
-             const int* __restrict__ kv_valid, float* __restrict__ lse,
-             float* __restrict__ delta, int sq, int hq, int hkv, int skv, float scale,
-             int causal) {
-  extern __shared__ float smem[];
-  float* qs = smem;                  // kRows x (D + 1)
-  float* ks = smem + kRows * (D + 1); // kPos x (D + 1)
-  const int i0 = blockIdx.x * kRows, head = blockIdx.y, b = blockIdx.z;
-  const int h = head / (hq / hkv);
-  const int nrows = min(kRows, sq - i0);
-  const int kv = kv_valid[b];
-  const long long ldq = static_cast<long long>(hq) * D, ldk = static_cast<long long>(hkv) * D;
-  const long long row0 = (static_cast<long long>(b) * sq + i0) * ldq + head * D;
-  float* lse_row = lse + (static_cast<long long>(b) * hq + head) * sq + i0;
-  float* delta_row = delta + (static_cast<long long>(b) * hq + head) * sq + i0;
-
-  {  // Delta: 4 lanes a row, columns part, part + 4, ...
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-    float acc = 0.f;
-    if (r < nrows) {
-      const bf16* o = out + row0 + r * ldq;
-      const bf16* g = dout + row0 + r * ldq;
-      for (int d = part; d < D; d += 4) acc = fmaf(bf(g[d]), bf(o[d]), acc);
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    if (r < nrows && part == 0) delta_row[r] = acc;
-  }
-
-  load_rows<D, 128>(qs, q + row0, ldq, kRows, nrows);
-  const int rq = threadIdx.x >> 4, cq = threadIdx.x & 15;
-  int lim[4];
-  float m[4], l[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + rq + 8 * a;
-    lim[a] = i < sq ? row_limit(kv, sq, i, causal, skv) : -1;
-    m[a] = kNegInf;
-    l[a] = 0.f;
-  }
-  const int last = row_limit(kv, sq, i0 + nrows - 1, causal, skv);
-  const bf16* kb = k + static_cast<long long>(b) * skv * ldk + h * D;
-  for (int j0 = 0; j0 <= last; j0 += kPos) {
-    __syncthreads();
-    load_rows<D, 128>(ks, kb + j0 * ldk, ldk, kPos, min(kPos, skv - j0));
-    __syncthreads();
-    float s[4][4];
-    dot_tile<D, 4>(s, qs, ks, rq, cq, 8);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float cm = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool vis = j0 + cq + 16 * c <= lim[a];
-        s[a][c] = vis ? s[a][c] * scale : kNegInf;
-        cm = fmaxf(cm, s[a][c]);
+      for (int off = kLanes / 2; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
       }
-      const float mn = fmaxf(m[a], half_max(cm));
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (j0 + cq + 16 * c <= lim[a]) ps += expf(s[a][c] - mn);
-      l[a] = l[a] * expf(m[a] - mn) + half_sum(ps);
-      m[a] = mn;
-    }
-  }
-  if (cq == 0) {
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int r = rq + 8 * a;
-      if (r < nrows) lse_row[r] = l[a] > 0.f ? m[a] + logf(l[a]) : 0.f;
+      const int h = h0 + u * kHeads + slot;
+      if (sub == 0 && h < hq) delta[stat0 + static_cast<long long>(h) * sq] = acc;
     }
   }
 }
@@ -599,14 +512,11 @@ int prepare(K kernel, size_t smem, bool (&done)[64]) {
 }
 
 template <int D>
-int run_stats(const bf16* q, const bf16* k, const bf16* out, const bf16* dout,
-              const int* kv_valid, float* lse, float* delta, int b, int sq, int hq, int hkv,
-              int skv, float scale, int causal, cudaStream_t stream) {
-  const size_t smem = (kRows + kPos) * (D + 1) * sizeof(float);
-  static bool done[64] = {};
-  if (int e = prepare(stats_kernel<D>, smem, done)) return e;
-  stats_kernel<D><<<dim3((sq + kRows - 1) / kRows, hq, b), 128, smem, stream>>>(
-      q, k, out, dout, kv_valid, lse, delta, sq, hq, hkv, skv, scale, causal);
+int run_delta(const bf16* out, const bf16* dout, float* delta, int b, int sq, int hq,
+              cudaStream_t stream) {
+  const int rows = b * sq;
+  delta_kernel<D><<<(rows + kDeltaWarps - 1) / kDeltaWarps, kDeltaWarps * 32, 0, stream>>>(
+      out, dout, delta, rows, sq, hq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -643,16 +553,11 @@ int run_dkdv(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
 // Plain C entry points (loaded with ctypes). Each returns the CUDA error of
 // its launch (0 on success); it launches on ``stream`` and does not wait.
 
-extern "C" int attn_bwd_stats(const void* q, const void* k, const void* out, const void* dout,
-                              const void* kv_valid, void* lse, void* delta, int b, int sq,
-                              int hq, int hkv, int d, int skv, float scale, int causal,
-                              void* stream) {
+extern "C" int attn_bwd_delta(const void* out, const void* dout, void* delta, int b, int sq,
+                              int hq, int d, void* stream) {
 #define CALL(D)                                                                             \
-  run_stats<D>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),                    \
-               static_cast<const bf16*>(out), static_cast<const bf16*>(dout),               \
-               static_cast<const int*>(kv_valid), static_cast<float*>(lse),                 \
-               static_cast<float*>(delta), b, sq, hq, hkv, skv, scale, causal,              \
-               static_cast<cudaStream_t>(stream))
+  run_delta<D>(static_cast<const bf16*>(out), static_cast<const bf16*>(dout),               \
+               static_cast<float*>(delta), b, sq, hq, static_cast<cudaStream_t>(stream))
   switch (d) {
     case 16: return CALL(16);
     case 64: return CALL(64);

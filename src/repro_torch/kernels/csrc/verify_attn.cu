@@ -69,7 +69,10 @@
 //     allocates; the last split waits for them and merges in split order as
 //     the plain version's online softmax does, acc = acc * e^{m_prev - m_s}
 //     + acc_s and l likewise (a product and a sum, each rounded), then
-//     returns the tile's flags to zero. out = acc / max(l, 1e-30).
+//     returns the tile's flags to zero. out = acc / max(l, 1e-30). When the
+//     caller asks for it (training's forward, whose backward needs it), the
+//     same block also writes each row's log-sum-exp m + log l, 0 for a row
+//     that sees no position; a serve asks for none and its out is unchanged.
 //   - Forward progress: a block waits only for blocks of lower split index,
 //     and blocks take their index from a device counter in the order they
 //     start, so every block waited for is already running.
@@ -79,7 +82,8 @@
 // (L, rows, Skv, Hkv, D) addressed by (layer, row) without a copy, with the
 // strides in elements. An int8 cache's scales are the stacked (L, rows, Hkv)
 // f32 leaves, addressed by the same (layer, row) with their own strides and
-// the head contiguous. kv_valid and slots are (B,) int32 on the device.
+// the head contiguous. kv_valid and slots are (B,) int32 on the device. The
+// LSE, where asked for, is (B, Hq, Sq) f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (src/repro_torch/kernels/build.py).
@@ -316,6 +320,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ kv_valid,
                    const int* __restrict__ slots,
                    __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ lse,       // (B, Hq, Sq) or null
                    float* __restrict__ part_acc,  // [tile, split][thread][kRows][kDC]
                    float* __restrict__ part_ml,   // [tile, split][row] (m, l)
                    float* __restrict__ part_lm,   // [tile, split][row] local max
@@ -361,11 +366,16 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const int pr = r0 + r;
     return ((static_cast<long long>(b) * sq + pr / group) * hq + h * group + pr % group) * D;
   };
-  if (n_live == 0) {  // no row of the tile sees a position: zeros
+  auto lse_of = [&](int r) {  // and its (b, head, i) entry of the (B, Hq, Sq) LSE
+    const int pr = r0 + r;
+    return (static_cast<long long>(b) * hq + h * group + pr % group) * sq + pr / group;
+  };
+  if (n_live == 0) {  // no row of the tile sees a position: zeros (and LSE 0)
     if (split == 0) {
       for (int idx = tid; idx < rn * D2; idx += kThreads) {
         reinterpret_cast<uint32_t*>(out + row_of(idx / D2))[idx % D2] = 0u;
       }
+      if (lse != nullptr && tid < rn) lse[lse_of(tid)] = 0.f;
     }
     return;
   }
@@ -564,14 +574,19 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     uint32_t* dst = reinterpret_cast<uint32_t*>(out + row_of(r) + cp * DC);
 #pragma unroll
     for (int e = 0; e < DC; e += 2) dst[e / 2] = mma::pack_bf16(o[vv][e] / den, o[vv][e + 1] / den);
+    // the row's log-sum-exp from the merge's max and sum (0 where the row
+    // sees no position), for the backward
+    if (lse != nullptr && cp == 0) {
+      lse[lse_of(r)] = lt[vv] > 0.f ? m_prev[vv] + logf(lt[vv]) : 0.f;
+    }
   }
 }
 
 template <int D, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* kv_valid, const void* slots, void* out,
-           void* part, void* sync, int b, int sq, int hq, int hkv, int skv, long long layer,
-           long long s_layer, long long s_row, long long s_seq, long long s_head,
+           void* lse, void* part, void* sync, int b, int sq, int hq, int hkv, int skv,
+           long long layer, long long s_layer, long long s_row, long long s_seq, long long s_head,
            long long sc_layer, long long sc_row, float scale, int causal,
            cudaStream_t stream) {
   const int n_tiles = (sq * (hq / hkv) + kTileRows - 1) / kTileRows;
@@ -603,7 +618,8 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
                               stream>>>(
       static_cast<const __nv_bfloat16*>(q), kl, vl, ksl, vsl,
       static_cast<const int*>(kv_valid), static_cast<const int*>(slots),
-      static_cast<__nv_bfloat16*>(out), part_acc, part_ml, part_lm, static_cast<int*>(sync),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), part_acc, part_ml, part_lm,
+      static_cast<int*>(sync),
       n_split, n_tiles, sq, hq, hkv, skv, s_row, s_seq, s_head, sc_row, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -611,26 +627,26 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 template <typename KV>
 int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const void* kv_valid, const void* slots, void* out,
-             void* part, void* sync, int b, int sq, int hq, int hkv, int d, int skv,
+             void* lse, void* part, void* sync, int b, int sq, int hq, int hkv, int d, int skv,
              long long layer, long long s_layer, long long s_row, long long s_seq,
              long long s_head, long long sc_layer, long long sc_row, float scale, int causal,
              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+      return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                             sc_row, scale, causal, st);
     case 64:
-      return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+      return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                             sc_row, scale, causal, st);
     case 96:
-      return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+      return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                             sc_row, scale, causal, st);
     case 128:
-      return launch<128, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b,
+      return launch<128, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
                              sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                              sc_row, scale, causal, st);
     default:
@@ -655,18 +671,20 @@ extern "C" void verify_attn_scratch(int b, int sq, int hq, int hkv, int d, int s
 // Plain C entry points (loaded with ctypes). slots == nullptr selects the
 // dense layout (row b of the cache for batch entry b). part and sync are
 // the scratch verify_attn_scratch sizes. causal != 0 selects the causal-offset
-// mask, 0 the non-causal one (every j < kv_valid). Each returns the CUDA error
-// code of the launch (0 on success).
+// mask, 0 the non-causal one (every j < kv_valid). The bf16 entry's lse, when
+// not null, receives each query row's log-sum-exp, (B, Hq, Sq) f32 (the
+// training forward's; a serve passes null). Each returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int verify_attn_bf16(const void* q, const void* k, const void* v,
-                                const void* kv_valid, const void* slots, void* out,
+                                const void* kv_valid, const void* slots, void* out, void* lse,
                                 void* part, void* sync,
                                 int b, int sq, int hq, int hkv, int d, int skv,
                                 long long layer, long long s_layer, long long s_row,
                                 long long s_seq, long long s_head, float scale, int causal,
                                 void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, slots, out, part, sync,
-                                 b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, 0,
-                                 0, scale, causal, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, slots, out, lse, part,
+                                 sync, b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq,
+                                 s_head, 0, 0, scale, causal, stream);
 }
 
 // int8 K/V with (L, rows, Hkv) f32 scale leaves: sc_layer / sc_row are their
@@ -680,7 +698,7 @@ extern "C" int verify_attn_int8(const void* q, const void* k, const void* v,
                                 long long s_seq, long long s_head, long long sc_layer,
                                 long long sc_row, float scale, int causal, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<int8_t>(q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync, b, sq,
-                          hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
+  return dispatch<int8_t>(q, k, v, k_scale, v_scale, kv_valid, slots, out, nullptr, part, sync,
+                          b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
                           sc_row, scale, causal, stream);
 }

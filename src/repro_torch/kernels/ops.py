@@ -17,9 +17,11 @@ takes it as a flag and counts such launches under their own names.
 
 ``attention`` is the differentiable form over fresh K/V (training: the
 cache-free forward's self- and cross-attention, the encoder): on CUDA
-tensors a ``torch.autograd.Function`` whose forward is the dense kernel
-and whose backward is ``kernels/attn_bwd.py``'s three kernels; on CPU
-tensors the plain version, which autograd differentiates itself.
+tensors a ``torch.autograd.Function`` whose forward is the dense kernel,
+which also keeps each query row's log-sum-exp from its merge
+(``return_lse=True``), and whose backward is ``kernels/attn_bwd.py``'s
+three kernels on that LSE; on CPU tensors the plain version, which
+autograd differentiates itself.
 """
 from __future__ import annotations
 
@@ -57,19 +59,21 @@ def verify_attention(
 
 
 class _Attention(torch.autograd.Function):
-    """The forward kernel (dense entry, no layer) and its backward kernels."""
+    """The forward kernel (dense entry, no layer; it keeps each row's LSE)
+    and its backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_valid, causal):
-        out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
-        ctx.save_for_backward(q, k, v, out, kv_valid)
+        out, lse = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal,
+                                                       return_lse=True)
+        ctx.save_for_backward(q, k, v, out, kv_valid, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, kv_valid = ctx.saved_tensors
-        dq, dk, dv = attn_bwd.attention_bwd(q, k, v, out, dout.contiguous(), kv_valid,
+        q, k, v, out, kv_valid, lse = ctx.saved_tensors
+        dq, dk, dv = attn_bwd.attention_bwd(q, k, v, out, dout.contiguous(), kv_valid, lse,
                                             causal=ctx.causal)
         return dq, dk, dv, None, None
 

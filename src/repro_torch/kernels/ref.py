@@ -28,10 +28,11 @@ Three more plain versions restate the kernels' own decompositions and
 serve the tests only (nothing on a serving or training path calls them):
 ``verify_attention_split_ref`` cuts the cache into fixed splits, each
 rounded at its running max, and merges them in split order,
-``attention_bwd_split_ref`` is the backward kernels' (dS rounded to bf16
-for dQ and dK, dK and dV as per-query-head f32 partials summed in head
-order), and ``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and
-the rest P-slice by P-slice, optionally with the chunk's running sum in the
+``attention_bwd_split_ref`` is the backward kernels' (the LSE from the
+split forward, dS rounded to bf16 for dQ and dK, dK and dV as
+per-query-head f32 partials summed in head order), and
+``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
+P-slice by P-slice, optionally with the chunk's running sum in the
 kernel's order (``warp_scan_cumsum``).
 """
 from __future__ import annotations
@@ -130,7 +131,8 @@ def verify_attention_split_ref(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     causal: bool = True,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """The CUDA kernel's decomposition (tests only): the cache in fixed
     ``split``-position splits, each computed on its own once the splits
     before it have published their rows' local maxima: m_s the running max
@@ -139,7 +141,9 @@ def verify_attention_split_ref(
     by the online softmax's chain, acc = acc * e^{m_{s-1} - m_s} + acc_s and
     l likewise, out = acc / max(l, 1e-30). With ``split`` equal to
     ``verify_attention_ref``'s ``block_k`` the two compute the same values
-    in the same steps."""
+    in the same steps. ``return_lse``: also each row's log-sum-exp as the
+    kernel writes it from the merge, m + log(l) (0 where l == 0, a row that
+    sees no position), (B, Hq, Sq) f32."""
     if k.dtype == torch.int8 and (k_scale is None or v_scale is None):
         raise ValueError("an int8 cache needs k_scale and v_scale")
     B, Sq, Hq, D = q.shape
@@ -162,7 +166,9 @@ def verify_attention_split_ref(
                           dequant(k[:, j0:j0 + j.numel()], k_scale).float()) * scale
         splits.append((torch.where(visible, sc, torch.full_like(sc, NEG_INF)), visible, vb))
     if not splits:
-        return torch.zeros_like(q)
+        out = torch.zeros_like(q)
+        lse = torch.zeros((B, Hq, Sq), dtype=torch.float32, device=dev)
+        return (out, lse) if return_lse else out
     local_max = torch.stack([sc.amax(dim=-1) for sc, _, _ in splits])
     running_max = torch.cummax(local_max, dim=0).values  # what each split reads of the others
     m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
@@ -175,8 +181,12 @@ def verify_attention_split_ref(
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + acc_s
         m = m_s
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Sq, Hq, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.zeros((), device=dev))
+    return out, lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous()
 
 
 def verify_attention_paged_ref(
@@ -223,10 +233,11 @@ def _bwd_scores(q, k, kv_valid, causal):
     return s, visible[:, :, None, None, :]
 
 
-def attention_bwd_stats_ref(q, k, out, dout, kv_valid, *, causal: bool = True):
-    """The plain version of ``attn_bwd_stats``: each query row's log-sum-exp
-    over the positions it sees (f32; 0 for a row that sees none) and
-    Delta = sum_d dO * O (f32), both (B, Hq, Sq)."""
+def attention_lse_ref(q, k, kv_valid, *, causal: bool = True) -> torch.Tensor:
+    """Each query row's log-sum-exp over the positions it sees, in one pass
+    over the whole row (f32; 0 for a row that sees none), (B, Hq, Sq): the
+    oracle of the LSE the forward kernel keeps from its merge
+    (``verify_attention_split_ref(return_lse=True)`` restates that)."""
     B, Sq, Hq, D = q.shape
     s, visible = _bwd_scores(q, k, kv_valid, causal)
     s = torch.where(visible, s, torch.full_like(s, NEG_INF))
@@ -234,8 +245,13 @@ def attention_bwd_stats_ref(q, k, out, dout, kv_valid, *, causal: bool = True):
     l = torch.where(visible, torch.exp(s - m), torch.zeros((), device=q.device)).sum(-1)
     lse = torch.where(l > 0, m[..., 0] + torch.log(torch.clamp(l, min=1e-30)),
                       torch.zeros((), device=q.device))
-    delta = (dout.float() * out.float()).sum(-1)  # (B, Sq, Hq)
-    return lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous(), delta.transpose(1, 2).contiguous()
+    return lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous()
+
+
+def attention_bwd_delta_ref(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``attn_bwd_delta``: Delta = sum_d dO * O of each
+    query row and head in f32, (B, Hq, Sq)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal):
@@ -284,7 +300,8 @@ def attention_bwd_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV) of ``verify_attention_ref`` in the backward kernels'
     decomposition (``kernels/csrc/attn_bwd.cu``): the row LSE recomputed in
-    f32, Delta = rowsum(dO * O), P = exp(S - LSE) under the forward's mask
+    f32 (``attention_lse_ref``; on the card it is the forward kernel's),
+    Delta = rowsum(dO * O), P = exp(S - LSE) under the forward's mask
     (causal-offset limit ``kv_valid - Sq + i``, or ``kv_valid - 1`` when
     not causal), dV = P^T dO with P rounded to the value dtype, dS = P *
     (dP - Delta), dQ = dS K * scale, dK = dS^T Q * scale; for GQA dK and dV
@@ -292,7 +309,8 @@ def attention_bwd_ref(
     forward only where the forward rounds: P before P.V (there P is rounded
     before the division by the row sum) and O to its dtype (Delta takes the
     rounded O); with f32 inputs it is autograd's result to f32 precision."""
-    lse, delta = attention_bwd_stats_ref(q, k, out, dout, kv_valid, causal=causal)
+    lse = attention_lse_ref(q, k, kv_valid, causal=causal)
+    delta = attention_bwd_delta_ref(out, dout)
     dk, dv = attention_bwd_dkdv_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
     dq = attention_bwd_dq_ref(q, k, v, dout, kv_valid, lse, delta, causal=causal)
     return dq, dk, dv
@@ -300,15 +318,19 @@ def attention_bwd_ref(
 
 def attention_bwd_split_ref(q, k, v, out, dout, kv_valid, *, causal: bool = True):
     """(dQ, dK, dV) in the decomposition of ``kernels/csrc/attn_bwd.cu``'s
-    dq and dkdv kernels (tests only): ``attention_bwd_ref``'s LSE, Delta, P
-    and dS in f32, then dS rounded to bf16 (round to nearest even) for dQ =
-    bf16(dS) K * scale and dK = bf16(dS)^T Q * scale, and dK and dV taken
-    per query head as f32 partials, summed over the G heads of their KV head
-    in head order (head 0 first) before the scale and the rounding to the
-    output dtype."""
+    dq and dkdv kernels (tests only): the LSE of the split forward at the
+    kernel's 64-position splits (``verify_attention_split_ref(split=64,
+    return_lse=True)``), as the card path takes it from the forward kernel;
+    Delta, P and dS in f32 as ``attention_bwd_ref``'s; then dS rounded to
+    bf16 (round to nearest even) for dQ = bf16(dS) K * scale and dK =
+    bf16(dS)^T Q * scale, and dK and dV taken per query head as f32
+    partials, summed over the G heads of their KV head in head order (head
+    0 first) before the scale and the rounding to the output dtype."""
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
-    lse, delta = attention_bwd_stats_ref(q, k, out, dout, kv_valid, causal=causal)
+    _, lse = verify_attention_split_ref(q, k, v, kv_valid, split=64, causal=causal,
+                                        return_lse=True)
+    delta = attention_bwd_delta_ref(out, dout)
     p, ds, dog = _bwd_probs(q, k, v, dout, kv_valid, lse, delta, causal)
     ds = ds.to(torch.bfloat16).float()
     qg = q.reshape(dog.shape).float()

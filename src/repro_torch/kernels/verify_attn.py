@@ -14,6 +14,14 @@ through.
 over fresh K/V and cross-attention over the ``cross_k``/``cross_v`` leaves,
 where every query row sees every position below its ``kv_valid``.
 
+``verify_attention_packed(..., return_lse=True)`` is training's forward
+(``kernels/ops.py``'s ``attention``): over a bf16 cache with no ``layer``
+it also returns each query row's log-sum-exp, (B, Hq, Sq) f32 from the
+kernel's merge (0 for a row that sees no position), which the backward
+kernels take. Its ``out`` is the same bits as without it; the flag is
+refused with a ``layer``, an int8 cache and on the paged entry, which
+training does not run.
+
 The cache may be handed over as the model's stacked buffer
 (L, rows, Skv, Hkv, D) with a ``layer`` index, and an int8 cache's scales as
 the stacked (L, rows, Hkv) leaves: the kernel addresses the layer and row
@@ -46,7 +54,7 @@ HEAD_DIMS = (16, 64, 96, 128)  # 16: the reduced configs; the rest: the publishe
 
 _ARGTYPES = {
     "verify_attn_bf16": (
-        [ctypes.c_void_p] * 8       # q, k, v, kv_valid, slots, out, part, sync
+        [ctypes.c_void_p] * 9       # q, k, v, kv_valid, slots, out, lse, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
         + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
@@ -167,15 +175,19 @@ def _check_scales(k, k_scale, v_scale) -> None:
         raise ValueError("k_scale and v_scale must share one layout")
 
 
-def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale,
-            causal) -> torch.Tensor:
+def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale, causal,
+            return_lse=False):
     _check(q, k, v, kv_valid, slots, k_scale, v_scale)
+    if return_lse and (slots is not None or layer is not None or k.dtype == torch.int8):
+        raise ValueError("return_lse is for the dense entry over a bf16 cache with no layer "
+                         "(training's forward)")
     li, s_layer = _cache_view(k, layer)
     B, Sq, Hq, D = q.shape
     s_row, s_seq, s_head = k.stride()[-4:-1]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     dims = (B, Sq, Hq, k.shape[-2], D, k.shape[-3])
     common = (*dims, li, s_layer, s_row, s_seq, s_head)
     slot_ptr = slots.data_ptr() if slots is not None else None
@@ -193,14 +205,15 @@ def _launch(name, q, k, v, kv_valid, slots, layer, scale, k_scale, v_scale,
         else:
             rc = _function("verify_attn_bf16")(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), slot_ptr,
-                out.data_ptr(), *scratch, *common, float(scale), int(causal), stream,
+                out.data_ptr(), None if lse is None else lse.data_ptr(), *scratch, *common,
+                float(scale), int(causal), stream,
             )
     if not causal:
         name += "_noncausal"
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def verify_attention_packed(
@@ -214,12 +227,14 @@ def verify_attention_packed(
     k_scale: Optional[torch.Tensor] = None,  # int8 cache: (B, Hkv) f32, or (L, B, Hkv)
     v_scale: Optional[torch.Tensor] = None,
     causal: bool = True,
-) -> torch.Tensor:
-    """Dense verification attention: batch entry b attends cache row b."""
+    return_lse: bool = False,
+):
+    """Dense verification attention: batch entry b attends cache row b.
+    ``return_lse``: (out, each row's log-sum-exp (B, Hq, Sq) f32)."""
     if k.shape[-4] != q.shape[0]:
         raise ValueError(f"cache has {k.shape[-4]} rows for a batch of {q.shape[0]}")
     return _launch("verify_attention_packed", q, k, v, kv_valid, None, layer, scale,
-                   k_scale, v_scale, causal)
+                   k_scale, v_scale, causal, return_lse)
 
 
 def verify_attention_paged(
@@ -234,9 +249,11 @@ def verify_attention_paged(
     k_scale: Optional[torch.Tensor] = None,  # int8 pool: (n_slots+1, Hkv) f32, or stacked
     v_scale: Optional[torch.Tensor] = None,
     causal: bool = True,
+    return_lse: bool = False,
 ) -> torch.Tensor:
     """Slot-indexed verification attention straight out of the cache pool.
     Slot ids are not range-checked on the device (that would cost a sync);
-    callers pass rows of the pool they own."""
+    callers pass rows of the pool they own. ``return_lse`` raises: training
+    runs the dense entry."""
     return _launch("verify_attention_paged", q, k_pool, v_pool, kv_valid, slots, layer, scale,
-                   k_scale, v_scale, causal)
+                   k_scale, v_scale, causal, return_lse)

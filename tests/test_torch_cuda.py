@@ -16,7 +16,11 @@ and G = 48, and the non-causal case, hold attention to ``ATTN_TIGHT``
 (``attn_bwd``) are held to the plain version's autograd gradient within
 ``GRAD_TIGHT`` (2e-2 of the largest element, chip_smoke.py's bound), and
 two calls to each other bit for bit; ``ops.attention`` on CUDA tensors
-runs the kernels, forward and backward.
+runs the kernels, forward and backward. The forward's LSE
+(``return_lse=True``) and ``attn_bwd.delta`` are held to
+``ref.attention_lse_ref`` and ``ref.attention_bwd_delta_ref`` within
+``STATS_TIGHT`` (1e-4 of the largest element, chip_smoke.py's bound), the
+forward's output with the LSE to the output without it bit for bit.
 """
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ from repro_torch.kernels import attn_bwd, ops, ref, ssd_scan, verify_attn
 ATTN_TOL = 2e-2
 ATTN_TIGHT = 2e-3
 GRAD_TIGHT = 2e-2
+STATS_TIGHT = 1e-4
 SSD_TOL = {"bf16": 4e-2, "f32": 3e-3}
 
 
@@ -443,31 +448,93 @@ _BWD_SHAPES = [
 ]
 
 
+def _bwd_inputs(shape, dev):
+    """A _BWD_SHAPES row's bf16 q, k, v, dout and kv_valid on the card."""
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = _BWD_SHAPES[shape]
+    rng = np.random.default_rng(41 + shape)
+    q, k, v, dout = (_bf16(rng.standard_normal(s), dev) for s in
+                     ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D), (B, Sq, Hq, D)))
+    return q, k, v, dout, torch.tensor(kvv, dtype=torch.int32, device=dev), causal
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(_BWD_SHAPES)))
+def test_cuda_forward_lse_matches_plain(shape):
+    """The dense entry with return_lse=True: its output the same bits as
+    without the LSE, the LSE within STATS_TIGHT of the one-pass oracle."""
+    dev = _card()
+    q, k, v, _, kv_valid, causal = _bwd_inputs(shape, dev)
+    out, lse = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal,
+                                                   return_lse=True)
+    plain_out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+    want = ref.attention_lse_ref(q, k, kv_valid, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert _rel(lse, want) <= STATS_TIGHT, _rel(lse, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["layer", "int8", "paged"])
+def test_cuda_return_lse_refuses_what_training_does_not_run(bad):
+    dev = _card()
+    q = torch.zeros((1, 4, 4, 64), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=dev)
+    kvv = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="return_lse"):
+        if bad == "layer":
+            verify_attn.verify_attention_packed(q, k[None], k[None], kvv, layer=0,
+                                                return_lse=True)
+        elif bad == "int8":
+            k8, sc = k.to(torch.int8), torch.ones((1, 2), device=dev)
+            verify_attn.verify_attention_packed(q, k8, k8, kvv, k_scale=sc, v_scale=sc,
+                                                return_lse=True)
+        else:
+            slots = torch.zeros((1,), dtype=torch.int32, device=dev)
+            verify_attn.verify_attention_paged(q, k, k, slots, kvv, return_lse=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(_BWD_SHAPES)))
+def test_cuda_attention_delta_matches_plain(shape):
+    """attn_bwd.delta within STATS_TIGHT of its plain version; two calls
+    bit-equal."""
+    dev = _card()
+    q, k, v, dout, kv_valid, causal = _bwd_inputs(shape, dev)
+    out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
+    got, again = attn_bwd.delta(out, dout), attn_bwd.delta(out, dout)
+    want = ref.attention_bwd_delta_ref(out, dout)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and _rel(got, want) <= STATS_TIGHT, _rel(got, want)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", range(len(_BWD_SHAPES)))
 def test_cuda_attention_backward_matches_plain_gradient(shape):
-    """dQ, dK, dV of the three backward kernels against autograd of the
-    plain attention, within GRAD_TIGHT of the largest element; two calls
-    bit-equal; ops.attention's gradient is the kernels'."""
+    """dQ, dK, dV of the three backward kernels, on the forward kernel's
+    LSE, against autograd of the plain attention, within GRAD_TIGHT of the
+    largest element; two calls bit-equal; ops.attention's gradient is the
+    kernels'."""
     dev = _card()
-    B, Sq, Skv, Hq, Hkv, D, kvv, causal = _BWD_SHAPES[shape]
-    rng = np.random.default_rng(41 + shape)
-    q, k, v = (_bf16(rng.standard_normal(s), dev) for s in
-               ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
-    dout = _bf16(rng.standard_normal((B, Sq, Hq, D)), dev)
-    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    q, k, v, dout, kv_valid, causal = _bwd_inputs(shape, dev)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(ref.verify_attention_ref(*leaves, kv_valid, causal=causal),
                                leaves, dout)
-    out = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal)
-    got = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, causal=causal)
-    again = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, causal=causal)
+    out, lse = verify_attn.verify_attention_packed(q, k, v, kv_valid, causal=causal,
+                                                   return_lse=True)
+    got = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, lse, causal=causal)
+    again = attn_bwd.attention_bwd(q, k, v, out, dout, kv_valid, lse, causal=causal)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     through_ops = torch.autograd.grad(ops.attention(*leaves, kv_valid, causal=causal), leaves,
                                       dout)
     torch.cuda.synchronize()
     for name, g, w, a, o in zip("qkv", got, want, again, through_ops):
-        err = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        err = _rel(g, w)
         assert err <= GRAD_TIGHT, (name, err)
         assert torch.equal(g, a) and torch.equal(g, o), name
 
@@ -477,5 +544,10 @@ def test_cuda_attention_backward_rejects_unsupported_inputs():
     dev = _card()
     q = torch.zeros((1, 4, 2, 32), dtype=torch.bfloat16, device=dev)
     kvv = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    lse = torch.zeros((1, 2, 4), dtype=torch.float32, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
-        attn_bwd.attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q, kvv)
+        attn_bwd.attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q, kvv, lse)
+    q = torch.zeros((1, 4, 2, 64), dtype=torch.bfloat16, device=dev)
+    for bad in (lse[:, :, :3], lse.double(), lse.transpose(1, 2)):
+        with pytest.raises(ValueError, match="lse"):
+            attn_bwd.attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q, kvv, bad)

@@ -3,9 +3,11 @@ plain versions and the JAX package.
 
 ``ref.verify_attention_split_ref`` is the attention kernel's split-KV
 algorithm (fixed splits computed side by side, each rounded at its running
-max, merged in split order); ``ref.attention_bwd_split_ref`` is the
-backward kernels' (dS rounded to bf16 for dQ and dK, dK and dV as
-per-query-head f32 partials summed in head order); ``ref.ssd_scan_sliced_ref``
+max, merged in split order; with ``return_lse=True`` also each row's
+log-sum-exp from the merge, which training's backward takes);
+``ref.attention_bwd_split_ref`` is the backward kernels' (that LSE, dS
+rounded to bf16 for dQ and dK, dK and dV as per-query-head f32 partials
+summed in head order); ``ref.ssd_scan_sliced_ref``
 is the SSD kernel's (C.B^T once per (b, chunk), the rest in P slices). All
 serve the tests only. Inputs come from a numpy seed. Tolerances:
   - against the port's plain versions: attention with ``split`` equal to
@@ -14,11 +16,15 @@ serve the tests only. Inputs come from a numpy seed. Tolerances:
     absolute (all f32, sums in another order); the backward
     ``SPLIT_BWD_TOL`` (1e-2 of each gradient's largest element, half of
     chip_smoke.py's GRAD_TIGHT: the one new rounding, dS to bf16, moves
-    dQ and dK by one or two bf16 steps of their largest element);
+    dQ and dK by one or two bf16 steps of their largest element); the
+    split forward's LSE ``LSE_TOL`` (1e-5 of its largest element: f32 sums
+    of the same values in another order);
   - against the JAX package, those of tests/test_kernels.py: attention
     bf16 2e-2, f32 2e-3; SSD f32 3e-3; the backward bf16 2e-2 of each
     gradient's largest element (``jax.vjp`` of the XLA mirror
-    ``flash_attention`` on the same bf16 inputs).
+    ``flash_attention`` on the same bf16 inputs); the LSE ``LSE_TOL``
+    against ``jax.nn.logsumexp`` of the f32 scores of the same bf16 inputs,
+    masked as ``flash_attention`` masks them.
 """
 import inspect
 
@@ -38,6 +44,7 @@ JAX_TOL = {"bf16": 2e-2, "f32": 2e-3}
 SSD_TIGHT = 1e-5
 SSD_JAX_TOL = 3e-3
 SPLIT_BWD_TOL = 1e-2
+LSE_TOL = 1e-5
 
 
 def _torch(a: np.ndarray, dt: str) -> torch.Tensor:
@@ -220,16 +227,103 @@ def _jax_attention_grads(arrs, kv_valid, causal):
     return [np.asarray(g, np.float32) for g in fn(*args)]
 
 
-@pytest.mark.parametrize("case", BWD_CASES)
-def test_split_attention_bwd_matches_plain_and_jax(case):
-    """The backward kernels' decomposition against the plain backward
-    (SPLIT_BWD_TOL) and JAX's gradient (bf16 2e-2); a causal limit one
-    position late is outside the JAX bound."""
+def _jax_lse(q, k, kv_valid, causal):
+    """(B, Hq, Sq) jax.nn.logsumexp of the f32 scores of q and k over the
+    positions flash_attention (src/repro/models/layers.py) lets each row
+    see: j < kv_valid and, when causal, j <= kv_valid - Sq + i."""
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+
+    def lse(q, k, kv):
+        s = jnp.einsum("bshgd,bchd->bshgc", q.reshape(B, Sq, Hkv, Hq // Hkv, D), k,
+                       precision=jax.lax.Precision.HIGHEST) * (1.0 / np.sqrt(D))
+        j = jnp.arange(Skv)[None, None, :]
+        seen = j < kv[:, None, None]
+        if causal:
+            seen &= j <= (kv[:, None] - Sq + jnp.arange(Sq)[None])[:, :, None]
+        return jax.nn.logsumexp(jnp.where(seen[:, :, None, None, :], s, -jnp.inf), axis=-1)
+
+    got = jax.jit(lse)(jnp.asarray(q, jnp.float32), jnp.asarray(k, jnp.float32),
+                       jnp.asarray(kv_valid, jnp.int32))
+    return np.asarray(got, np.float32).reshape(B, Sq, Hq).transpose(0, 2, 1)
+
+
+def _bwd_inputs(case):
+    """bf16 q, k, v, dout of a BWD_CASES row, from a numpy seed, and the
+    f32 arrays they were rounded from."""
     B, Sq, Skv, Hq, Hkv, D, kvv, causal = case
     rng = np.random.default_rng(Sq + Skv + Hq + D)
     arrs = [rng.standard_normal(s).astype(np.float32) for s in
             ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D), (B, Sq, Hq, D))]
-    q, k, v, dout = (_torch(a, "bf16") for a in arrs)
+    return [_torch(a, "bf16") for a in arrs], arrs
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_split_forward_lse_matches_oracle_and_jax(case):
+    """The LSE the forward kernel keeps from its merge (the split
+    decomposition at the kernel's 64-position splits): within LSE_TOL of
+    the one-pass oracle attention_lse_ref and of JAX's logsumexp of the
+    masked scores, with the output bit-equal to the call without it."""
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = case
+    (q, k, v, _), _ = _bwd_inputs(case)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32)
+    out, lse = ref.verify_attention_split_ref(q, k, v, kv_valid, split=64, causal=causal,
+                                              return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, Sq)
+    assert torch.equal(out, ref.verify_attention_split_ref(q, k, v, kv_valid, split=64,
+                                                           causal=causal))
+    assert _rel(lse, ref.attention_lse_ref(q, k, kv_valid, causal=causal)) <= LSE_TOL
+    want = _jax_lse(q.float().numpy(), k.float().numpy(), kvv, causal)
+    assert np.isfinite(want).all()
+    assert _rel(lse, want) <= LSE_TOL, _rel(lse, want)
+
+
+@pytest.mark.parametrize("causal,kvv", [(True, [3, 70]), (False, [0, 70])])
+def test_rows_that_see_nothing_get_lse_zero_and_no_gradient(causal, kvv):
+    """A row that sees no position (causal: kv_valid < Sq puts the first
+    queries before position 0; non-causal: kv_valid 0) gets LSE 0 from the
+    split forward and from the oracle, and a zero dQ row from the split and
+    the plain backward; the other rows see positions and get neither."""
+    B, Sq, Hq, Hkv, Skv, D = 2, 5, 8, 2, 96, 64
+    q, k, v = (_torch(a, "bf16") for a in _attn_inputs(9, B, Sq, Hq, Hkv, Skv, D))
+    dout = _torch(np.random.default_rng(10).standard_normal((B, Sq, Hq, D)), "bf16")
+    kv_valid = torch.tensor(kvv, dtype=torch.int32)
+    blind = 2 if causal else Sq  # rows of entry 0 that see nothing
+    out, lse = ref.verify_attention_split_ref(q, k, v, kv_valid, split=64, causal=causal,
+                                              return_lse=True)
+    oracle = ref.attention_lse_ref(q, k, kv_valid, causal=causal)
+    for got in (lse, oracle):
+        assert torch.equal(got[0, :, :blind], torch.zeros_like(got[0, :, :blind]))
+        assert (got[0, :, blind:] != 0).all() and (got[1] != 0).all()
+    for dq, _, _ in (ref.attention_bwd_split_ref(q, k, v, out, dout, kv_valid, causal=causal),
+                     ref.attention_bwd_ref(q, k, v, out, dout, kv_valid, causal=causal)):
+        assert torch.equal(dq[0, :blind], torch.zeros_like(dq[0, :blind]))
+        assert dq[1].abs().amax() > 0
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bwd_delta_ref_is_rowsum_of_dout_times_out(case):
+    """attention_bwd_delta_ref, the plain version of attn_bwd_delta, is
+    sum_d dO * O in f32 with heads before rows, (B, Hq, Sq); against the
+    same sum in f64 within 1e-5 of its largest element."""
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = case
+    (q, k, v, dout), _ = _bwd_inputs(case)
+    out = ref.verify_attention_ref(q, k, v, torch.tensor(kvv, dtype=torch.int32), causal=causal)
+    got = ref.attention_bwd_delta_ref(out, dout)
+    assert got.dtype == torch.float32 and got.shape == (B, Hq, Sq) and got.is_contiguous()
+    assert torch.equal(got, (dout.float() * out.float()).sum(-1).transpose(1, 2))
+    want = (dout.double() * out.double()).sum(-1).transpose(1, 2)
+    assert _rel(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_split_attention_bwd_matches_plain_and_jax(case):
+    """The backward kernels' decomposition, on the split forward's LSE as
+    the card path takes it, against the plain backward (SPLIT_BWD_TOL) and
+    JAX's gradient (bf16 2e-2); a causal limit one position late is outside
+    the JAX bound."""
+    B, Sq, Skv, Hq, Hkv, D, kvv, causal = case
+    (q, k, v, dout), arrs = _bwd_inputs(case)
     kv_valid = torch.tensor(kvv, dtype=torch.int32)
     out = ref.verify_attention_ref(q, k, v, kv_valid, causal=causal)
     got = ref.attention_bwd_split_ref(q, k, v, out, dout, kv_valid, causal=causal)
