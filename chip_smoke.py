@@ -48,7 +48,16 @@ Phases, each of which must pass for the script to exit 0:
                SDPA's whole backward, and the forward's with and without the
                LSE beside SDPA's forward at the three training shapes; the
                registers and spill bytes of the backward kernels from nvcc's
-               report;
+               report; since ssm and hybrid training, the SSD scan's
+               backward (ssd_scan_bwd: C.B^T, dy.x^T, a reverse pass, a
+               chunk pass and a reduction) on the chunk start states the
+               forward keeps (ssd_scan(return_states=True), its y and state
+               the same bits as without them, the states against the plain
+               scan's) at the six SSD cases with a start state and both
+               cotangents and at mamba2-370m's and zamba2-1.2b's training
+               rows: dx, ddt, dA, dB, dC and dh0 within SSD_GRAD_TIGHT of
+               the plain backward, two calls bit for bit, an
+               exclusive-cumsum control outside the bound;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -213,7 +222,7 @@ Phases, each of which must pass for the script to exit 0:
                card and restored onto it, every tensor bit-equal; bytes
                and seconds each way;
   (train whisper runs after phase 2, on a card no serve bundle has used,
-  train qwen2 after phase 14:)
+  the train phases of this process after phase 14:)
   10. train qwen2 - full-width qwen2-1.5b trained 8 steps through
                repro_torch.training (B 8, S 128, remat, chunks of 64): step
                1's gradients with the backward kernels within GRAD_LEAF_TOL
@@ -221,6 +230,14 @@ Phases, each of which must pass for the script to exit 0:
                (the plain backward one position late) beyond it; the losses finite
                and falling; each backward kernel launched 28 x 8 times;
                seconds a step, tokens/s and peak memory printed;
+      train mamba2, train zamba2 - full-width mamba2-370m and
+               zamba2-1.2b trained 8 steps the same way: step 1's
+               gradients with the SSD kernels within GRAD_LEAF_TOL of the
+               same step with the plain scan, a control (the kernel's
+               forward, the plain backward on dy one step late) beyond it;
+               the scan kernel launched twice a layer and step (remat), its
+               backward once; for zamba2 also the attention kernels of the
+               shared block's 6 applications a step (the forward twice);
   11. train whisper - python -m repro_torch.launch.train --arch whisper-tiny
                at full width (1500 stub frames, B 8, S 128): 6 steps
                straight, then --fail-at 3 --ckpt-every 2 (a non-zero exit)
@@ -320,6 +337,9 @@ REPLACES = {
     # autodiffs its XLA mirror
     **{name: "no Pallas counterpart: JAX autodiffs src/repro/models/layers.py:215"
        for name in ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")},
+    # the SSD scan's gradient (training): no Pallas kernel has one; JAX
+    # autodiffs its XLA mirror mamba2.ssd_chunked
+    "ssd_scan_bwd": "no Pallas counterpart: JAX autodiffs src/repro/models/mamba2.py:80",
 }
 SOURCES = {
     "verify_attn": "src/repro_torch/kernels/csrc/verify_attn.cu",
@@ -804,6 +824,129 @@ def check_ssd(records: dict) -> None:
         raise AssertionError("ssd_scan took P=24, which its 16-column slices do not cover")
 
 
+# the SSD backward's bound: each of dx, ddt, dA, dB, dC and dh0 within this
+# share of its largest element (max |kernel - plain| / max |plain|) of the
+# plain backward (kernels/ref.py ssd_scan_bwd_ref) on the card. On the CPU
+# the plain backward is within 1e-5 of autograd of the plain scan for the
+# f32 outputs (dA 6e-5: a sum whose terms cancel) and rounds dx, dB and dC
+# to the same bf16 values (tests/test_torch_ssd_grad.py); here the kernels
+# sum in another order, so a bf16 output may land one step (2^-8 of an
+# element, at most 3.9e-3 of the largest) from the plain one. 1e-2 is ~2.5
+# such steps; a running sum of dt * A that leaves out each step's own term
+# (exclusive instead of inclusive, the control below) moves some output by
+# 0.17 or more at these inputs
+SSD_GRAD_TIGHT = 1e-2
+# (B, S, H, P, N, chunk): check_ssd's six cases, then the training rows of
+# mamba2-370m and zamba2-1.2b (B 8, S 128: one chunk of 128 rows)
+SSD_BWD_CASES = [
+    (1, 199, 32, 64, 128, 256), (1, 512, 32, 64, 128, 256), (2, 300, 32, 64, 128, 256),
+    (2, 64, 4, 16, 32, 16), (1, 199, 64, 64, 64, 256), (2, 64, 8, 16, 16, 16),
+    (8, 128, 32, 64, 128, 256), (8, 128, 64, 64, 64, 256),
+]
+
+
+def _ssd_bwd_bound(B, S, H, P, N, chunk) -> dict:
+    """Least time for one SSD backward: its inputs (x, dt, A, B, C, the chunk
+    states, dy, dh_out) read and outputs (dx, ddt, dA, dB, dC, dh0) written
+    once at the HBM rate, or its operations at each precision's peak,
+    whichever is larger. Per (b, chunk of q rows): C.B^T over the triangle
+    (bf16). Per (b, h, chunk): dy.x^T over the triangle (bf16); on the tf32
+    cores y's carry-in and intra terms, dC's two, U = V^T dy, T = B dh^T,
+    dB's two and the reverse pass's dy^T C (5 qPN + 2 tri P + 2 tri N
+    multiply-adds; the kernels' 2xTF32 runs each twice, which the bound does
+    not count); on the f32 cores ~6 operations a triangle element (the decay,
+    V, W, dS), ~10 a row and 2PN (dh h, the decay of dh)."""
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    nbytes = (3 * B * S * H * P * 2 + 2 * B * S * H * 4 + 2 * H * 4
+              + 2 * 2 * B * S * N * 2 + B * nc * H * P * N * 4 + 2 * B * H * P * N * 4)
+    cb = mm = vec = 0
+    for t0 in range(0, S, Q):
+        q = min(Q, S - t0)
+        tri = q * (q + 1) // 2
+        cb += B * 2 * tri * N + B * H * 2 * tri * P
+        mm += B * H * 2 * (5 * q * P * N + 2 * tri * P + 2 * tri * N)
+        vec += B * H * (6 * tri + 10 * q + 2 * P * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (cb / BF16_FLOPS + mm / TF32_FLOPS + vec / F32_FLOPS) * 1e3
+    return {"bound_ms": t_bytes, "bound_by": "bytes"} if t_bytes >= t_ops else {
+        "bound_ms": t_ops, "bound_by": "operations"}
+
+
+def check_ssd_bwd(records: dict) -> None:
+    """The SSD scan's backward kernels on the forward kernel's chunk states
+    against the plain backward at SSD_BWD_CASES with a start state and both
+    cotangents: each output within SSD_GRAD_TIGHT, two calls bit-equal, the
+    exclusive-cumsum control beyond the bound; the forward's chunk states
+    against the plain scan's (SSD_TOL's state limit), its y and state the
+    same bits with and without them; graph, eager and plain ms beside the
+    bound (no PyTorch call computes it: library none)."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    print("kernel ssd backward, nvcc: "
+          + _ptxas_report(BUILD_LOGS.get("ssd_scan", ""),
+                          ("ssd_gram_kernel", "ssd_scan_kernel", "ssd_bwd_dstate_kernel",
+                           "ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel")), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def exclusive(v):
+        return torch.cumsum(v, dim=1) - v
+
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    for idx, (B, S, H, P, N, chunk) in enumerate(SSD_BWD_CASES):
+        xbc = rnd(B, S, H * P + 2 * N).to(torch.bfloat16)
+        x = xbc[..., :H * P].reshape(B, S, H, P)
+        Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+        dt = torch.nn.functional.softplus(rnd(B, S, H))
+        A = -torch.exp(rnd(H) * 0.5)
+        h0, dh = rnd(B, H, P, N), rnd(B, H, P, N)
+        dy = rnd(B, S, H, P).to(torch.bfloat16)
+        y, h, states = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk, return_states=True)
+        y2, h2 = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+        kern = lambda: ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, dh,  # noqa: E731
+                                             chunk=chunk)
+        plain = lambda: ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh,  # noqa: E731
+                                             chunk=chunk)
+        got, again, want = kern(), kern(), plain()
+        late = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk, cumsum=exclusive)
+        _, _, plain_states = ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk,
+                                              return_states=True)
+        torch.cuda.synchronize()
+        shape = f"B={B} S={S} H={H} P={P} N={N} chunk={chunk}"
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"ssd_scan {shape}: y or the state differs with the states")
+        state_rel = ((states - plain_states).abs() / (1 + plain_states.abs())).max().item()
+        if not state_rel <= SSD_TOL["state"]:
+            raise AssertionError(f"ssd_scan {shape}: the chunk states are {state_rel} off "
+                                 f"(> {SSD_TOL['state']})")
+        errs = {n: _rel(g, w) for n, g, w in zip(names, got, want)}
+        bad = [n for n in names if not errs[n] <= SSD_GRAD_TIGHT]
+        if bad:
+            raise AssertionError(f"ssd_scan_bwd {shape}: {bad} off ({errs}; bound "
+                                 f"{SSD_GRAD_TIGHT} of the largest element)")
+        for n, g, a in zip(names, got, again):
+            if not torch.equal(g, a):
+                raise AssertionError(f"ssd_scan_bwd {shape}: {n} differs between calls")
+        errs["exclusive_cumsum"] = max(_rel(g, w) for g, w in zip(late, want))
+        if not errs["exclusive_cumsum"] > SSD_GRAD_TIGHT:
+            raise AssertionError(f"ssd_scan_bwd {shape}: the exclusive-cumsum control is only "
+                                 f"{errs['exclusive_cumsum']} off (<= {SSD_GRAD_TIGHT})")
+        errs["states_rel"] = state_rel
+        bound = _ssd_bwd_bound(B, S, H, P, N, chunk)
+        line = {"case": idx, "name": "ssd_scan_bwd", "shape": shape,
+                "max_abs_err": max(_abs(g, w) for g, w in zip(got, want)),
+                "max_rel_err": max(errs[n] for n in names), "errs": errs,
+                "ms": _time_ms(kern, 20), "graph_ms": _graph_ms([kern] * GRAD_CALLS),
+                "plain_ms": _time_ms(plain, 3), "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "library_ms": None}
+        _record(records, "ssd_scan_bwd", idx, 6, line)
+        del got, again, want, late
+
+
 # the attention backward's bound: each of dQ, dK and dV within this share
 # of its largest element (max |kernel - plain| / max |plain|) of the plain
 # version's autograd gradient on the card. The plain backward
@@ -877,16 +1020,18 @@ def _rel(got, want) -> float:
 
 
 def _ptxas_report(log: str, kernels) -> str:
-    """``kernel<D>: N registers, S spill bytes`` for each instantiation of
-    ``kernels`` in nvcc's -Xptxas -v report (spill stores + loads)."""
+    """``kernel<D>: N registers, S spill bytes`` (``kernel:`` where it is no
+    template) for each instantiation of ``kernels`` in nvcc's -Xptxas -v
+    report (spill stores + loads)."""
     import re
 
     out, name, spill = [], None, 0
     for ln in log.splitlines():
-        if "Compiling entry function" in ln:  # mangled: <length><name>ILi<D>E
-            entry = re.search(r"\d([a-z_]+)ILi(\d+)E", ln)
-            name = (f"{entry.group(1)}<{entry.group(2)}>"
-                    if entry and entry.group(1) in kernels else None)
+        if "Compiling entry function" in ln:  # mangled: <length><name>[ILi<D>]E
+            entry = re.search(r"\d([a-z_]+)(?:ILi(\d+))?E", ln)
+            name = None
+            if entry and entry.group(1) in kernels:
+                name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
         elif name and "spill stores" in ln:
             spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
         elif name and "registers" in ln:
@@ -1056,6 +1201,7 @@ def check_kernels(records: dict) -> None:
     """Phase 2: every kernel against its plain version at the paths' shapes."""
     check_attention(records)
     check_ssd(records)
+    check_ssd_bwd(records)
     check_attention_bwd(records)
 
 
@@ -2942,47 +3088,138 @@ def checkpoint_phase(params) -> None:
           f"temp dir removed: {not Path(d).exists()}", flush=True)
 
 
-# the train qwen2 phase: the launcher's defaults (B 8, S 128, loss and
+# the train phases: the launcher's defaults (B 8, S 128, loss and
 # attention chunks 64, remat, lr 1e-3 with warmup 10), 8 steps
 TRAIN_STEPS, TRAIN_B, TRAIN_S = 8, 8, 128
 # step 1's gradients with the kernels against the same step with the plain
-# attention on the card: each leaf within this relative Frobenius distance
-# (the kernels' backward and autograd of the plain forward differ by the
-# rounding of P and O, GRAD_TIGHT; the forward is the same kernel's bits).
-# The control, the kernels' forward with the plain backward at a causal
-# limit one position late, must lie beyond it.
+# version on the card: each leaf within this relative Frobenius distance
+# (the attention kernels' backward and autograd of the plain forward differ
+# by the rounding of P and O, GRAD_TIGHT; the SSD kernels' by their sums'
+# order and the bf16 rounding of y, dx, dB and dC). The controls, the
+# kernels' forward with the plain backward off by one position (attention:
+# a causal limit one position late; the SSD scan: dy one step late), must
+# lie beyond it.
 GRAD_LEAF_TOL = 5e-2
 
 
-def train_qwen2(records: dict) -> None:
-    """Full-width qwen2-1.5b (28 layers of 1536, vocab 151936) trained 8
-    steps through repro_torch.training on a card freed of the serve
-    bundles: step 1's gradients with the backward kernels against the same
-    step with the plain attention (a harness swap of ops.attention; the
-    port never runs it on the card), then 8 steps: seconds each, tokens/s,
-    peak memory, losses finite and falling; each backward kernel launched
-    layers x steps times, the forward kernel twice as often (remat)."""
+def _train_on_card(label: str, arch: str, records: dict, *, op: str, what: str, swaps: dict,
+                   control: str, path, steps: int = TRAIN_STEPS,
+                   falling: str = "last step") -> None:
+    """``arch`` at full width trained ``steps`` steps through
+    repro_torch.training on a card freed of the serve bundles: step 1's
+    gradients with the kernels against the same step with ``swaps["plain"]``
+    in place of ``ops.<op>`` (a harness swap; the port never runs the plain
+    version on the card) within GRAD_LEAF_TOL, ``swaps["control"]`` beyond
+    it (and, where ``swaps`` has ``"plain backward"``, the kernels' forward
+    with the plain backward, the kernels' distance from it and its own from
+    the plain version printed); then the steps: seconds each, tokens/s, peak
+    memory, losses finite and falling, and each kernel launched as
+    ``path(cfg, steps)`` says. ``falling``: "last step", the last step's
+    loss below the first's; "batch 0", step 1's batch, evaluated again
+    after the steps, below its loss at step 1 (each step sees a fresh
+    batch, whose loss the warmup's steps need not lower)."""
     from repro_torch import bridge
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops, ref, verify_attn
+    from repro_torch.kernels import ops
     from repro_torch.models.model_zoo import build_model
     from repro_torch.training import data, optimizer as O, train_step as TS
 
-    cfg = get_config("qwen2-1.5b")
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
-    print(f"train qwen2: init {time.perf_counter() - t0:.2f} s, "
+    print(f"{label}: init {time.perf_counter() - t0:.2f} s, "
           f"{sum(p.numel() for p in params.parameters())} parameters", flush=True)
     tcfg = TS.TrainConfig(
-        optimizer=O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=TRAIN_STEPS),
+        optimizer=O.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps),
         remat=True, loss_chunk=64, attn_chunk=64)
     dcfg = data.DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S + 1,
                            global_batch=TRAIN_B)
     batches = [{k: torch.as_tensor(v).cuda() for k, v in data.batch_at(dcfg, s).items()}
-               for s in range(TRAIN_STEPS)]
+               for s in range(steps)]
     loss_fn = TS.make_loss_fn(model, tcfg)
+
+    def step1_grads(swap=None):
+        kernel = getattr(ops, op)
+        if swap is not None:
+            setattr(ops, op, swaps[swap])
+        try:
+            for p in params.parameters():
+                p.requires_grad_(True)
+                p.grad = None
+            loss, _ = loss_fn(params, batches[0])
+            loss.backward()
+            grads = bridge.grads_tree(params)
+            for p in params.parameters():
+                p.grad = None
+            return loss.item(), grads
+        finally:
+            setattr(ops, op, kernel)
+
+    (loss_k, g_k), (loss_p, g_p) = step1_grads(), step1_grads("plain")
+    loss_c, g_c = step1_grads("control")
+    worst, ctrl = _worst_leaf(g_k, g_p), _worst_leaf(g_c, g_p)
+    del g_c
+    if "plain backward" in swaps:
+        g_b = step1_grads("plain backward")[1]
+        own, fwd = _worst_leaf(g_k, g_b), _worst_leaf(g_b, g_p)
+        print(f"{label}: the kernels' forward with the plain backward: the kernels' worst leaf "
+              f"{own[1]} {own[0]:.4g} from it (the backward kernels' share), its own {fwd[1]} "
+              f"{fwd[0]:.4g} from the plain {what}'s (the forward's share)", flush=True)
+        del g_b
+    del g_k, g_p
+    torch.cuda.empty_cache()  # the plain version's odd-sized blocks, before the big state
+    print(f"{label}: step 1 loss {loss_k!r} with the kernels, {loss_p!r} with the plain "
+          f"{what}; the gradients' worst leaf {worst[1]} {worst[0]:.4g} relative "
+          f"(bound {GRAD_LEAF_TOL})", flush=True)
+    print(f"{label}: control ({control}): loss {loss_c!r}, worst leaf {ctrl[1]} {ctrl[0]:.4g} "
+          f"relative, fails the bound: {ctrl[0] > GRAD_LEAF_TOL}", flush=True)
+    if not worst[0] <= GRAD_LEAF_TOL:
+        raise AssertionError(f"{label}: leaf {worst[1]}'s gradient is {worst[0]} off the "
+                             f"plain {what}'s (> {GRAD_LEAF_TOL})")
+    if not ctrl[0] > GRAD_LEAF_TOL:
+        raise AssertionError(f"{label}: the off-by-one control is within GRAD_LEAF_TOL "
+                             f"({ctrl[0]} <= {GRAD_LEAF_TOL}): the bound cannot catch it")
+
+    step = TS.make_train_step(model, tcfg)
+    opt = O.adamw_init(bridge.params_tree(params))
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds, err = [], [], None
+    for s in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, batches[s])
+        losses.append(float(m["loss"]))
+        seconds.append(time.perf_counter() - t0)
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_B * TRAIN_S
+    steady = seconds[1:]
+    print(f"{label}: {steps} steps of {TRAIN_B} x {TRAIN_S} tokens, seconds "
+          f"{[round(x, 4) for x in seconds]}, {tokens * len(steady) / sum(steady):.1f} tokens/s "
+          f"after the first step, peak device memory {peak:.2f} GiB, losses {losses}, last "
+          f"grad norm {float(m['grad_norm']):.4g}, lr {float(m['lr']):.4g}", flush=True)
+    if falling == "batch 0":
+        with torch.no_grad():
+            again = float(loss_fn(params, batches[0])[0])
+        print(f"{label}: step 1's batch after the {steps} steps: loss {again!r} (at step 1: "
+              f"{losses[0]!r})", flush=True)
+        fell = again < losses[0]
+    else:
+        fell = losses[-1] < losses[0]
+    if not all(math.isfinite(x) for x in losses) or not fell:
+        raise AssertionError(f"{label}: losses {losses} not finite and falling ({falling})")
+    _record_launches(label, records, path(cfg, steps), launches)
+
+
+def train_qwen2(records: dict) -> None:
+    """Full-width qwen2-1.5b (28 layers of 1536, vocab 151936): the plain
+    attention against the backward kernels at step 1; each backward kernel
+    launched layers x steps times, the forward kernel twice as often
+    (remat)."""
+    from repro_torch.kernels import ref, verify_attn
 
     class LateBackward(torch.autograd.Function):
         """The control: the forward kernel, and the plain backward with the
@@ -3004,80 +3241,86 @@ def train_qwen2(records: dict) -> None:
     swaps = {
         "plain": lambda q, k, v, kv, *, causal=True, block_k=64: (
             ref.verify_attention_ref(q, k, v, kv, block_k=block_k, causal=causal)),
-        "late": lambda q, k, v, kv, *, causal=True, block_k=64: (
+        "control": lambda q, k, v, kv, *, causal=True, block_k=64: (
             LateBackward.apply(q.contiguous(), k.contiguous(), v.contiguous(), kv, causal)),
     }
 
-    def step1_grads(swap=None):
-        kernel = ops.attention
-        if swap is not None:
-            ops.attention = swaps[swap]
-        try:
-            for p in params.parameters():
-                p.requires_grad_(True)
-                p.grad = None
-            loss, _ = loss_fn(params, batches[0])
-            loss.backward()
-            grads = bridge.grads_tree(params)
-            for p in params.parameters():
-                p.grad = None
-            return loss.item(), grads
-        finally:
-            ops.attention = kernel
+    def path(cfg, steps):
+        n = cfg.num_layers * steps
+        return {"attn_bwd_delta": n, "attn_bwd_dkdv": n, "attn_bwd_dq": n,
+                "verify_attention_packed": 2 * n}
 
-    (loss_k, g_k), (loss_p, g_p) = step1_grads(), step1_grads("plain")
-    loss_c, g_c = step1_grads("late")
-    worst, control = _worst_leaf(g_k, g_p), _worst_leaf(g_c, g_p)
-    del g_k, g_p, g_c
-    torch.cuda.empty_cache()  # the plain attention's odd-sized blocks, before the big state
-    print(f"train qwen2: step 1 loss {loss_k!r} with the kernels, {loss_p!r} with the plain "
-          f"attention; the gradients' worst leaf {worst[1]} {worst[0]:.4g} relative "
-          f"(bound {GRAD_LEAF_TOL})", flush=True)
-    print(f"train qwen2: control (the kernels' forward, the plain backward one position "
-          f"late): loss {loss_c!r}, worst leaf {control[1]} {control[0]:.4g} relative, "
-          f"fails the bound: {control[0] > GRAD_LEAF_TOL}", flush=True)
-    if not worst[0] <= GRAD_LEAF_TOL:
-        raise AssertionError(f"train qwen2: leaf {worst[1]}'s gradient is {worst[0]} off the "
-                             f"plain attention's (> {GRAD_LEAF_TOL})")
-    if not control[0] > GRAD_LEAF_TOL:
-        raise AssertionError(f"train qwen2: the off-by-one control is within GRAD_LEAF_TOL "
-                             f"({control[0]} <= {GRAD_LEAF_TOL}): the bound cannot catch it")
+    _train_on_card("train qwen2", "qwen2-1.5b", records, op="attention", what="attention",
+                   swaps=swaps, control="the kernels' forward, the plain backward one position "
+                   "late", path=path)
 
-    step = TS.make_train_step(model, tcfg)
-    opt = O.adamw_init(bridge.params_tree(params))
-    _reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    losses, seconds, err = [], [], None
-    for s in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt, err, m = step(params, opt, err, batches[s])
-        losses.append(float(m["loss"]))
-        seconds.append(time.perf_counter() - t0)
-    launches = _launches()
-    tokens = TRAIN_B * TRAIN_S
-    steady = seconds[1:]
-    print(f"train qwen2: {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens, seconds "
-          f"{[round(x, 4) for x in seconds]}, {tokens * len(steady) / sum(steady):.1f} tokens/s "
-          f"after the first step, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses {losses}, last grad "
-          f"norm {float(m['grad_norm']):.4g}, lr {float(m['lr']):.4g}", flush=True)
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train qwen2: losses {losses} not finite and falling")
-    n = cfg.num_layers * TRAIN_STEPS
-    _record_launches("train qwen2", records, {"attn_bwd_delta": n, "attn_bwd_dkdv": n,
-                                              "attn_bwd_dq": n, "verify_attention_packed": 2 * n},
-                     launches)
+
+def _ssd_swaps() -> dict:
+    """ops.ssd_scan's harness swaps for the SSD train phases: the plain scan
+    (autograd differentiates it); the scan kernel's forward with the plain
+    backward (which splits the kernels' distance from the plain scan into
+    the backward kernels' share and the forward's); and the control, the
+    same on dy one step late (dy_{t+1} at step t)."""
+    from repro_torch.kernels import ref, ssd_scan
+
+    class PlainBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, Bm, Cm, h0, chunk, late):
+            y, h = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+            ctx.save_for_backward(x, dt, A, Bm, Cm)
+            ctx.h0, ctx.chunk, ctx.late = h0, chunk, late
+            return y, h
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            x, dt, A, Bm, Cm = ctx.saved_tensors
+            if ctx.late:
+                dy = torch.cat([dy[:, 1:], torch.zeros_like(dy[:, :1])], dim=1)
+            grads = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, ctx.h0, dy, dh, chunk=ctx.chunk)
+            return (*grads[:5], grads[5] if ctx.needs_input_grad[5] else None, None, None)
+
+    return {
+        "plain": lambda x, dt, A, Bm, Cm, h0=None, *, chunk: (
+            ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)),
+        "plain backward": lambda x, dt, A, Bm, Cm, h0=None, *, chunk: (
+            PlainBackward.apply(x, dt, A, Bm, Cm, h0, chunk, False)),
+        "control": lambda x, dt, A, Bm, Cm, h0=None, *, chunk: (
+            PlainBackward.apply(x, dt, A, Bm, Cm, h0, chunk, True)),
+    }
+
+
+def train_ssm(records: dict, label: str, arch: str, steps: int = TRAIN_STEPS) -> None:
+    """Full-width mamba2-370m or zamba2-1.2b: the plain SSD scan against the
+    scan's kernels at step 1; the scan kernel launched twice a layer and
+    step (remat), its backward once; for zamba2 also the attention kernels
+    of the shared block's 6 applications a step, the forward twice each.
+    The losses fall on step 1's batch evaluated again after the steps:
+    zamba2's fresh batches at the launcher's warmup need not (10.777 at the
+    first step, 10.842 at the eighth; that batch again 10.643), as the JAX
+    package's own reduced hybrid's do not fall over its first 5 steps
+    (tests/test_torch_training.py)."""
+    from repro_torch.models.hybrid import n_apps
+
+    def path(cfg, steps):
+        n = cfg.num_layers * steps
+        want = {"ssd_scan": 2 * n, "ssd_scan_bwd": n}
+        if cfg.family == "hybrid":
+            a = n_apps(cfg) * steps
+            want.update({"attn_bwd_delta": a, "attn_bwd_dkdv": a, "attn_bwd_dq": a,
+                         "verify_attention_packed": 2 * a})
+        return want
+
+    _train_on_card(label, arch, records, op="ssd_scan", what="SSD scan", swaps=_ssd_swaps(),
+                   control="the scan kernel's forward, the plain backward on dy one step late",
+                   path=path, steps=steps, falling="batch 0")
 
 
 def _worst_leaf(got, want):
     """(relative Frobenius distance, leaf) of the leaf of ``got`` furthest
     from ``want``'s."""
-    worst = (0.0, None)
-    for key, g in _tree_items(got):
-        w = _tree_get(want, key).float()
-        worst = max(worst, (((g.float() - w).norm() / w.norm().clamp(min=1e-30)).item(), key))
-    return worst
+    return max(((((g.float() - _tree_get(want, key).float()).norm()
+                   / _tree_get(want, key).float().norm().clamp(min=1e-30)).item(), key)
+                for key, g in _tree_items(got)), key=lambda pair: pair[0])
 
 
 def _tree_items(tree, path=()):
@@ -3393,6 +3636,10 @@ def main() -> int:
     _phase("cli", cli_on_card)
     _free_card("the serve phases")
     _phase("train qwen2", lambda: train_qwen2(records))
+    _free_card("train qwen2")
+    _phase("train mamba2", lambda: train_ssm(records, "train mamba2", "mamba2-370m"))
+    _free_card("train mamba2")
+    _phase("train zamba2", lambda: train_ssm(records, "train zamba2", "zamba2-1.2b"))
 
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": list(records.values())}))

@@ -21,7 +21,12 @@ tensors a ``torch.autograd.Function`` whose forward is the dense kernel,
 which also keeps each query row's log-sum-exp from its merge
 (``return_lse=True``), and whose backward is ``kernels/attn_bwd.py``'s
 three kernels on that LSE; on CPU tensors the plain version, which
-autograd differentiates itself.
+autograd differentiates itself. ``ssd_scan`` is differentiable the same
+way: on CUDA tensors that need a gradient a ``torch.autograd.Function``
+whose forward is the scan kernel, keeping each chunk's start state
+(``return_states=True``), and whose backward is ``kernels/ssd_scan.py``'s
+``ssd_scan_bwd`` on those states; without a gradient (a serve) the scan
+kernel alone, as before.
 """
 from __future__ import annotations
 
@@ -119,6 +124,28 @@ def verify_attention_paged(
     )
 
 
+class _SSDScan(torch.autograd.Function):
+    """The scan kernel, keeping each chunk's start state, and the scan's
+    backward kernels."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, h0, chunk):
+        y, h, states = ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk, return_states=True)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, states)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused final state's cotangent stays None
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        x, dt, A, Bm, Cm, states = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        dx, ddt, dA, dB, dC, dh0 = ssd_kernel.ssd_scan_bwd(
+            x, dt, A, Bm, Cm, states, dy, None if dh is None else dh.contiguous(),
+            chunk=ctx.chunk)
+        return dx, ddt, dA, dB, dC, dh0 if ctx.needs_input_grad[5] else None, None
+
+
 def ssd_scan(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H) f32, post-softplus
@@ -130,7 +157,12 @@ def ssd_scan(
     chunk: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba2 SSD over a whole sequence: (y in x's dtype, final f32 state)
-    (see ssd_scan.cu)."""
+    (see ssd_scan.cu). On CUDA tensors the kernels run (or raise), forward
+    and, where an input needs a gradient, backward; never the plain
+    version."""
     if x.is_cuda:
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, h0)):
+            return _SSDScan.apply(x, dt, A, Bm, Cm, h0, chunk)
         return ssd_kernel.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)

@@ -19,7 +19,14 @@ chunk order.
 SSD scan (``kernels/csrc/ssd_scan.cu``): the chunked Mamba2 scan in f32,
 the arithmetic of the JAX package's Pallas ``ssd_scan._kernel`` and of its
 XLA ``mamba2.ssd_chunked`` (which pads a ragged last chunk with zeros; a
-zero-padded row changes neither the outputs nor the state).
+zero-padded row changes neither the outputs nor the state). The decay
+exp(cum_i - cum_j) is taken on the causal triangle only: the exponent is
+masked to -inf above the diagonal before the exp, where JAX masks the exp's
+result. The values are the same; but above the diagonal cum_i - cum_j is
+positive, and once a chunk's |sum dt A| passes ~88 its exp overflows, so
+JAX's gradient there is 0 * inf = NaN where autograd's of this one stays
+finite (a recorded departure). The backward kernels of the same source
+have the closed form ``ssd_scan_bwd_ref``.
 
 The CPU path of the port runs these; the CUDA path never calls them, and
 ``chip_smoke.py`` holds the kernels against them on the card.
@@ -33,7 +40,10 @@ split forward, dS rounded to bf16 for dQ and dK, dK and dV as
 per-query-head f32 partials summed in head order), and
 ``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
 P-slice by P-slice, optionally with the chunk's running sum in the
-kernel's order (``warp_scan_cumsum``).
+kernel's order (``warp_scan_cumsum``), and ``ssd_scan_bwd_split_ref`` is
+the SSD backward kernels' (a reverse pass for each chunk's end cotangent,
+a pass per (b, chunk, head) with per-head partials of dB, dC and dA, and
+their sums in head and (b, chunk) order).
 """
 from __future__ import annotations
 
@@ -344,6 +354,13 @@ def attention_bwd_split_ref(q, k, v, out, dout, kv_valid, *, causal: bool = True
             dv.to(v.dtype))
 
 
+def _causal_decay(cum: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
+    """exp(cum_i - cum_j), (B, i, j, H), on the causal triangle j <= i and 0
+    above it, the exponent masked before the exp (see the module note)."""
+    seg = cum[:, :, None, :] - cum[:, None, :, :]
+    return torch.exp(torch.where(tri[None, :, :, None], seg, float("-inf")))
+
+
 def ssd_scan_ref(
     x: torch.Tensor,    # (B, S, H, P)
     dt: torch.Tensor,   # (B, S, H) f32, post-softplus
@@ -353,10 +370,12 @@ def ssd_scan_ref(
     h0: Optional[torch.Tensor] = None,  # (B, H, P, N) f32
     *,
     chunk: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_states: bool = False,
+):
     """Chunked SSD. Returns (y (B, S, H, P) in x's dtype, final state
-    (B, H, P, N) f32). Per chunk of Q = min(chunk, S) steps, with
-    ``cum`` the running sum of ``dt * A``:
+    (B, H, P, N) f32), and with ``return_states`` also each chunk's start
+    state (B, n_chunks, H, P, N) f32. Per chunk of Q = min(chunk, S) steps,
+    with ``cum`` the running sum of ``dt * A``:
       carry-in   y_i += exp(cum_i) * C_i . h
       intra      y_i += sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
       state      h = exp(cum_Q) h + x^T (B * exp(cum_Q - cum) dt)
@@ -376,14 +395,14 @@ def ssd_scan_ref(
     h = (torch.zeros((Bsz, H, P, N), dtype=f32, device=x.device) if h0 is None
          else h0.to(f32).clone())
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    ys = []
+    ys, states = [], []
     for c in range(nc):
+        states.append(h)
         sl = slice(c * Q, (c + 1) * Q)
         xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
         cum = torch.cumsum(dtq * A.to(f32)[None, None], dim=1)  # (B, Q, H)
         y_off = torch.einsum("bqn,bhpn->bqhp", Cq, h) * torch.exp(cum)[..., None]
-        seg = cum[:, :, None, :] - cum[:, None, :, :]  # (B, i, j, H)
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg), torch.zeros((), device=x.device))
+        decay = _causal_decay(cum, tri)  # (B, i, j, H)
         cb = torch.einsum("bin,bjn->bij", Cq, Bq)
         W = cb[..., None] * decay * dtq[:, None, :, :]
         y_diag = torch.einsum("bijh,bjhp->bihp", W, xq)
@@ -391,7 +410,10 @@ def ssd_scan_ref(
         d_end = torch.exp(cum[:, -1:, :] - cum) * dtq  # (B, Q, H)
         h_new = torch.einsum("bqhp,bqhn->bhpn", xq, Bq[:, :, None, :] * d_end[..., None])
         h = torch.exp(cum[:, -1])[..., None, None] * h + h_new
-    return torch.cat(ys, dim=1)[:, :S], h
+    y = torch.cat(ys, dim=1)[:, :S]
+    if return_states:
+        return y, h, torch.stack(states, dim=1)
+    return y, h
 
 
 def ssd_scan_sliced_ref(
@@ -428,9 +450,7 @@ def ssd_scan_sliced_ref(
         cum = cumsum(da) if cumsum is not None else torch.cumsum(da, dim=1)  # (B, q, H)
         tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
         cb = torch.einsum("bin,bjn->bij", Cq, Bq)  # once per (b, chunk)
-        seg = cum[:, :, None, :] - cum[:, None, :, :]
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg), torch.zeros((), device=x.device))
-        W = cb[..., None] * decay * dtq[:, None, :, :]  # (B, i, j, H)
+        W = cb[..., None] * _causal_decay(cum, tri) * dtq[:, None, :, :]  # (B, i, j, H)
         d_end = torch.exp(cum[:, -1:, :] - cum) * dtq  # (B, q, H)
         bd = Bq[:, :, None, :] * d_end[..., None]  # (B, q, H, N)
         decay_last = torch.exp(cum[:, -1])[..., None, None]
@@ -473,3 +493,203 @@ def warp_scan_cumsum(v: torch.Tensor, lanes: int = 32, warps: int = 8) -> torch.
         cum = torch.stack(before, dim=1)[:, :, None] + w  # (B, warps, lanes, H)
         out[:, base:base + n] = cum.reshape(B, seg, H)[:, :n]
     return out
+
+
+def _reverse_cumsum(v: torch.Tensor) -> torch.Tensor:
+    """sum_{t' >= t} v[:, t'] over dimension 1."""
+    return torch.flip(torch.cumsum(torch.flip(v, [1]), dim=1), [1])
+
+
+def ssd_scan_bwd_ref(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H) f32
+    A: torch.Tensor,    # (H,) f32
+    Bm: torch.Tensor,   # (B, S, N)
+    Cm: torch.Tensor,   # (B, S, N)
+    h0: Optional[torch.Tensor],      # (B, H, P, N) f32, None: zeros
+    dy: torch.Tensor,   # (B, S, H, P): the cotangent of y
+    dh_out: Optional[torch.Tensor],  # (B, H, P, N) f32: of the final state, None: zeros
+    *,
+    chunk: int,
+    cumsum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+):
+    """The gradient of ``ssd_scan_ref`` in closed form: (dx, ddt, dA, dB,
+    dC, dh0), dx, dB and dC in their inputs' dtypes, the rest f32 (f64 for
+    f64 inputs). All in f32 (f64) over zero-padded chunks, as the forward.
+    The chunk start states come from the forward's recurrence; then the
+    chunks are walked in reverse, carrying dh, the cotangent of the state
+    at the chunk's end:
+      dh_prev = exp(cum_Q) dh + sum_i exp(cum_i) dy_i^T C_i.
+    Within a chunk, with L_ij = exp(cum_i - cum_j) on the triangle j <= i
+    (the exp is evaluated there only), G_ij = dy_i . x_j, CB_ij = C_i . B_j,
+    W_ij = CB_ij L_ij dt_j and dS_ij = G_ij L_ij dt_j:
+      carry-in  dC_i += exp(cum_i) dy_i h,  dcum_i += dy_i . y_off_i
+      intra     dx_j += sum_i W_ij dy_i,  dC_i += sum_j dS_ij B_j,
+                dB_j += sum_i dS_ij C_i,  ddt_j += sum_i G_ij CB_ij L_ij,
+                dcum_i += sum_j G_ij W_ij,  dcum_j -= sum_i G_ij W_ij
+      state     dx_j += d_end_j dh B_j,  dB_j += d_end_j x_j dh,
+                ddt_j += exp(cum_Q - cum_j) x_j dh B_j,  dcum_j -= ... d_end_j,
+                dcum_Q += sum_j (x_j dh B_j) d_end_j + exp(cum_Q) sum dh h
+    and cum = cumsum(dt A) gives ddt_t += A sum_{i>=t} dcum_i and dA the
+    same times dt_t summed. ``cumsum`` replaces the chunk's running sum
+    (tests: an exclusive one is the off-by-one control)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    xf, Bf, Cf, dtf, dyf = (t.to(f32) for t in (x, Bm, Cm, dt, dy))
+    Af = A.to(f32)
+    if pad:
+        xf, dyf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (xf, dyf))
+        dtf = torch.nn.functional.pad(dtf, (0, 0, 0, pad))
+        Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (Bf, Cf))
+    running = cumsum if cumsum is not None else (lambda v: torch.cumsum(v, dim=1))
+    dev = x.device
+    h = torch.zeros((Bsz, H, P, N), dtype=f32, device=dev) if h0 is None else h0.to(f32)
+    states = []
+    for c in range(nc):
+        states.append(h)
+        sl = slice(c * Q, (c + 1) * Q)
+        cum = running(dtf[:, sl] * Af)
+        d_end = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        h = (torch.exp(cum[:, -1])[..., None, None] * h
+             + torch.einsum("bqhp,bqn,bqh->bhpn", xf[:, sl], Bf[:, sl], d_end))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
+    dh = torch.zeros((Bsz, H, P, N), dtype=f32, device=dev) if dh_out is None else dh_out.to(f32)
+    dx, dB, dC = torch.zeros_like(xf), torch.zeros_like(Bf), torch.zeros_like(Cf)
+    ddt = torch.zeros_like(dtf)
+    dA = torch.zeros((H,), dtype=f32, device=dev)
+    for c in reversed(range(nc)):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq, dyq, h = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl], dyf[:, sl], states[c]
+        cum = running(dtq * Af)                                   # (B, Q, H)
+        ecum = torch.exp(cum)
+        Lmat = _causal_decay(cum, tri)                            # (B, i, j, H)
+        CB = torch.einsum("bin,bjn->bij", Cq, Bq)
+        G = torch.einsum("bihp,bjhp->bijh", dyq, xq)
+        V = CB[..., None] * Lmat
+        W = V * dtq[:, None]
+        dS = G * Lmat * dtq[:, None]
+        M = G * W
+        # carry-in and intra-chunk terms of y
+        y_off = torch.einsum("bqn,bhpn->bqhp", Cq, h) * ecum[..., None]
+        dCq = (torch.einsum("bqhp,bhpn->bqn", dyq * ecum[..., None], h)
+               + torch.einsum("bijh,bjn->bin", dS, Bq))
+        dBq = torch.einsum("bijh,bin->bjn", dS, Cq)
+        dxq = torch.einsum("bijh,bihp->bjhp", W, dyq)
+        dcum = (dyq * y_off).sum(-1) + M.sum(2) - M.sum(1)
+        ddtq = (G * V).sum(1)
+        # the state at the chunk's end
+        last = cum[:, -1]                                         # (B, H)
+        e_end = torch.exp(last[:, None] - cum)
+        d_end = e_end * dtq
+        T = torch.einsum("bhpn,bjn->bjhp", dh, Bq)
+        dxq = dxq + d_end[..., None] * T
+        dBq = dBq + torch.einsum("bjhp,bhpn->bjn", xq * d_end[..., None], dh)
+        s = (xq * T).sum(-1)                                      # (B, Q, H)
+        ddtq = ddtq + e_end * s
+        dcum = dcum - s * d_end
+        dcum[:, -1] += (s * d_end).sum(1) + torch.exp(last) * (dh * h).sum((-2, -1))
+        dda = _reverse_cumsum(dcum)
+        ddt[:, sl] = ddtq + dda * Af
+        dA = dA + (dda * dtq).sum((0, 1))
+        dx[:, sl], dB[:, sl], dC[:, sl] = dxq, dBq, dCq
+        dh = (torch.exp(last)[..., None, None] * dh
+              + torch.einsum("bqhp,bqn->bhpn", dyq * ecum[..., None], Cq))
+    return (dx[:, :S].to(x.dtype), ddt[:, :S], dA, dB[:, :S].to(Bm.dtype),
+            dC[:, :S].to(Cm.dtype), dh)
+
+
+def ssd_scan_bwd_split_ref(
+    x: torch.Tensor,       # (B, S, H, P)
+    dt: torch.Tensor,      # (B, S, H) f32
+    A: torch.Tensor,       # (H,) f32
+    Bm: torch.Tensor,      # (B, S, N)
+    Cm: torch.Tensor,      # (B, S, N)
+    states: torch.Tensor,  # (B, n_chunks, H, P, N) f32: each chunk's start state
+    dy: torch.Tensor,      # (B, S, H, P)
+    dh_out: Optional[torch.Tensor],  # (B, H, P, N) f32, None: zeros
+    *,
+    chunk: int,
+    cumsum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+):
+    """The SSD backward kernels' decomposition of ``ssd_scan_bwd_ref``
+    (tests only), on the chunk start states the forward kernel keeps:
+      (a) the reverse pass: each chunk's end cotangent dh and dh0;
+      (b) per (b, chunk, h), over the chunk's q rows (no padding), with
+          V_ij = C_i . B_j exp(cum_i - cum_j) on the triangle:
+            Y = exp(cum) C h^T + (V dt_j) x     (the forward's f32 y)
+            U = V^T dy,  T = B dh^T,  dx = dt U + d_end T
+            a = dy . Y,  u = x . U,  s = x . T  (row by row over P)
+            dcum = a - dt u - d_end s, at the last row also + sum d_end s
+            + exp(cum_q) sum dh h; dda its reverse running sum;
+            ddt = u + exp(cum_q - cum) s + A dda, dA's part sum dda dt;
+            dS = (dy x^T) exp(cum_i - cum_j) dt_j on the triangle,
+            the head's dC = exp(cum) dy h + dS B, dB = dS^T C + d_end x dh;
+      (c) dB and dC summed over heads in head order, dA over (b, chunk) in
+          that order.
+    ``cumsum`` as in ``ssd_scan_sliced_ref`` (``warp_scan_cumsum``: the
+    kernels' order)."""
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    f32 = torch.float32
+    xf, Bf, Cf, dtf, dyf = (t.to(f32) for t in (x, Bm, Cm, dt, dy))
+    Af = A.to(f32)
+    running = cumsum if cumsum is not None else (lambda v: torch.cumsum(v, dim=1))
+    dev = x.device
+    starts = list(range(0, S, Q))
+    cums = [running(dtf[:, t0:t0 + Q] * Af) for t0 in starts]
+    # (a)
+    dh = torch.zeros((Bsz, H, P, N), dtype=f32, device=dev) if dh_out is None else dh_out.to(f32)
+    dh_end = [None] * len(starts)
+    for c in reversed(range(len(starts))):
+        sl, cum = slice(starts[c], starts[c] + Q), cums[c]
+        dh_end[c] = dh
+        dh = (torch.exp(cum[:, -1])[..., None, None] * dh
+              + torch.einsum("bqhp,bqn->bhpn", dyf[:, sl] * torch.exp(cum)[..., None], Cf[:, sl]))
+    dh0 = dh
+    # (b)
+    dx = torch.empty_like(xf)
+    ddt = torch.empty_like(dtf)
+    dBp = torch.empty((Bsz, H, S, N), dtype=f32, device=dev)
+    dCp = torch.empty((Bsz, H, S, N), dtype=f32, device=dev)
+    dAp = torch.empty((Bsz, len(starts), H), dtype=f32, device=dev)
+    for c, t0 in enumerate(starts):
+        q = min(Q, S - t0)
+        sl, cum = slice(t0, t0 + q), cums[c]
+        xq, dtq, Bq, Cq, dyq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl], dyf[:, sl]
+        h, dhc = states[:, c].to(f32), dh_end[c]
+        tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
+        Lmat = _causal_decay(cum, tri)
+        V = torch.einsum("bin,bjn->bij", Cq, Bq)[..., None] * Lmat
+        ecum = torch.exp(cum)
+        e_end = torch.exp(cum[:, -1:] - cum)
+        d_end = e_end * dtq
+        Y = (torch.einsum("bqn,bhpn->bqhp", Cq, h) * ecum[..., None]
+             + torch.einsum("bijh,bjhp->bihp", V * dtq[:, None], xq))
+        U = torch.einsum("bijh,bihp->bjhp", V, dyq)
+        T = torch.einsum("bjn,bhpn->bjhp", Bq, dhc)
+        dx[:, sl] = dtq[..., None] * U + d_end[..., None] * T
+        a, u, s = (dyq * Y).sum(-1), (xq * U).sum(-1), (xq * T).sum(-1)
+        dcum = a - dtq * u - d_end * s
+        dcum[:, -1] += (d_end * s).sum(1) + ecum[:, -1] * (dhc * h).sum((-2, -1))
+        dda = _reverse_cumsum(dcum)
+        ddt[:, sl] = u + e_end * s + Af * dda
+        dAp[:, c] = (dda * dtq).sum(1)
+        dS = torch.einsum("bihp,bjhp->bijh", dyq, xq) * Lmat * dtq[:, None]
+        dCp[:, :, sl] = (torch.einsum("bqhp,bhpn->bhqn", dyq * ecum[..., None], h)
+                         + torch.einsum("bijh,bjn->bhin", dS, Bq))
+        dBp[:, :, sl] = (torch.einsum("bijh,bin->bhjn", dS, Cq)
+                         + torch.einsum("bjhp,bhpn->bhjn", xq * d_end[..., None], dhc))
+    # (c)
+    dB, dC = dBp[:, 0].clone(), dCp[:, 0].clone()
+    for hh in range(1, H):
+        dB, dC = dB + dBp[:, hh], dC + dCp[:, hh]
+    dA = torch.zeros((H,), dtype=f32, device=dev)
+    for b in range(Bsz):
+        for c in range(len(starts)):
+            dA = dA + dAp[b, c]
+    return dx.to(x.dtype), ddt, dA, dB.to(Bm.dtype), dC.to(Cm.dtype), dh0

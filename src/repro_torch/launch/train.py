@@ -4,8 +4,10 @@
         --smoke --fail-at 20 --device cpu   # a crash at step 20; rerun without --fail-at
 
 Runs real steps of the port's train step (on the card by default: its
-attention's forward and backward are the hand-written kernels, whose
-launches it prints at its end, or before a simulated crash) and shows
+attention's and SSD scan's forwards and backwards are the hand-written
+kernels, whose launches it prints at its end, or before a simulated crash;
+``--arch mamba2-370m`` or ``zamba2-1.2b`` trains the ssm and hybrid
+families) and shows
 the fault-tolerance loop: an asynchronous checkpoint every ``--ckpt-every``
 steps, a simulated crash at ``--fail-at`` (exit status 1), and a rerun
 without ``--fail-at`` that resumes from the latest checkpoint and follows
@@ -39,7 +41,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import get_config
-from repro_torch.kernels import attn_bwd, verify_attn
+from repro_torch.kernels import attn_bwd, ssd_scan, verify_attn
 from repro_torch.models.model_zoo import build_model
 from repro_torch.runtime import resolve_device
 from repro_torch.training.data import DataConfig, batch_at
@@ -70,9 +72,10 @@ def _on(batch: dict, device: torch.device) -> dict:
 
 
 def _launches() -> dict:
-    """This process's launches of the attention kernels, by kernel (those
-    launched at least once)."""
-    return {k: n for k, n in {**verify_attn.LAUNCHES, **attn_bwd.LAUNCHES}.items() if n}
+    """This process's launches of the attention and SSD kernels, by kernel
+    (those launched at least once)."""
+    launches = {**verify_attn.LAUNCHES, **attn_bwd.LAUNCHES, **ssd_scan.LAUNCHES}
+    return {k: n for k, n in launches.items() if n}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:

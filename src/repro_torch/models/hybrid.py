@@ -15,6 +15,14 @@ cache. Speculative rollback: ``select_checkpoint`` commits the SSD states
 at the acceptance boundary (bf16 checkpoints widened to f32, as in the JAX
 package); the K/V leaves roll back by ``length`` like any KV cache.
 
+Training runs ``forward``, the cache-free form: the SSD layers' scans
+from a zero state and each application of the shared block causal over
+its fresh K/V (``transformer._train_block``), each layer and application
+optionally recomputed in the backward (``remat``). The tied block's
+gradient sums its applications' in reverse order of application (JAX's
+scan transpose sums them in its own order: the same sum, rounded
+differently).
+
 The cache is ``ssm`` (L, B, H, P, N) f32, ``conv`` (L, B, cw-1, C) bf16,
 ``k``/``v`` (n_apps, B, max_len, Hkv, D) bf16 and ``length`` (B,): every
 leaf but ``length`` carries the batch on axis 1, so the pool's
@@ -23,9 +31,11 @@ layers than ``attn_every`` has ``n_apps`` 0 and empty K/V leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import layers as L
@@ -81,6 +91,28 @@ def make_cache(cfg, batch: int, max_len: int, *, device, attn_chunk: int = 1024,
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
     }
+
+
+def forward(cfg, params: Hybrid, tokens: torch.Tensor, *, remat: bool = False,
+            attn_chunk: int = 1024, **_) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache-free training forward (the JAX ``forward``): groups of
+    ``attn_every`` SSD layers, each followed by the weight-tied shared
+    block, then the tail layers; (hidden after the final norm, a zero aux
+    loss). Use ``transformer.train_lm_head`` for the logits."""
+    x = torch.nn.functional.embedding(tokens.long(), params.embed)
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    shared = functools.partial(T._train_block, cfg, params.shared, positions=positions,
+                               chunk=attn_chunk)
+    for li, lp in enumerate(params.layers):
+        x = M2.train_layer(cfg, lp, x, remat)
+        if (li + 1) % cfg.attn_every == 0:  # the end of a group: the shared block
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(shared, x, None, use_reentrant=False)[0]
+            else:
+                x = shared(x, None)[0]
+    return (L.apply_norm(x, params.final_norm, cfg.norm),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _run_cached(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,

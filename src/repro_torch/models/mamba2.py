@@ -3,7 +3,11 @@
 The port of ``repro.models.mamba2``. Prefill runs the chunked SSD scan over
 the whole prompt (``kernels/ops.ssd_scan``: the Hopper kernel
 ``kernels/csrc/ssd_scan.cu`` on CUDA, its plain version on the CPU); the
-verify step runs the O(1) recurrence token by token.
+verify step runs the O(1) recurrence token by token. Training runs
+``forward``, the cache-free form: every layer's scan over the whole
+sequence from a zero state, with a gradient (on CUDA the scan's backward
+kernels of the same source), each layer optionally recomputed in the
+backward (``remat``).
 
 SSM and conv states cannot be rolled back by masking as a KV cache can, so
 ``decode_forward`` emits a state CHECKPOINT after each of the K+1 fed tokens
@@ -20,10 +24,12 @@ taken in f32 one op at a time.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.kernels import ops, ref
@@ -162,6 +168,29 @@ def ssd_layer_decode(cfg, lp: SSDLayer, x: torch.Tensor, h0: torch.Tensor, conv0
     y = torch.stack(ys, dim=1) + lp.D[None, None, :, None] * xs
     out = x + _gated_out(lp, y.reshape(B, K, cfg.d_inner), z)
     return out, torch.stack(hs, dim=1), conv_ckpts
+
+
+def train_layer(cfg, lp: SSDLayer, x: torch.Tensor, remat: bool) -> torch.Tensor:
+    """One SSD layer of the training forward, recomputed in the backward
+    with ``remat`` (``torch.utils.checkpoint``, as JAX checkpoints its scan
+    body): its scan then runs twice."""
+    if remat:
+        return torch.utils.checkpoint.checkpoint(functools.partial(ssd_layer_forward, cfg, lp), x,
+                                                 use_reentrant=False)
+    return ssd_layer_forward(cfg, lp, x)
+
+
+def forward(cfg, params: Mamba2, tokens: torch.Tensor, *, remat: bool = False,
+            **_) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache-free training forward (the JAX ``forward``): (hidden
+    (B, S, d) after the final norm, a zero aux loss). The embedding lookup
+    is ``F.embedding``, as ``transformer.forward``'s. Use
+    ``transformer.train_lm_head`` for the logits."""
+    x = torch.nn.functional.embedding(tokens.long(), params.embed)
+    for lp in params.layers:
+        x = train_layer(cfg, lp, x, remat)
+    return (L.apply_norm(x, params.final_norm, cfg.norm),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def init_params(cfg, generator: torch.Generator) -> Mamba2:

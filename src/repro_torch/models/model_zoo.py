@@ -14,8 +14,8 @@
   forward(params, tokens, **kw)          -> (hidden, aux)   [training]
   train_lm_head(params, hidden)          -> logits f32, with a gradient to the table
 
-Every family of the JAX package is ported: dense, vlm, moe, encdec, ssm
-and hybrid. The stub frontends (``frontend_stub``) enter ``prefill`` as in
+Every family of the JAX package is ported, serving and training: dense,
+vlm, moe, encdec, ssm and hybrid. The stub frontends (``frontend_stub``) enter ``prefill`` as in
 the JAX package: the vlm family's patches as ``embeds_prefix``, the encdec
 family's frames as ``enc_frames``.
 """
@@ -51,21 +51,6 @@ def _attn_commit(cache, n_commit: torch.Tensor):
     }
 
 
-# the ROADMAP item that brings the ssm and hybrid families' training (the
-# SSD scan's backward kernel)
-SSM_TRAINING = "ROADMAP.md Queue A, ssm and hybrid training (the SSD scan's backward kernel)"
-
-
-def refuse_training(cfg) -> None:
-    """Raise for a family whose training the port does not have yet."""
-    raise NotImplementedError(f"{cfg.name}: the {cfg.family} family does not train in the "
-                              f"port yet; see {SSM_TRAINING}")
-
-
-def _no_training(cfg) -> Callable:
-    return lambda *args, **kwargs: refuse_training(cfg)
-
-
 def build_model(cfg) -> Model:
     if cfg.family == "ssm":
         mod, commit = M2, M2.select_checkpoint
@@ -73,11 +58,6 @@ def build_model(cfg) -> Model:
         mod, commit = HY, HY.select_checkpoint
     else:  # dense | vlm | moe | encdec
         mod, commit = T, _attn_commit
-    if mod is T:
-        forward = lambda params, tokens, **kw: T.forward(cfg, params, tokens, **kw)  # noqa: E731
-        train_lm_head = T.train_lm_head
-    else:
-        forward = train_lm_head = _no_training(cfg)
     return Model(
         cfg=cfg,
         init_params=lambda generator, **kw: mod.init_params(cfg, generator, **kw),
@@ -88,8 +68,8 @@ def build_model(cfg) -> Model:
             cfg, params, cache, tokens, **kw
         ),
         commit=commit,
-        forward=forward,
-        train_lm_head=train_lm_head,
+        forward=lambda params, tokens, **kw: mod.forward(cfg, params, tokens, **kw),
+        train_lm_head=T.train_lm_head,
     )
 
 

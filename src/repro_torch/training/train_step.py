@@ -12,10 +12,10 @@ port of ``repro.training.train_step``).
     JAX step returns new arrays; here the module is updated and returned).
 
 On the card the attention of every block runs the hand-written forward
-and backward kernels (``ops.attention``). The ssm and hybrid families do
-not train yet: their SSD scan has no backward kernel
-(``model_zoo.refuse_training``). Mesh and gradient-sharding arguments belong
-to the port's sharding slice and are not taken.
+and backward kernels (``ops.attention``), and every SSD layer of the ssm
+and hybrid families the scan's forward and backward kernels
+(``ops.ssd_scan``). Mesh and gradient-sharding arguments belong to the
+port's sharding slice and are not taken.
 """
 from __future__ import annotations
 
@@ -27,7 +27,6 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch import bridge
-from repro_torch.models.model_zoo import refuse_training
 from repro_torch.training.optimizer import (
     AdamWConfig, AdamWState, adamw_update, compress_grads_int8, tree_map,
 )
@@ -78,9 +77,6 @@ def make_loss_fn(model, tcfg: TrainConfig):
     """loss_fn(params, batch) -> (loss, {"ce", "aux"}); ``batch`` holds
     ``tokens`` and ``labels`` (B, S) and, for the vlm and encdec families,
     ``frontend`` (B, P or F, d), all on the model's device."""
-    if model.cfg.family in ("ssm", "hybrid"):
-        refuse_training(model.cfg)
-
     def loss_fn(params, batch):
         kw = {}
         if model.cfg.family == "encdec":

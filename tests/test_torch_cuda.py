@@ -21,6 +21,13 @@ runs the kernels, forward and backward. The forward's LSE
 ``ref.attention_lse_ref`` and ``ref.attention_bwd_delta_ref`` within
 ``STATS_TIGHT`` (1e-4 of the largest element, chip_smoke.py's bound), the
 forward's output with the LSE to the output without it bit for bit.
+The SSD scan's backward kernels (``ssd_scan.ssd_scan_bwd``) are held to
+the plain backward (``ref.ssd_scan_bwd_ref``) within ``SSD_GRAD_TIGHT``
+(1e-2 of each output's largest element, chip_smoke.py's bound), two calls
+to each other bit for bit; the forward's chunk states to the plain scan's
+within the f32 SSD tolerance, its y and state with and without them bit
+for bit; ``ops.ssd_scan`` on CUDA tensors that need a gradient runs the
+forward and backward kernels.
 """
 import numpy as np
 import pytest
@@ -33,6 +40,7 @@ ATTN_TIGHT = 2e-3
 GRAD_TIGHT = 2e-2
 STATS_TIGHT = 1e-4
 SSD_TOL = {"bf16": 4e-2, "f32": 3e-3}
+SSD_GRAD_TIGHT = 1e-2
 
 
 def _card():
@@ -551,3 +559,75 @@ def test_cuda_attention_backward_rejects_unsupported_inputs():
     for bad in (lse[:, :, :3], lse.double(), lse.transpose(1, 2)):
         with pytest.raises(ValueError, match="lse"):
             attn_bwd.attention_bwd(q, q[:, :, :1], q[:, :, :1], q, q, kvv, bad)
+
+
+def _ssd_grad_inputs(shape, dev, seed=11):
+    """x, B and C as strided bf16 views of one conv output, dt, A, a start
+    state, dy (bf16) and the final state's cotangent."""
+    B, S, H, P, N, _ = shape
+    rng = np.random.default_rng(seed)
+    xbc = _bf16(rng.standard_normal((B, S, H * P + 2 * N)), dev)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    dt = f32(np.log1p(np.exp(rng.standard_normal((B, S, H)))))
+    A = f32(-np.exp(rng.standard_normal(H) * 0.5))
+    h0, dh = f32(rng.standard_normal((B, H, P, N))), f32(rng.standard_normal((B, H, P, N)))
+    dy = _bf16(rng.standard_normal((B, S, H, P)), dev)
+    return x, dt, A, Bm, Cm, h0, dy, dh
+
+
+_SSD_GRAD_SHAPES = [(2, 64, 4, 16, 32, 16), (1, 199, 32, 64, 128, 256),
+                    (2, 300, 8, 64, 64, 128), (8, 128, 32, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _SSD_GRAD_SHAPES)
+def test_cuda_ssd_scan_bwd_matches_plain(shape):
+    """The backward kernels on the forward kernel's chunk states against
+    the plain backward within SSD_GRAD_TIGHT; two calls bit-equal; the
+    states against the plain scan's; y and the state the same bits with
+    and without the states."""
+    dev = _card()
+    chunk = shape[-1]
+    x, dt, A, Bm, Cm, h0, dy, dh = _ssd_grad_inputs(shape, dev)
+    y, h, states = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk, return_states=True)
+    y2, h2 = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk)
+    _, _, plain_states = ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk, return_states=True)
+    got = ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, dh, chunk=chunk)
+    again = ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, dh, chunk=chunk)
+    want = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, dh, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    np.testing.assert_allclose(states.cpu().numpy(), plain_states.cpu().numpy(),
+                               rtol=SSD_TOL["f32"], atol=SSD_TOL["f32"])
+    for name, g, w, a in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _rel(g, w) <= SSD_GRAD_TIGHT, (name, _rel(g, w))
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+def test_cuda_ops_ssd_scan_backward_runs_the_kernels():
+    """ops.ssd_scan on CUDA tensors that need a gradient: one forward and
+    one backward launch, gradients within SSD_GRAD_TIGHT of autograd of the
+    plain scan; without a gradient no backward and no graph."""
+    dev = _card()
+    shape = (2, 64, 4, 16, 32, 16)
+    x, dt, A, Bm, Cm, h0, dy, dh = _ssd_grad_inputs(shape, dev, seed=12)
+    before = dict(ssd_scan.LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+    y, h = ops.ssd_scan(*leaves, chunk=16)
+    got = torch.autograd.grad([y, h], leaves, [dy, dh])
+    assert ssd_scan.LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+    assert ssd_scan.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm, h0)]
+    yp, hp = ref.ssd_scan_ref(*plain, chunk=16)
+    want = torch.autograd.grad([yp, hp], plain, [dy, dh])
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
+        assert _rel(g, w) <= SSD_GRAD_TIGHT, (name, _rel(g, w))
+    y3, _ = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=16)
+    assert y3.grad_fn is None and ssd_scan.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1

@@ -163,12 +163,15 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     ops.verify_attention(_torch(q, "bf16"), _torch(k, "bf16"), _torch(v, "bf16"),
                          torch.from_numpy(kvv), causal=False)
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, (1, 16, 2, 8, 8, 8))
-    ops.ssd_scan(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm, h0)), chunk=8)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, Bm, Cm, h0)]
+    y, h = ops.ssd_scan(*leaves, chunk=8)
+    (y.square().sum() + h.sum()).backward()  # autograd of the plain scan: no backward kernel
     assert set(verify_attn.LAUNCHES) == {
         f"verify_attention_{entry}{kv}{mask}" for entry in ("packed", "paged")
         for kv in ("", "_int8") for mask in ("", "_noncausal")
     }
-    assert not any(verify_attn.LAUNCHES.values()) and ssd_scan.LAUNCHES == {"ssd_scan": 0}
+    assert not any(verify_attn.LAUNCHES.values())
+    assert ssd_scan.LAUNCHES == {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
