@@ -49,13 +49,15 @@ Phases, each of which must pass for the script to exit 0:
                LSE beside SDPA's forward at the three training shapes; the
                registers and spill bytes of the backward kernels from nvcc's
                report; since ssm and hybrid training, the SSD scan's
-               backward (ssd_scan_bwd: C.B^T, dy.x^T, a reverse pass, a
-               chunk pass and a reduction) on the chunk start states the
-               forward keeps (ssd_scan(return_states=True), its y and state
-               the same bits as without them, the states against the plain
-               scan's) at the six SSD cases with a start state and both
-               cotangents and at mamba2-370m's and zamba2-1.2b's training
-               rows: dx, ddt, dA, dB, dC and dh0 within SSD_GRAD_TIGHT of
+               backward (ssd_scan_bwd: a reverse pass with more than one
+               chunk, a chunk pass that forms its Gram blocks itself, and a
+               reduction) on the chunk start states the forward keeps
+               (ssd_scan(return_states=True), its y and state the same bits
+               as without them, the states against the plain scan's) at the
+               six SSD cases with a start state and both cotangents, at
+               mamba2-370m's and zamba2-1.2b's training rows and at two
+               more widths (P 48: odd k slices; N 256: state strips):
+               dx, ddt, dA, dB, dC and dh0 within SSD_GRAD_TIGHT of
                the plain backward, two calls bit for bit, an
                exclusive-cumsum control outside the bound;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
@@ -837,11 +839,16 @@ def check_ssd(records: dict) -> None:
 # 0.17 or more at these inputs
 SSD_GRAD_TIGHT = 1e-2
 # (B, S, H, P, N, chunk): check_ssd's six cases, then the training rows of
-# mamba2-370m and zamba2-1.2b (B 8, S 128: one chunk of 128 rows)
+# mamba2-370m and zamba2-1.2b (B 8, S 128: one chunk of 128 rows), then the
+# chunk pass's edges at other widths: P and N of three 16-wide k slices (the
+# Gram blocks' alternating sums) over a ragged second chunk, and N 256 at P
+# 48 in one 161-row chunk (the state in strips, the P group narrowed, k
+# slabs of 8 in every product with the state, two N groups)
 SSD_BWD_CASES = [
     (1, 199, 32, 64, 128, 256), (1, 512, 32, 64, 128, 256), (2, 300, 32, 64, 128, 256),
     (2, 64, 4, 16, 32, 16), (1, 199, 64, 64, 64, 256), (2, 64, 8, 16, 16, 16),
     (8, 128, 32, 64, 128, 256), (8, 128, 64, 64, 64, 256),
+    (1, 100, 5, 48, 48, 64), (1, 161, 2, 48, 256, 256),
 ]
 
 
@@ -1020,18 +1027,20 @@ def _rel(got, want) -> float:
 
 
 def _ptxas_report(log: str, kernels) -> str:
-    """``kernel<D>: N registers, S spill bytes`` (``kernel:`` where it is no
-    template) for each instantiation of ``kernels`` in nvcc's -Xptxas -v
-    report (spill stores + loads)."""
+    """``kernel<D>: N registers, S spill bytes`` (``kernel<P,N>:`` with two
+    template arguments, ``kernel:`` where it is no template) for each
+    instantiation of ``kernels`` in nvcc's -Xptxas -v report (spill stores
+    + loads)."""
     import re
 
     out, name, spill = [], None, 0
     for ln in log.splitlines():
-        if "Compiling entry function" in ln:  # mangled: <length><name>[ILi<D>]E
-            entry = re.search(r"\d([a-z_]+)(?:ILi(\d+))?E", ln)
+        if "Compiling entry function" in ln:  # mangled: <length><name>[I(Li<D>E)+E]E
+            entry = re.search(r"\d([a-z_]+)(?:I((?:Li\d+E)+)E|E)", ln)
             name = None
             if entry and entry.group(1) in kernels:
-                name = entry.group(1) + (f"<{entry.group(2)}>" if entry.group(2) else "")
+                args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+                name = entry.group(1) + (f"<{','.join(args)}>" if args else "")
         elif name and "spill stores" in ln:
             spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", ln))
         elif name and "registers" in ln:

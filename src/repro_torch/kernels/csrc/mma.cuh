@@ -1,6 +1,7 @@
 // Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), shared
 // by verify_attn.cu (the copies, the bf16 packing), ssd_scan.cu (the
-// tensor-core products) and attn_bwd.cu (all of them, and ldmatrix);
+// tensor-core products; its backward also ldmatrix, the copies and the
+// mbarrier) and attn_bwd.cu (all but the mbarrier);
 // kernels/build.py hashes this header into each library's name, so an edit
 // rebuilds all three.
 //
@@ -81,6 +82,13 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "memory");
 }
 
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -111,6 +119,31 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// mbarrier in shared memory: init with the number of arrivals a phase
+// takes; cp_async_arrive makes the completion of all of this thread's
+// cp.async copies issued so far one of those arrivals (noinc); wait spins
+// until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared.b64 done, [%0], %1;\n"
+      "@!done bra WAIT_%=;\n"
+      "}\n" :: "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
 }
 
 }  // namespace mma

@@ -114,10 +114,10 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* row, int k) {
 // Gram matrices of a chunk's rows, out[z][i][j] = A_i . B_j over K for the
 // chunk's rows i, j < qc, lower-triangle 64x64 tiles (the users read j <= i
 // only), z = (b * n_chunks + chunk) * n_heads + head, the rows of head h at
-// head_a * h and head_b * h. The forward's CB = C B^T (K = N, one head) and
-// the backward's G = dy x^T (K = P, per head). Warp w computes 16 rows x 64
-// columns from fragments loaded straight from device memory (each A element
-// once per block; B's rows are shared by the 4 warps through L1).
+// head_a * h and head_b * h: the forward's CB = C B^T (K = N, one head).
+// Warp w computes 16 rows x 64 columns from fragments loaded straight from
+// device memory (each A element once per block; B's rows are shared by the
+// 4 warps through L1).
 __global__ void __launch_bounds__(128)
 ssd_gram_kernel(const __nv_bfloat16* __restrict__ Am, const __nv_bfloat16* __restrict__ Bm,
                 float* __restrict__ out, int S, int K, int Q, int n_chunks, int n_heads,
@@ -421,16 +421,15 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ d
 //   (a) ssd_bwd_dstate_kernel, the reverse pass, one block per (16-column
 //       slice of P, h, b), the mirror of ssd_scan_kernel: dh, the cotangent
 //       of the state at a chunk's end, walks the chunks from the last to the
-//       first in shared memory, dh_end[c] = dh, then
+//       first in shared memory, dh_end[c] = dh for every chunk but the last
+//       (whose end cotangent is dh_out itself), then
 //         dh = exp(cum_last) dh + sum_i (exp(cum_i) dy_i)^T C_i,
 //       and dh0 is dh after the first chunk;
-//   (b) ssd_gram_kernel twice, CB = C B^T per (b, chunk) and G = dy x^T per
-//       (b, chunk, h), into f32 scratch in cb_index order; then
-//       ssd_bwd_chunk_kernel, one block per (h, chunk, b), on the chunk's
-//       start state (the forward's states) and its end cotangent. With
-//       V_ij = CB_ij exp(cum_i - cum_j) and dS_ij = G_ij exp(cum_i - cum_j)
-//       dt_j on the causal triangle (the exp evaluated there only, so it
-//       cannot overflow):
+//   (b) ssd_bwd_chunk_kernel, one block per (h, chunk, b), on the chunk's
+//       start state h (the forward's states) and its end cotangent dh. With
+//       V_ij = (C_i . B_j) exp(cum_i - cum_j) and dS_ij = (dy_i . x_j)
+//       exp(cum_i - cum_j) dt_j on the causal triangle (the exp evaluated
+//       there only, so it cannot overflow):
 //         rows i:    Y = exp(cum) C h^T + (V dt_j) x (the forward's f32 y),
 //                    a_i = dy_i . Y_i, the head's dC_i = exp(cum_i) dy_i h
 //                    + sum_j dS_ij B_j;
@@ -444,20 +443,57 @@ ssd_scan_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ d
 //   (c) ssd_bwd_reduce_kernel: dB and dC, the heads' partials summed in head
 //       order, and dA, the (b, chunk) parts summed in that order. No atomics
 //       anywhere: two calls give the same bits.
-// The products whose operands are both bf16 values (C B^T, dy x^T) run on
-// bf16 mma.sync; the others have one f32 operand and run as 2xTF32, as the
-// forward's. The elementwise steps are f32 on the CUDA cores.
+//
+// The chunk pass. Its x, dy, B and C rows arrive in shared memory as bf16
+// tiles by 16-byte cp.async, and the chunk's start state h and end
+// cotangent dh as f32 tiles by cp.async tracked by an mbarrier, so a warp
+// starts its first products (which need no state) before they land and
+// waits on the mbarrier only before its first product with them. Warps 0-3
+// take the row pass of the 16-row tiles, warps 4-7 the column pass, in the
+// forward's snake order (at 8 tiles a warp's two row tiles, m + 1 and 8 - m
+// blocks of 16 columns, add up to the same). Every product runs on the
+// tensor cores:
+//   - the Gram blocks C B^T and dy x^T (row pass) and B C^T and x dy^T
+//     (column pass: the transposes, formed with the operands swapped), 16 x
+//     16 at a time from the bf16 tiles by ldmatrix on bf16 mma.sync m16n8k16
+//     with f32 sums (exact products, as the forward's C.B^T); no Gram
+//     scratch leaves the block;
+//   - each pass evaluates a block's decay exp(cum_i - cum_j) once, on the
+//     triangle only, for both of its Gram blocks and every column group;
+//     the weighted block enters the next product as the A operand of m16n8k8
+//     tf32 straight from the accumulator: the accumulator holds columns
+//     (2t, 2t + 1) where the A fragment wants (t, t + 4), so the k index is
+//     permuted and the B operand (x, dy, B or C rows, exact in tf32, by
+//     ldmatrix.trans) is read in the same order; the weighted block is f32
+//     and is split into two tf32 parts (2xTF32);
+//   - C h^T, dy h, B dh^T and x dh: the bf16 rows exact in tf32, the f32
+//     state read from shared memory and split into two tf32 parts.
+// The elementwise steps (cum, the exps, the weights, the row sums a, u, s,
+// dcum, ddt) are f32 on the CUDA cores. The kernel is instantiated for P 64
+// with N 128 and N 64 (mamba2's and zamba2's widths: constant strides and
+// n-tile counts; at N 64 two blocks share an SM) and for any other P, N.
+// Where the two f32 tiles do not fit beside the bf16 tiles (chunks above
+// ~176 rows at P 64, N 128), the block stages h and dh in strips instead (a
+// P group's state rows by a k-slab of N, or a k-slab of P by 32 state
+// columns), one strip at a time with the warps in step; the products and
+// their orders are the same.
 //
 // Bound on an H100 (chip_smoke.py's _ssd_bwd_bound): at mamba2-370m's
 // training rows (B 8, S 128, H 32, P 64, N 128, one chunk) the inputs read
 // once and the outputs written once are 39.1 MB (the f32 chunk states,
 // dh_out and dh0 most of it), 11.7 us at 3.35 TB/s, more than the products
-// (9.2 us with the tf32 ones at the tf32 peak). The design moves more: it
-// rereads the state and its cotangent from L2 for every 16-row tile and
-// writes and rereads the f32 scratch (G, the per-head partials of dB and
-// dC), which a later redesign is to remove.
+// (9.2 us with the tf32 ones at the tf32 peak). What the design still moves
+// beyond that: the per-head f32 partials of dB and dC (2 x B x H x S x N
+// floats, written by (b) and read by (c)) and, with several chunks, the
+// tiles that (a) reads too. What holds the chunk pass back is mma.sync at
+// one or two blocks an SM: the products run at a fraction of the tensor
+// cores' rate (wgmma is the next step).
 
 __device__ __forceinline__ uint32_t tf(__nv_bfloat16 v) { return mma::bf16_as_tf32(v); }
+
+// the lower / upper bf16 of a register, widened to f32 (exact in tf32)
+__device__ __forceinline__ uint32_t lo_tf(uint32_t r) { return r << 16; }
+__device__ __forceinline__ uint32_t hi_tf(uint32_t r) { return r & 0xffff0000u; }
 
 // The sum of v over the block in a fixed order (a butterfly inside each
 // warp, then the warps' totals in warp order), returned to every thread.
@@ -505,9 +541,12 @@ ssd_bwd_dstate_kernel(const float* __restrict__ dt, const float* __restrict__ A,
     const int t0 = c * Q;
     const int qc = min(Q, S - t0), q16 = round16(qc);
     __syncthreads();  // the later chunk is done with the tiles and dh
-    const long long st = (((static_cast<long long>(bb) * n_chunks + c) * H + hh) * P + p0) * N;
-    for (int idx = tid; idx < kSlice * N; idx += kThreads) {
-      dh_end[st + idx] = Hs[(idx / N) * HN + idx % N];
+    if (c + 1 < n_chunks) {  // the last chunk's end cotangent is dh_out
+      const long long st =
+          (((static_cast<long long>(bb) * (n_chunks - 1) + c) * H + hh) * P + p0) * N;
+      for (int idx = tid; idx < kSlice * N; idx += kThreads) {
+        dh_end[st + idx] = Hs[(idx / N) * HN + idx % N];
+      }
     }
     for (int j = tid; j < qc; j += kThreads) {
       dts[j] = dt[(static_cast<long long>(bb) * S + t0 + j) * H + hh];
@@ -576,10 +615,17 @@ ssd_bwd_dstate_kernel(const float* __restrict__ dt, const float* __restrict__ A,
   }
 }
 
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory a block may use on an H100
+constexpr int kGP = 64;   // P columns of one output group: 8 n-tiles, 32 accumulators
+constexpr int kGN = 128;  // N columns of one output group: 16 n-tiles, 64 accumulators
+
 struct BwdSmem {
-  size_t xs, ys, bs, cs, cum, dts, ecum, eend, dend, ra, ru, rs, rev, dda, tot, red, total;
+  size_t xs, ys, bs, cs, cum, dts, ecum, dend, ra, ru, rs, tot, red, bar, total;  // then the state
 };
 
+// The chunk pass's shared memory before the f32 state: the bf16 tiles (rows
+// padded by 8 values, so the 8 rows an ldmatrix reads fall in distinct
+// banks) and the per-row f32 values.
 __host__ __device__ inline BwdSmem bwd_layout(int q, int n, int p) {
   const int q16 = round16(q);
   BwdSmem s;
@@ -588,31 +634,295 @@ __host__ __device__ inline BwdSmem bwd_layout(int q, int n, int p) {
   s.ys = o;   o = align16(o + sizeof(__nv_bfloat16) * q16 * (p + 8));
   s.bs = o;   o = align16(o + sizeof(__nv_bfloat16) * q16 * (n + 8));
   s.cs = o;   o = align16(o + sizeof(__nv_bfloat16) * q16 * (n + 8));
-  size_t* rows[] = {&s.cum, &s.dts, &s.ecum, &s.eend, &s.dend, &s.ra, &s.ru, &s.rs, &s.rev, &s.dda};
+  size_t* rows[] = {&s.cum, &s.dts, &s.ecum, &s.dend, &s.ra, &s.ru, &s.rs};
   for (size_t* r : rows) {
     *r = o;
     o = align16(o + sizeof(float) * q16);
   }
   s.tot = o;  o = align16(o + sizeof(float) * kWarps);
   s.red = o;  o = align16(o + sizeof(float) * kWarps);
+  s.bar = o;  o = align16(o + sizeof(uint64_t));
   s.total = o;
   return s;
 }
 
-constexpr int kGroup = 32;  // P or N columns a warp's tile takes at once (4 n-tiles)
+// How the chunk pass holds h and dh, and its output groups of gp columns
+// of P (those of N are kGN wide). Resident: both whole ([P][N+4] f32
+// each), loaded once. Else
+// one strip at a time, the warps in step: a P group's gp state rows by a
+// k-slab of kn state columns for C h^T and B dh^T, a k-slab of kp state
+// rows by 32 state columns for dy h and x dh (the P group narrowed where
+// even 8 columns of k would not fit).
+struct BwdPlan {
+  int resident, gp, kn, kp;
+  size_t smem;  // bytes of shared memory per block
+};
 
-// (b): see above. One block per (h, chunk, b); warps take 16-row tiles in
-// the forward's snake order, first as rows i, then as columns j.
-__global__ void __launch_bounds__(kThreads, 1)
+inline BwdPlan bwd_plan(int q, int n, int p) {
+  const size_t base = bwd_layout(q, n, p).total;
+  const size_t whole = 2 * sizeof(float) * p * (n + 4);
+  BwdPlan pl;
+  pl.gp = p < kGP ? p : kGP;
+  if (base + whole <= kSmemLimit) {
+    pl.resident = 1;
+    pl.kn = n;
+    pl.kp = p;
+    pl.smem = base + whole;
+    return pl;
+  }
+  pl.resident = 0;
+  const long long left = static_cast<long long>(kSmemLimit) - static_cast<long long>(base);
+  const long long f4 = static_cast<long long>(sizeof(float));
+  while (pl.gp > 16 && pl.gp * 12 * f4 > left) pl.gp = pl.gp > 32 ? 32 : 16;
+  const long long kn = left / (f4 * pl.gp) - 4, kp = left / (f4 * 36);
+  pl.kn = static_cast<int>(kn < 8 ? 8 : (kn > n ? n : kn & ~7LL));
+  pl.kp = static_cast<int>(kp < 8 ? 8 : (kp > p ? p : kp & ~7LL));
+  const long long a = pl.gp * (pl.kn + 4), b = pl.kp * 36;
+  pl.smem = base + sizeof(float) * static_cast<size_t>(a > b ? a : b);  // over the limit: refused
+  return pl;
+}
+
+// x = hi + lo + O(2^-22 |x|), both parts tf32, each rounded to nearest with
+// ties away from zero (cvt.rna.tf32.f32's rounding for finite x) by integer
+// arithmetic on the bit pattern, which issues on the ALU pipe.
+__device__ __forceinline__ void split2(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// acc[s] (s = 0, 1: columns c0 + 8s ..) = the 16 x 16 Gram block
+// A[r0 ..][0, K) . Bt[c0 ..][0, K)^T of two bf16 tiles (row strides sa,
+// sb); the k16 steps alternate between two sets of sums, added at the end.
+__device__ __forceinline__ void gram16(float (&acc)[2][4], const __nv_bfloat16* A, int sa, int r0,
+                                       const __nv_bfloat16* Bt, int sb, int c0, int K, int lane) {
+  float odd[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[s][e] = odd[s][e] = 0.f;
+  }
+  const __nv_bfloat16* ap = A + (r0 + (lane & 15)) * sa + (lane >> 4) * 8;
+  const __nv_bfloat16* bp =
+      Bt + (c0 + (lane & 7) + ((lane >> 4) << 3)) * sb + ((lane >> 3) & 1) * 8;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    uint32_t af[4], bf[4];
+    mma::ldmatrix_x4(af, ap + k0);
+    mma::ldmatrix_x4(bf, bp + k0);
+    mma::bf16_16816(acc[0], af, bf[0], bf[1]);
+    mma::bf16_16816(acc[1], af, bf[2], bf[3]);
+    if (k0 + 16 < K) {
+      mma::ldmatrix_x4(af, ap + k0 + 16);
+      mma::ldmatrix_x4(bf, bp + k0 + 16);
+      mma::bf16_16816(odd[0], af, bf[0], bf[1]);
+      mma::bf16_16816(odd[1], af, bf[2], bf[3]);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[s][e] += odd[s][e];
+  }
+}
+
+// The decay of a 16 x 16 block on the causal triangle, in accumulator
+// layout: e = exp(cum_i - cum_j) and ed = e dt_j where j <= i < qc, both 0
+// off it (the exp is taken there only). The fragment's rows are i and its
+// columns j, or (kRowsAreJ) the other way round. One evaluation serves both
+// products of a pass.
+template <bool kRowsAreJ>
+__device__ __forceinline__ void decay(float (&e)[2][4], float (&ed)[2][4], int r0, int c0,
+                                      const float* cum, const float* dts, int qc, int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + g + 8 * (k >> 1), cc = c0 + 8 * s + 2 * t + (k & 1);
+      const int i = kRowsAreJ ? cc : r, j = kRowsAreJ ? r : cc;
+      const bool in = j <= i && i < qc;  // off the triangle: exp(0), then 0
+      const float v = expf(in ? cum[i] - cum[j] : 0.f);
+      e[s][k] = in ? v : 0.f;
+      ed[s][k] = in ? v * dts[j] : 0.f;
+    }
+  }
+}
+
+// w *= f elementwise (a Gram block by its decay)
+__device__ __forceinline__ void scale(float (&w)[2][4], const float (&f)[2][4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[s][k] *= f[s][k];
+  }
+}
+
+// d[nt] += w . T[c0 .. c0 + 16)[nb + 8 nt ..] for nt < n_nt (even): w the
+// 16 x 16 weighted block in accumulator layout, split into two tf32 parts,
+// entering as the A operand with its columns (2t, 2t + 1) as k = (t, t + 4);
+// T's rows in the same order from ldmatrix.trans of the bf16 tile T (exact).
+template <int NT>
+__device__ __forceinline__ void mma_weighted(float (&d)[NT][4], const float (&w)[2][4],
+                                             const __nv_bfloat16* T, int ts, int c0, int nb,
+                                             int n_nt, int lane) {
+  uint32_t hi[2][4], lo[2][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    split2(w[s][0], hi[s][0], lo[s][0]);
+    split2(w[s][2], hi[s][1], lo[s][1]);
+    split2(w[s][1], hi[s][2], lo[s][2]);
+    split2(w[s][3], hi[s][3], lo[s][3]);
+  }
+  const __nv_bfloat16* tp = T + (c0 + (lane & 15)) * ts + nb + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    if (2 * np >= n_nt) break;
+    uint32_t r[4];
+    mma::ldmatrix_x4_trans(r, tp + 16 * np);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const uint32_t b0 = lo_tf(r[2 * u + s]), b1 = hi_tf(r[2 * u + s]);
+        mma::tf32_1688(d[2 * np + u], hi[s], b0, b1);
+        mma::tf32_1688(d[2 * np + u], lo[s], b0, b1);
+      }
+    }
+  }
+}
+
+// d[nt] += A[r0 ..][k] . F[p0 + 8 nt + g][k] over k in [k_lo, k_hi), nt <
+// n_nt: A's bf16 rows exact in tf32, F (f32, element [p][k] at
+// f[(p - fp) * fs + k - fk]) split into two tf32 parts; the hi products of
+// all n-tiles, then the lo ones. C h^T and B dh^T.
+__device__ __forceinline__ void rowdot(float (&d)[8][4], const __nv_bfloat16* A, int sa, int r0,
+                                       const float* f, int fs, int fp, int fk, int p0, int n_nt,
+                                       int k_lo, int k_hi, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* a0 = A + (r0 + g) * sa;
+  const __nv_bfloat16* a1 = a0 + 8 * sa;
+  const float* f0 = f + (p0 + g - fp) * fs + t - fk;
+  for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+    const uint32_t af[4] = {tf(a0[k0 + t]), tf(a1[k0 + t]), tf(a0[k0 + t + 4]),
+                            tf(a1[k0 + t + 4])};
+    uint32_t hi[8][2], lo[8][2];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= n_nt) break;
+      const float* fr = f0 + 8 * nt * fs + k0;
+      split2(fr[0], hi[nt][0], lo[nt][0]);
+      split2(fr[4], hi[nt][1], lo[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= n_nt) break;
+      mma::tf32_1688(d[nt], af, hi[nt][0], hi[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      if (nt >= n_nt) break;
+      mma::tf32_1688(d[nt], af, lo[nt][0], lo[nt][1]);
+    }
+  }
+}
+
+// d[nt] += A[r0 ..][k] . F[k][n0 + 8 nt + g] over k in [k_lo, k_hi), nt <
+// n_nt: A's fragments by ldmatrix (k = 2t, 2t + 1 as k = t, t + 4), F's
+// rows in the same order, split into two tf32 parts; the hi products of all
+// n-tiles, then the lo ones. dy h and x dh.
+template <int NT>
+__device__ __forceinline__ void coldot(float (&d)[NT][4], const __nv_bfloat16* A, int sa, int r0,
+                                       const float* f, int fs, int fp, int fk, int n0, int n_nt,
+                                       int k_lo, int k_hi, int lane) {
+  const int g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* ap = A + (r0 + (lane & 15)) * sa;
+  const float* f0 = f + (2 * t - fp) * fs + n0 + g - fk;
+  for (int k0 = k_lo; k0 < k_hi; k0 += 8) {
+    uint32_t r[2];
+    mma::ldmatrix_x2(r, ap + k0);
+    const uint32_t af[4] = {lo_tf(r[0]), lo_tf(r[1]), hi_tf(r[0]), hi_tf(r[1])};
+    const float* fr = f0 + k0 * fs;
+    uint32_t hi[NT][2], lo[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= n_nt) break;
+      split2(fr[8 * nt], hi[nt][0], lo[nt][0]);
+      split2(fr[fs + 8 * nt], hi[nt][1], lo[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= n_nt) break;
+      mma::tf32_1688(d[nt], af, hi[nt][0], hi[nt][1]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt >= n_nt) break;
+      mma::tf32_1688(d[nt], af, lo[nt][0], lo[nt][1]);
+    }
+  }
+}
+
+// Copy F[p_lo, p_lo + rows)[n_lo, n_lo + cols) of a (P, N) f32 state (zeros
+// where F is null; dummy is any readable address) into dst, row stride ds,
+// between two block barriers (the strip's last readers are done before it
+// is overwritten; every warp sees it after).
+__device__ void stage_strip(float* dst, int ds, const float* F, const float* dummy, int N,
+                            int p_lo, int rows, int n_lo, int cols) {
+  __syncthreads();
+  const int cv = cols / 4;
+  for (int idx = threadIdx.x; idx < rows * cv; idx += kThreads) {
+    const int r = idx / cv, e = (idx % cv) * 4;
+    mma::cp_async16(dst + r * ds + e,
+                    F != nullptr ? F + static_cast<long long>(p_lo + r) * N + n_lo + e : dummy,
+                    F != nullptr);
+  }
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Where one product reads the state: element (p, n) at
+// f[(p - fp) * fs + n - fk].
+struct StateView {
+  const float* f;
+  int fs, fp, fk;
+};
+
+// The view of F's rows [p_lo, p_lo + rows) and columns [n_lo, n_lo + cols)
+// for one product: the resident tile (row stride rs), or the strip staged
+// into st.
+__device__ __forceinline__ StateView state_view(bool resident, const float* tile, int rs,
+                                                float* st, const float* F, const float* dummy,
+                                                int N, int p_lo, int rows, int n_lo, int cols) {
+  if (resident) return {tile, rs, 0, 0};
+  stage_strip(st, cols + 4, F, dummy, N, p_lo, rows, n_lo, cols);
+  return {st, cols + 4, p_lo, n_lo};
+}
+
+// (b): see above. One block per (h, chunk, b); plan: bwd_plan. Warps 0-3
+// take the row pass of the 16-row tiles (a, dC), warps 4-7 the column pass
+// (dx, u, s, dB), one tile each per round, in the forward's snake order (at
+// 8 tiles each warp's two tiles add up to the same triangle work). kP, kN:
+// P and N fixed at compile time (0: the arguments), so that the tiles'
+// strides and the n-tile counts of the main shapes are constants. Resident,
+// the two passes run unsynchronized, each warp waiting on the mbarrier for
+// the state before its first product with it; with strips every warp walks
+// both passes for the barriers. With one chunk
+// (dh0 not null) the block also writes dh0, which (a) would have computed
+// from the same tiles, and (a) is not launched.
+template <int kP, int kN>
+__global__ void __launch_bounds__(kThreads, kN == 64 ? 2 : 1)
 ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
                      const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
                      const __nv_bfloat16* __restrict__ Cm, const __nv_bfloat16* __restrict__ dy,
                      const float* __restrict__ states, const float* __restrict__ dh_end,
-                     const float* __restrict__ cb, const float* __restrict__ gm,
-                     __nv_bfloat16* __restrict__ dx, float* __restrict__ ddt,
-                     float* __restrict__ dBp, float* __restrict__ dCp, float* __restrict__ dAp,
-                     int S, int H, int P, int N, int Q, long long s_xb, long long s_xs,
-                     long long s_bb, long long s_bs, long long s_cb, long long s_cs) {
+                     const float* __restrict__ dh_out, __nv_bfloat16* __restrict__ dx,
+                     float* __restrict__ ddt, float* __restrict__ dBp, float* __restrict__ dCp,
+                     float* __restrict__ dAp, float* __restrict__ dh0, int S, int H, int P_,
+                     int N_, int Q, BwdPlan plan, long long s_xb, long long s_xs, long long s_bb,
+                     long long s_bs, long long s_cb, long long s_cs) {
+  const int P = kP > 0 ? kP : P_, N = kN > 0 ? kN : N_;
+  const int GP = kP > 0 ? (kP < kGP ? kP : kGP) : plan.gp;  // output groups
+  const int GN = N < kGN ? N : kGN;
   extern __shared__ __align__(16) unsigned char smem[];
   const BwdSmem L = bwd_layout(Q, N, P);
   __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem + L.xs);  // [q16][P+8]
@@ -622,308 +932,368 @@ ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   float* cum = reinterpret_cast<float*>(smem + L.cum);
   float* dts = reinterpret_cast<float*>(smem + L.dts);
   float* ecum = reinterpret_cast<float*>(smem + L.ecum);  // exp(cum)
-  float* eend = reinterpret_cast<float*>(smem + L.eend);  // exp(cum_last - cum)
-  float* dend = reinterpret_cast<float*>(smem + L.dend);  // eend * dt
+  float* dend = reinterpret_cast<float*>(smem + L.dend);  // exp(cum_last - cum) dt
   float* ra = reinterpret_cast<float*>(smem + L.ra);      // dy . Y
   float* ru = reinterpret_cast<float*>(smem + L.ru);      // x . U
   float* rs = reinterpret_cast<float*>(smem + L.rs);      // x . T
-  float* rev = reinterpret_cast<float*>(smem + L.rev);    // dcum, last row first
-  float* dda = reinterpret_cast<float*>(smem + L.dda);    // its running sum
   float* tot = reinterpret_cast<float*>(smem + L.tot);
   float* red = reinterpret_cast<float*>(smem + L.red);
-  const int XP = P + 8, BN = N + 8, PV = P / 8, NV = N / 8;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L.bar);  // the state has arrived
+  float* st = reinterpret_cast<float*>(smem + L.total);       // h and dh, or a strip
+  const int XP = P + 8, BN = N + 8, HN = N + 4, PV = P / 8, NV = N / 8;
+  const bool resident = plan.resident != 0;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int hh = blockIdx.x, c = blockIdx.y, bb = blockIdx.z, n_chunks = gridDim.y;
   const int t0 = c * Q, qc = min(Q, S - t0), q16 = round16(qc);
-  const int Q16 = round16(Q), n_ks = Q16 / 8;
   const float a = A[hh];
   const long long zc = static_cast<long long>(bb) * n_chunks + c;
-  const float* hst = states + (zc * H + hh) * P * N;   // (P, N): the chunk's start state
-  const float* dhst = dh_end + (zc * H + hh) * P * N;  // (P, N): its end cotangent
-  const float* cbz = cb + zc * Q16 * Q16;
-  const float* gz = gm + (zc * H + hh) * Q16 * Q16;
+  const long long PN = static_cast<long long>(P) * N;
+  const float* hg = states + (zc * H + hh) * PN;  // (P, N): the chunk's start state
+  const float* dhg =                              // (P, N): its end cotangent, or null (zeros)
+      c + 1 < n_chunks ? dh_end + ((static_cast<long long>(bb) * (n_chunks - 1) + c) * H + hh) * PN
+      : dh_out != nullptr ? dh_out + (static_cast<long long>(bb) * H + hh) * PN
+                          : nullptr;
+  float* Hs = st;           // resident: [P][N+4]
+  float* Ds = st + P * HN;  // resident: [P][N+4]
 
-  for (int j = tid; j < qc; j += kThreads) {
-    dts[j] = dt[(static_cast<long long>(bb) * S + t0 + j) * H + hh];
-  }
+  if (tid == 0) mma::mbar_init(bar, kThreads);
+  __syncthreads();
   for (int idx = tid; idx < q16 * PV; idx += kThreads) {  // x and dy rows, zero past qc
     const int j = idx / PV, e = (idx % PV) * 8;
-    uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
-    if (j < qc) {
-      xv = __ldg(reinterpret_cast<const uint4*>(
-          x + bb * s_xb + (t0 + j) * s_xs + static_cast<long long>(hh) * P + e));
-      yv = __ldg(reinterpret_cast<const uint4*>(
-          dy + ((static_cast<long long>(bb) * S + t0 + j) * H + hh) * P + e));
-    }
-    *reinterpret_cast<uint4*>(Xs + j * XP + e) = xv;
-    *reinterpret_cast<uint4*>(Ys + j * XP + e) = yv;
+    const bool live = j < qc;
+    mma::cp_async16(Xs + j * XP + e,
+                    live ? x + bb * s_xb + (t0 + j) * s_xs + static_cast<long long>(hh) * P + e : x,
+                    live);
+    mma::cp_async16(Ys + j * XP + e,
+                    live ? dy + ((static_cast<long long>(bb) * S + t0 + j) * H + hh) * P + e : dy,
+                    live);
   }
   for (int idx = tid; idx < q16 * NV; idx += kThreads) {  // B and C rows
     const int j = idx / NV, e = (idx % NV) * 8;
-    uint4 bv = make_uint4(0u, 0u, 0u, 0u), cv = bv;
-    if (j < qc) {
-      bv = __ldg(reinterpret_cast<const uint4*>(Bm + bb * s_bb + (t0 + j) * s_bs + e));
-      cv = __ldg(reinterpret_cast<const uint4*>(Cm + bb * s_cb + (t0 + j) * s_cs + e));
-    }
-    *reinterpret_cast<uint4*>(Bs + j * BN + e) = bv;
-    *reinterpret_cast<uint4*>(Cs + j * BN + e) = cv;
+    const bool live = j < qc;
+    mma::cp_async16(Bs + j * BN + e, live ? Bm + bb * s_bb + (t0 + j) * s_bs + e : Bm, live);
+    mma::cp_async16(Cs + j * BN + e, live ? Cm + bb * s_cb + (t0 + j) * s_cs + e : Cm, live);
   }
+  mma::cp_async_commit();
+  if (resident) {  // the state and its cotangent, tracked by the mbarrier
+    const int NQ = N / 4;
+    for (int idx = tid; idx < P * NQ; idx += kThreads) {
+      const int p = idx / NQ, e = (idx % NQ) * 4;
+      mma::cp_async16(Hs + p * HN + e, hg + p * N + e, true);
+      mma::cp_async16(Ds + p * HN + e, dhg != nullptr ? dhg + p * N + e : hg, dhg != nullptr);
+    }
+  }
+  mma::cp_async_commit();
+  mma::cp_async_arrive(bar);
+  for (int j = tid; j < qc; j += kThreads) {
+    dts[j] = dt[(static_cast<long long>(bb) * S + t0 + j) * H + hh];
+  }
+  mma::cp_async_wait<1>();
   __syncthreads();
   chunk_cumsum(dts, a, cum, qc, tot);
   const float last = cum[qc - 1];
   for (int j = tid; j < q16; j += kThreads) {
     ecum[j] = j < qc ? expf(cum[j]) : 0.f;
-    eend[j] = j < qc ? expf(last - cum[j]) : 0.f;
-    dend[j] = j < qc ? eend[j] * dts[j] : 0.f;
+    dend[j] = j < qc ? expf(last - cum[j]) * dts[j] : 0.f;
   }
   __syncthreads();
 
-  const int n_mt = q16 / 16;
-  // rows i: a_i and the head's dC
-  for (int k = 0; k * kWarps < n_mt; ++k) {
-    const int mt = k * kWarps + (k % 2 == 0 ? warp : kWarps - 1 - warp);
-    if (mt >= n_mt) continue;
-    const int i0 = mt * 16, ia = i0 + g, ib = i0 + g + 8, n_k = 2 * mt + 2;
-    const float4* cbm = reinterpret_cast<const float4*>(cbz) + static_cast<long long>(mt) * n_ks * 32 + lane;
-    const float4* gmm = reinterpret_cast<const float4*>(gz) + static_cast<long long>(mt) * n_ks * 32 + lane;
-    float apart[2] = {0.f, 0.f};
-    for (int pg = 0; pg < P; pg += kGroup) {
-      float off[4][4], dg[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) off[nt][e] = dg[nt][e] = 0.f;
-      }
-      // carry-in C h^T: A = C rows (exact), B = h^T (split)
-      for (int k0 = 0; k0 < N; k0 += 8) {
-        const uint32_t af[4] = {tf(Cs[ia * BN + k0 + t]), tf(Cs[ib * BN + k0 + t]),
-                                tf(Cs[ia * BN + k0 + t + 4]), tf(Cs[ib * BN + k0 + t + 4])};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (pg + nt * 8 >= P) break;
-          const float* hr = hst + static_cast<long long>(pg + nt * 8 + g) * N + k0;
-          mma_split_b(off[nt], af, __ldg(hr + t), __ldg(hr + t + 4));
-        }
-      }
-      // intra-chunk W x: A = W (split), B = x (exact)
-      for (int kk = 0; kk < n_k; ++kk) {
-        const float4 cv = __ldg(cbm + kk * 32);
-        const int ja = kk * 8 + t, jb = ja + 4;
-        const float w[4] = {
-            ja <= ia && ia < qc ? cv.x * expf(cum[ia] - cum[ja]) * dts[ja] : 0.f,
-            ja <= ib && ib < qc ? cv.y * expf(cum[ib] - cum[ja]) * dts[ja] : 0.f,
-            jb <= ia && ia < qc ? cv.z * expf(cum[ia] - cum[jb]) * dts[jb] : 0.f,
-            jb <= ib && ib < qc ? cv.w * expf(cum[ib] - cum[jb]) * dts[jb] : 0.f};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (pg + nt * 8 >= P) break;
-          const int p = pg + nt * 8 + g;
-          mma_split_a(dg[nt], w, tf(Xs[ja * XP + p]), tf(Xs[jb * XP + p]));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (pg + nt * 8 >= P) break;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e < 2 ? ia : ib, p = pg + nt * 8 + 2 * t + (e & 1);
-          apart[e >> 1] += __bfloat162float(Ys[i * XP + p]) * (off[nt][e] * ecum[i] + dg[nt][e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      apart[hf] += __shfl_xor_sync(0xffffffffu, apart[hf], 1);
-      apart[hf] += __shfl_xor_sync(0xffffffffu, apart[hf], 2);
-    }
-    if (t == 0) {
-      if (ia < qc) ra[ia] = apart[0];
-      if (ib < qc) ra[ib] = apart[1];
-    }
-    // the head's dC: exp(cum_i) dy_i h + sum_j dS_ij B_j
-    for (int ng = 0; ng < N; ng += kGroup) {
-      float dco[4][4], dcd[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dco[nt][e] = dcd[nt][e] = 0.f;
-      }
-      // A = dy rows (exact), B = h (split)
-      for (int k0 = 0; k0 < P; k0 += 8) {
-        const uint32_t af[4] = {tf(Ys[ia * XP + k0 + t]), tf(Ys[ib * XP + k0 + t]),
-                                tf(Ys[ia * XP + k0 + t + 4]), tf(Ys[ib * XP + k0 + t + 4])};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (ng + nt * 8 >= N) break;
-          const int n = ng + nt * 8 + g;
-          mma_split_b(dco[nt], af, __ldg(hst + static_cast<long long>(k0 + t) * N + n),
-                      __ldg(hst + static_cast<long long>(k0 + t + 4) * N + n));
-        }
-      }
-      // A = dS (split), B = B rows (exact)
-      for (int kk = 0; kk < n_k; ++kk) {
-        const float4 gv = __ldg(gmm + kk * 32);
-        const int ja = kk * 8 + t, jb = ja + 4;
-        const float ds[4] = {
-            ja <= ia && ia < qc ? gv.x * expf(cum[ia] - cum[ja]) * dts[ja] : 0.f,
-            ja <= ib && ib < qc ? gv.y * expf(cum[ib] - cum[ja]) * dts[ja] : 0.f,
-            jb <= ia && ia < qc ? gv.z * expf(cum[ia] - cum[jb]) * dts[jb] : 0.f,
-            jb <= ib && ib < qc ? gv.w * expf(cum[ib] - cum[jb]) * dts[jb] : 0.f};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (ng + nt * 8 >= N) break;
-          const int n = ng + nt * 8 + g;
-          mma_split_a(dcd[nt], ds, tf(Bs[ja * BN + n]), tf(Bs[jb * BN + n]));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (ng + nt * 8 >= N) break;
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int i = hf ? ib : ia;
-          if (i >= qc) continue;
-          const float e = ecum[i];
-          *reinterpret_cast<float2*>(
-              dCp + ((static_cast<long long>(bb) * H + hh) * S + t0 + i) * N + ng + nt * 8 + 2 * t) =
-              make_float2(dco[nt][2 * hf] * e + dcd[nt][2 * hf],
-                          dco[nt][2 * hf + 1] * e + dcd[nt][2 * hf + 1]);
-        }
-      }
-    }
-  }
+  constexpr int kPass = kWarps / 2;  // warps per pass
+  const bool row_pass = warp < kPass;
+  const int n_mt = q16 / 16, n_rounds = (n_mt + kPass - 1) / kPass;
+  // P and N in output groups of GP and GN columns, one of each per step
+  const int n_steps = max((P + GP - 1) / GP, (N + GN - 1) / GN);
+  for (int rd = 0; rd < n_rounds; ++rd) {
+    const int wi = warp % kPass;
+    const int mt = rd * kPass + (rd % 2 == 0 ? wi : kPass - 1 - wi);
+    const int r0 = mt * 16, ia = r0 + g, ib = ia + 8;
+    float w[2][4], e[2][4], ed[2][4];
 
-  // columns j: dx, u_j, s_j and the head's dB; the k-steps run over i >= j0
-  for (int k = 0; k * kWarps < n_mt; ++k) {
-    const int mt = k * kWarps + (k % 2 == 0 ? warp : kWarps - 1 - warp);
-    if (mt >= n_mt) continue;
-    const int j0 = mt * 16, ja = j0 + g, jb = j0 + g + 8;
-    float upart[2] = {0.f, 0.f}, spart[2] = {0.f, 0.f};
-    for (int pg = 0; pg < P; pg += kGroup) {
-      float U[4][4], T[4][4];
+    if (!resident || row_pass) {  // rows i: a_i and the head's dC
+      const bool on = row_pass && mt < n_mt;  // warp-uniform
+      float apart[2] = {0.f, 0.f};
+      for (int it = 0; it < n_steps; ++it) {
+        const int pg = it * GP, ng = it * GN;
+        const int p_nt = pg < P ? min(GP, P - pg) / 8 : 0;
+        const int n_nt = ng < N ? min(GN, N - ng) / 8 : 0;
+        float dg[8][4], dcd[16][4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+        for (int nt = 0; nt < 8; ++nt) dg[nt][0] = dg[nt][1] = dg[nt][2] = dg[nt][3] = 0.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) U[nt][e] = T[nt][e] = 0.f;
-      }
-      // U = V^T dy: A = V^T (split; (row j, column i) = V_ij), B = dy rows (exact)
-      for (int k0 = j0; k0 < q16; k0 += 8) {
-        const int i_a = k0 + t, i_b = i_a + 4;
-        const float v[4] = {
-            ja <= i_a && i_a < qc ? __ldg(cbz + cb_index(i_a, ja, Q16)) * expf(cum[i_a] - cum[ja]) : 0.f,
-            jb <= i_a && i_a < qc ? __ldg(cbz + cb_index(i_a, jb, Q16)) * expf(cum[i_a] - cum[jb]) : 0.f,
-            ja <= i_b && i_b < qc ? __ldg(cbz + cb_index(i_b, ja, Q16)) * expf(cum[i_b] - cum[ja]) : 0.f,
-            jb <= i_b && i_b < qc ? __ldg(cbz + cb_index(i_b, jb, Q16)) * expf(cum[i_b] - cum[jb]) : 0.f};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (pg + nt * 8 >= P) break;
-          const int p = pg + nt * 8 + g;
-          mma_split_a(U[nt], v, tf(Ys[i_a * XP + p]), tf(Ys[i_b * XP + p]));
+        for (int nt = 0; nt < 16; ++nt) dcd[nt][0] = dcd[nt][1] = dcd[nt][2] = dcd[nt][3] = 0.f;
+        if (on) {
+          for (int c0 = 0; c0 <= r0; c0 += 16) {
+            decay<false>(e, ed, r0, c0, cum, dts, qc, lane);
+            if (p_nt > 0) {  // W = C B^T exp(cum_i - cum_j) dt_j
+              gram16(w, Cs, BN, r0, Bs, BN, c0, N, lane);
+              scale(w, ed);
+              mma_weighted(dg, w, Xs, XP, c0, pg, p_nt, lane);
+            }
+            if (n_nt > 0) {  // dS = dy x^T exp(cum_i - cum_j) dt_j
+              gram16(w, Ys, XP, r0, Xs, XP, c0, P, lane);
+              scale(w, ed);
+              mma_weighted(dcd, w, Bs, BN, c0, ng, n_nt, lane);
+            }
+          }
+          if (resident) mma::mbar_wait(bar, 0);
         }
-      }
-      // T = B dh^T: A = B rows (exact), B = dh^T (split)
-      for (int k0 = 0; k0 < N; k0 += 8) {
-        const uint32_t af[4] = {tf(Bs[ja * BN + k0 + t]), tf(Bs[jb * BN + k0 + t]),
-                                tf(Bs[ja * BN + k0 + t + 4]), tf(Bs[jb * BN + k0 + t + 4])};
+        // the head's dC = exp(cum_i) dy_i h + sum_j dS_ij B_j, 4 n-tiles at a time
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (pg + nt * 8 >= P) break;
-          const float* dr = dhst + static_cast<long long>(pg + nt * 8 + g) * N + k0;
-          mma_split_b(T[nt], af, __ldg(dr + t), __ldg(dr + t + 4));
+        for (int qn = 0; qn < 4; ++qn) {
+          if (4 * qn >= n_nt) break;
+          const int n0 = ng + 32 * qn, m_nt = min(4, n_nt - 4 * qn);
+          float dco[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) dco[nt][0] = dco[nt][1] = dco[nt][2] = dco[nt][3] = 0.f;
+          for (int k_lo = 0; k_lo < P; k_lo += plan.kp) {  // dy h
+            const int k_hi = min(P, k_lo + plan.kp);
+            const StateView v = state_view(resident, Hs, HN, st, hg, hg, N, k_lo, k_hi - k_lo,
+                                           n0, 8 * m_nt);
+            if (on) coldot(dco, Ys, XP, r0, v.f, v.fs, v.fp, v.fk, n0, m_nt, k_lo, k_hi, lane);
+          }
+          if (on) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              if (nt >= m_nt) break;
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int i = hf ? ib : ia;
+                if (i >= qc) continue;
+                const float ei = ecum[i];
+                *reinterpret_cast<float2*>(
+                    dCp + ((static_cast<long long>(bb) * H + hh) * S + t0 + i) * N + n0 + 8 * nt +
+                    2 * t) = make_float2(dco[nt][2 * hf] * ei + dcd[4 * qn + nt][2 * hf],
+                                         dco[nt][2 * hf + 1] * ei + dcd[4 * qn + nt][2 * hf + 1]);
+              }
+            }
+          }
         }
-      }
+        // a_i += dy_i . (exp(cum_i) C_i h^T + (W x)_i) over the P group
+        if (p_nt > 0) {
+          float off[8][4];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (pg + nt * 8 >= P) break;
+          for (int nt = 0; nt < 8; ++nt) off[nt][0] = off[nt][1] = off[nt][2] = off[nt][3] = 0.f;
+          for (int k_lo = 0; k_lo < N; k_lo += plan.kn) {  // C h^T
+            const int k_hi = min(N, k_lo + plan.kn);
+            const StateView v = state_view(resident, Hs, HN, st, hg, hg, N, pg, 8 * p_nt, k_lo,
+                                           k_hi - k_lo);
+            if (on) rowdot(off, Cs, BN, r0, v.f, v.fs, v.fp, v.fk, pg, p_nt, k_lo, k_hi, lane);
+          }
+          if (on) {
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int j = hf ? jb : ja, p = pg + nt * 8 + 2 * t;
-          const float u0 = U[nt][2 * hf], u1 = U[nt][2 * hf + 1];
-          const float s0 = T[nt][2 * hf], s1 = T[nt][2 * hf + 1];
-          const float x0 = __bfloat162float(Xs[j * XP + p]), x1 = __bfloat162float(Xs[j * XP + p + 1]);
-          upart[hf] += x0 * u0 + x1 * u1;
-          spart[hf] += x0 * s0 + x1 * s1;
-          if (j < qc) {
-            *reinterpret_cast<uint32_t*>(
-                dx + ((static_cast<long long>(bb) * S + t0 + j) * H + hh) * P + p) =
-                mma::pack_bf16(dts[j] * u0 + dend[j] * s0, dts[j] * u1 + dend[j] * s1);
+            for (int nt = 0; nt < 8; ++nt) {
+              if (nt >= p_nt) break;
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int i = k < 2 ? ia : ib, p = pg + 8 * nt + 2 * t + (k & 1);
+                apart[k >> 1] +=
+                    __bfloat162float(Ys[i * XP + p]) * (off[nt][k] * ecum[i] + dg[nt][k]);
+              }
+            }
           }
         }
       }
-    }
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      upart[hf] += __shfl_xor_sync(0xffffffffu, upart[hf], 1);
-      upart[hf] += __shfl_xor_sync(0xffffffffu, upart[hf], 2);
-      spart[hf] += __shfl_xor_sync(0xffffffffu, spart[hf], 1);
-      spart[hf] += __shfl_xor_sync(0xffffffffu, spart[hf], 2);
-    }
-    if (t == 0) {
-      if (ja < qc) { ru[ja] = upart[0]; rs[ja] = spart[0]; }
-      if (jb < qc) { ru[jb] = upart[1]; rs[jb] = spart[1]; }
-    }
-    // the head's dB: sum_i dS_ij C_i + d_end_j x_j dh
-    for (int ng = 0; ng < N; ng += kGroup) {
-      float dbd[4][4], dbs[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dbd[nt][e] = dbs[nt][e] = 0.f;
+      for (int hf = 0; hf < 2; ++hf) {
+        apart[hf] += __shfl_xor_sync(0xffffffffu, apart[hf], 1);
+        apart[hf] += __shfl_xor_sync(0xffffffffu, apart[hf], 2);
       }
-      // A = dS^T (split), B = C rows (exact)
-      for (int k0 = j0; k0 < q16; k0 += 8) {
-        const int i_a = k0 + t, i_b = i_a + 4;
-        const float ds[4] = {
-            ja <= i_a && i_a < qc ? __ldg(gz + cb_index(i_a, ja, Q16)) * expf(cum[i_a] - cum[ja]) * dts[ja] : 0.f,
-            jb <= i_a && i_a < qc ? __ldg(gz + cb_index(i_a, jb, Q16)) * expf(cum[i_a] - cum[jb]) * dts[jb] : 0.f,
-            ja <= i_b && i_b < qc ? __ldg(gz + cb_index(i_b, ja, Q16)) * expf(cum[i_b] - cum[ja]) * dts[ja] : 0.f,
-            jb <= i_b && i_b < qc ? __ldg(gz + cb_index(i_b, jb, Q16)) * expf(cum[i_b] - cum[jb]) * dts[jb] : 0.f};
+      if (on && t == 0) {
+        if (ia < qc) ra[ia] = apart[0];
+        if (ib < qc) ra[ib] = apart[1];
+      }
+    }
+
+    if (!resident || !row_pass) {  // columns j: dx, u_j, s_j and the head's dB
+      const bool on = !row_pass && mt < n_mt;
+      const int ja = ia, jb = ib;
+      float upart[2] = {0.f, 0.f}, spart[2] = {0.f, 0.f};
+      for (int it = 0; it < n_steps; ++it) {
+        const int pg = it * GP, ng = it * GN;
+        const int p_nt = pg < P ? min(GP, P - pg) / 8 : 0;
+        const int n_nt = ng < N ? min(GN, N - ng) / 8 : 0;
+        float U[8][4], dbd[16][4];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (ng + nt * 8 >= N) break;
-          const int n = ng + nt * 8 + g;
-          mma_split_a(dbd[nt], ds, tf(Cs[i_a * BN + n]), tf(Cs[i_b * BN + n]));
+        for (int nt = 0; nt < 8; ++nt) U[nt][0] = U[nt][1] = U[nt][2] = U[nt][3] = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) dbd[nt][0] = dbd[nt][1] = dbd[nt][2] = dbd[nt][3] = 0.f;
+        if (on) {
+          for (int c0 = r0; c0 < q16; c0 += 16) {
+            decay<true>(e, ed, r0, c0, cum, dts, qc, lane);
+            if (p_nt > 0) {  // V^T = B C^T exp(cum_i - cum_j)
+              gram16(w, Bs, BN, r0, Cs, BN, c0, N, lane);
+              scale(w, e);
+              mma_weighted(U, w, Ys, XP, c0, pg, p_nt, lane);
+            }
+            if (n_nt > 0) {  // dS^T = x dy^T exp(cum_i - cum_j) dt_j
+              gram16(w, Xs, XP, r0, Ys, XP, c0, P, lane);
+              scale(w, ed);
+              mma_weighted(dbd, w, Cs, BN, c0, ng, n_nt, lane);
+            }
+          }
+          if (resident) mma::mbar_wait(bar, 0);
+        }
+        // the head's dB = sum_i dS_ij C_i + d_end_j x_j dh, 4 n-tiles at a time
+#pragma unroll
+        for (int qn = 0; qn < 4; ++qn) {
+          if (4 * qn >= n_nt) break;
+          const int n0 = ng + 32 * qn, m_nt = min(4, n_nt - 4 * qn);
+          float dbs[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) dbs[nt][0] = dbs[nt][1] = dbs[nt][2] = dbs[nt][3] = 0.f;
+          for (int k_lo = 0; k_lo < P; k_lo += plan.kp) {  // x dh
+            const int k_hi = min(P, k_lo + plan.kp);
+            const StateView v = state_view(resident, Ds, HN, st, dhg, hg, N, k_lo, k_hi - k_lo,
+                                           n0, 8 * m_nt);
+            if (on) coldot(dbs, Xs, XP, r0, v.f, v.fs, v.fp, v.fk, n0, m_nt, k_lo, k_hi, lane);
+          }
+          if (on) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              if (nt >= m_nt) break;
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int j = hf ? jb : ja;
+                if (j >= qc) continue;
+                const float dj = dend[j];
+                *reinterpret_cast<float2*>(
+                    dBp + ((static_cast<long long>(bb) * H + hh) * S + t0 + j) * N + n0 + 8 * nt +
+                    2 * t) = make_float2(dbd[4 * qn + nt][2 * hf] + dj * dbs[nt][2 * hf],
+                                         dbd[4 * qn + nt][2 * hf + 1] + dj * dbs[nt][2 * hf + 1]);
+              }
+            }
+          }
+        }
+        // dx = dt U + d_end T, u_j += x_j . U_j, s_j += x_j . T_j over the P group
+        if (p_nt > 0) {
+          float T[8][4];
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) T[nt][0] = T[nt][1] = T[nt][2] = T[nt][3] = 0.f;
+          for (int k_lo = 0; k_lo < N; k_lo += plan.kn) {  // T = B dh^T
+            const int k_hi = min(N, k_lo + plan.kn);
+            const StateView v = state_view(resident, Ds, HN, st, dhg, hg, N, pg, 8 * p_nt, k_lo,
+                                           k_hi - k_lo);
+            if (on) rowdot(T, Bs, BN, r0, v.f, v.fs, v.fp, v.fk, pg, p_nt, k_lo, k_hi, lane);
+          }
+          if (on) {
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              if (nt >= p_nt) break;
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const int j = hf ? jb : ja, p = pg + 8 * nt + 2 * t;
+                const float u0 = U[nt][2 * hf], u1 = U[nt][2 * hf + 1];
+                const float s0 = T[nt][2 * hf], s1 = T[nt][2 * hf + 1];
+                const float x0 = __bfloat162float(Xs[j * XP + p]);
+                const float x1 = __bfloat162float(Xs[j * XP + p + 1]);
+                upart[hf] += x0 * u0 + x1 * u1;
+                spart[hf] += x0 * s0 + x1 * s1;
+                if (j < qc) {
+                  *reinterpret_cast<uint32_t*>(
+                      dx + ((static_cast<long long>(bb) * S + t0 + j) * H + hh) * P + p) =
+                      mma::pack_bf16(dts[j] * u0 + dend[j] * s0, dts[j] * u1 + dend[j] * s1);
+                }
+              }
+            }
+          }
         }
       }
-      // A = x rows (exact), B = dh (split)
-      for (int k0 = 0; k0 < P; k0 += 8) {
-        const uint32_t af[4] = {tf(Xs[ja * XP + k0 + t]), tf(Xs[jb * XP + k0 + t]),
-                                tf(Xs[ja * XP + k0 + t + 4]), tf(Xs[jb * XP + k0 + t + 4])};
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (ng + nt * 8 >= N) break;
-          const int n = ng + nt * 8 + g;
-          mma_split_b(dbs[nt], af, __ldg(dhst + static_cast<long long>(k0 + t) * N + n),
-                      __ldg(dhst + static_cast<long long>(k0 + t + 4) * N + n));
+      for (int hf = 0; hf < 2; ++hf) {
+        upart[hf] += __shfl_xor_sync(0xffffffffu, upart[hf], 1);
+        upart[hf] += __shfl_xor_sync(0xffffffffu, upart[hf], 2);
+        spart[hf] += __shfl_xor_sync(0xffffffffu, spart[hf], 1);
+        spart[hf] += __shfl_xor_sync(0xffffffffu, spart[hf], 2);
+      }
+      if (on && t == 0) {
+        if (ja < qc) { ru[ja] = upart[0]; rs[ja] = spart[0]; }
+        if (jb < qc) { ru[jb] = upart[1]; rs[jb] = spart[1]; }
+      }
+    }
+  }
+  if (resident) mma::mbar_wait(bar, 0);  // a warp with no tile still reads the state below
+  if (dh0 != nullptr) {
+    // one chunk: dh0 = exp(cum_last) dh + (dy exp(cum))^T C, A = (dy
+    // exp(cum))^T (split; dy by ldmatrix.trans, k = 2t, 2t + 1 as k = t,
+    // t + 4), B = C (exact, ldmatrix.trans), in tiles of 16 state rows by
+    // 8 kD0 state columns
+    constexpr int kD0 = 4;
+    const float decay = ecum[qc - 1];
+    const int n_pt = P / 16, n_ngr = (N + 8 * kD0 - 1) / (8 * kD0);
+    for (int tile = warp; tile < n_pt * n_ngr; tile += kWarps) {
+      const int p0 = (tile % n_pt) * 16, ng = (tile / n_pt) * 8 * kD0;
+      const int n_nt = min(8 * kD0, N - ng) / 8;
+      float acc[kD0][4];
+#pragma unroll
+      for (int nt = 0; nt < kD0; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+      const __nv_bfloat16* yp = Ys + (lane & 7) * XP + p0 + ((lane >> 3) & 1) * 8;
+      const __nv_bfloat16* cp = Cs + (lane & 7) * BN + ng + (lane >> 3) * 8;
+      for (int k0 = 0; k0 < q16; k0 += 8) {
+        uint32_t r[2], cb[kD0];
+        mma::ldmatrix_x2_trans(r, yp + k0 * XP);
+#pragma unroll
+        for (int q4 = 0; q4 < kD0 / 4; ++q4) {
+          uint32_t c4[4];
+          mma::ldmatrix_x4_trans(c4, cp + k0 * BN + 32 * q4);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) cb[4 * q4 + m] = c4[m];
+        }
+        const float e0 = ecum[k0 + 2 * t], e1 = ecum[k0 + 2 * t + 1];
+        const float av[4] = {__uint_as_float(lo_tf(r[0])) * e0, __uint_as_float(lo_tf(r[1])) * e0,
+                             __uint_as_float(hi_tf(r[0])) * e1, __uint_as_float(hi_tf(r[1])) * e1};
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split2(av[e], ahi[e], alo[e]);
+#pragma unroll
+        for (int nt = 0; nt < kD0; ++nt) {
+          if (nt >= n_nt) break;
+          mma::tf32_1688(acc[nt], ahi, lo_tf(cb[nt]), hi_tf(cb[nt]));
+        }
+#pragma unroll
+        for (int nt = 0; nt < kD0; ++nt) {
+          if (nt >= n_nt) break;
+          mma::tf32_1688(acc[nt], alo, lo_tf(cb[nt]), hi_tf(cb[nt]));
         }
       }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        if (ng + nt * 8 >= N) break;
+      for (int nt = 0; nt < kD0; ++nt) {
+        if (nt >= n_nt) break;
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const int j = hf ? jb : ja;
-          if (j >= qc) continue;
-          const float e = dend[j];
-          *reinterpret_cast<float2*>(
-              dBp + ((static_cast<long long>(bb) * H + hh) * S + t0 + j) * N + ng + nt * 8 + 2 * t) =
-              make_float2(dbd[nt][2 * hf] + e * dbs[nt][2 * hf],
-                          dbd[nt][2 * hf + 1] + e * dbs[nt][2 * hf + 1]);
+          const int p = p0 + g + 8 * hf, n = ng + 8 * nt + 2 * t;
+          float2 d = make_float2(0.f, 0.f);
+          if (resident) {
+            d = *reinterpret_cast<const float2*>(Ds + p * HN + n);
+          } else if (dhg != nullptr) {
+            d = __ldg(reinterpret_cast<const float2*>(dhg + p * N + n));
+          }
+          *reinterpret_cast<float2*>(dh0 + (static_cast<long long>(bb) * H + hh) * PN + p * N +
+                                     n) = make_float2(decay * d.x + acc[nt][2 * hf],
+                                                      decay * d.y + acc[nt][2 * hf + 1]);
         }
       }
     }
   }
-  __syncthreads();  // ra, ru and rs are complete
+  __syncthreads();  // ra, ru and rs are complete; the tiles are free
 
   // rows t: dcum, its reverse running sum, ddt and this block's part of dA
   float v = 0.f;
   for (int j = tid; j < qc; j += kThreads) v += dend[j] * rs[j];
   const float send = block_sum(v, red);
-  float w = 0.f;
-  for (int idx = tid; idx < P * N; idx += kThreads) w += __ldg(dhst + idx) * __ldg(hst + idx);
-  const float dhh = block_sum(w, red);
+  float hd = 0.f;
+  if (resident) {
+    for (int idx = tid; idx < P * N; idx += kThreads) {
+      const int p = idx / N, n = idx % N;
+      hd += Ds[p * HN + n] * Hs[p * HN + n];
+    }
+  } else if (dhg != nullptr) {
+    for (int idx = tid; idx < P * N; idx += kThreads) hd += __ldg(dhg + idx) * __ldg(hg + idx);
+  }
+  const float dhh = block_sum(hd, red);
+  float* rev = reinterpret_cast<float*>(Xs);  // dcum, last row first
+  float* dda = reinterpret_cast<float*>(Ys);  // its running sum
   for (int j = tid; j < qc; j += kThreads) {
     float dc = ra[j] - dts[j] * ru[j] - dend[j] * rs[j];
     if (j == qc - 1) dc += send + ecum[j] * dhh;
@@ -934,7 +1304,8 @@ ssd_bwd_chunk_kernel(const __nv_bfloat16* __restrict__ x, const float* __restric
   float part = 0.f;
   for (int j = tid; j < qc; j += kThreads) {
     const float d = dda[qc - 1 - j];
-    ddt[(static_cast<long long>(bb) * S + t0 + j) * H + hh] = ru[j] + eend[j] * rs[j] + a * d;
+    ddt[(static_cast<long long>(bb) * S + t0 + j) * H + hh] =
+        ru[j] + expf(last - cum[j]) * rs[j] + a * d;
     part += d * dts[j];
   }
   part = block_sum(part, red);
@@ -970,9 +1341,6 @@ ssd_bwd_reduce_kernel(const float* __restrict__ dBp, const float* __restrict__ d
   }
 }
 
-// raise a kernel's dynamic shared-memory limit once per device and larger
-// size (a host-side attribute; a call captured into a CUDA graph then sets
-// none)
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t (&allowed)[64]) {
   int dev = 0;
@@ -1036,25 +1404,25 @@ extern "C" int ssd_scan_bf16(const void* x, const void* dt, const void* A, const
 // Shared memory one backward chunk block needs (the wrapper refuses shapes
 // above the card's 227 KB per block; the reverse pass needs the forward's).
 extern "C" long long ssd_scan_bwd_smem_bytes(int q, int n, int p) {
-  return static_cast<long long>(bwd_layout(q, n, p).total);
+  return static_cast<long long>(bwd_plan(q, n, p).smem);
 }
 
-// Plain C entry point of the backward (loaded with ctypes): C.B^T into cb (as
-// the forward), dy.x^T into gm (B * n_chunks * H * Q16 * Q16 f32), the
-// reverse pass (dh_end (B, n_chunks, H, P, N) f32, dh0), the chunk pass
-// (dx, ddt, the partials dBp and dCp (B, H, S, N) f32 and dAp (B, n_chunks,
-// H) f32), then the reduction into dB, dC (B, S, N) bf16 and dA (H,) f32.
-// x, Bm and Cm as the forward takes them; dy (B, S, H, P) bf16 and the
-// outputs contiguous; states (B, n_chunks, H, P, N) f32 from the forward;
-// dh_out (B, H, P, N) f32 or null (zeros). Returns the CUDA error code of
-// the launches (0 on success).
+// Plain C entry point of the backward (loaded with ctypes): with more than
+// one chunk the reverse pass (dh_end (B, n_chunks - 1, H, P, N) f32, the end
+// cotangents of all chunks but the last, and dh0); the chunk pass (dx, ddt,
+// the partials dBp and dCp (B, H, S, N) f32 and dAp (B, n_chunks, H) f32,
+// and with one chunk dh0); then the reduction into dB, dC (B, S, N) bf16 and
+// dA (H,) f32. x, Bm and Cm as the forward takes them; dy (B, S, H, P) bf16
+// and the outputs contiguous; states (B, n_chunks, H, P, N) f32 from the
+// forward; dh_out (B, H, P, N) f32 or null (zeros). Returns the CUDA error
+// code of the launches (0 on success).
 extern "C" int ssd_scan_bwd_bf16(const void* x, const void* dt, const void* A, const void* Bm,
                                  const void* Cm, const void* dy, const void* states,
-                                 const void* dh_out, void* cb, void* gm, void* dh_end, void* dBp,
-                                 void* dCp, void* dAp, void* dx, void* ddt, void* dA, void* dB,
-                                 void* dC, void* dh0, int b, int s, int h, int p, int n,
-                                 int chunk, long long s_xb, long long s_xs, long long s_bb,
-                                 long long s_bs, long long s_cb, long long s_cs, void* stream) {
+                                 const void* dh_out, void* dh_end, void* dBp, void* dCp,
+                                 void* dAp, void* dx, void* ddt, void* dA, void* dB, void* dC,
+                                 void* dh0, int b, int s, int h, int p, int n, int chunk,
+                                 long long s_xb, long long s_xs, long long s_bb, long long s_bs,
+                                 long long s_cb, long long s_cs, void* stream) {
   if (b < 1 || s < 1 || h < 1 || p < kSlice || p % kSlice || n < 16 || n % 16 || n > kMaxN ||
       chunk < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1062,43 +1430,48 @@ extern "C" int ssd_scan_bwd_bf16(const void* x, const void* dt, const void* A, c
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int q = chunk < s ? chunk : s;
   const int n_chunks = (s + q - 1) / q;
-  const int tiles = (q + kCbTile - 1) / kCbTile;
   const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
   const __nv_bfloat16* bm = static_cast<const __nv_bfloat16*>(Bm);
   const __nv_bfloat16* cm = static_cast<const __nv_bfloat16*>(Cm);
   const __nv_bfloat16* dyb = static_cast<const __nv_bfloat16*>(dy);
-  ssd_gram_kernel<<<dim3(tiles, tiles, b * n_chunks), 128, 0, st>>>(
-      cm, bm, static_cast<float*>(cb), s, n, q, n_chunks, 1, s_cb, s_cs, s_bb, s_bs, 0, 0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_gram_kernel<<<dim3(tiles, tiles, b * n_chunks * h), 128, 0, st>>>(
-      dyb, xb, static_cast<float*>(gm), s, p, q, n_chunks, h, static_cast<long long>(s) * h * p,
-      static_cast<long long>(h) * p, s_xb, s_xs, p, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
 
-  const size_t dstate_bytes = smem_layout(q, n).total;
-  static size_t dstate_allowed[64] = {};
-  err = allow_smem(ssd_bwd_dstate_kernel, dstate_bytes, dstate_allowed);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_dstate_kernel<<<dim3(p / kSlice, h, b), kThreads, dstate_bytes, st>>>(
-      static_cast<const float*>(dt), static_cast<const float*>(A), cm, dyb,
-      static_cast<const float*>(dh_out), static_cast<float*>(dh_end), static_cast<float*>(dh0), s,
-      h, p, n, q, s_cb, s_cs);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_chunks > 1) {
+    const size_t dstate_bytes = smem_layout(q, n).total;
+    static size_t dstate_allowed[64] = {};
+    err = allow_smem(ssd_bwd_dstate_kernel, dstate_bytes, dstate_allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ssd_bwd_dstate_kernel<<<dim3(p / kSlice, h, b), kThreads, dstate_bytes, st>>>(
+        static_cast<const float*>(dt), static_cast<const float*>(A), cm, dyb,
+        static_cast<const float*>(dh_out), static_cast<float*>(dh_end), static_cast<float*>(dh0),
+        s, h, p, n, q, s_cb, s_cs);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
-  const size_t chunk_bytes = bwd_layout(q, n, p).total;
-  static size_t chunk_allowed[64] = {};
-  err = allow_smem(ssd_bwd_chunk_kernel, chunk_bytes, chunk_allowed);
+  const BwdPlan plan = bwd_plan(q, n, p);
+  if (plan.smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  // mamba2's and zamba2's widths with their full groups: the compiled-in
+  // instantiations; anything else the generic one
+  auto* kernel = ssd_bwd_chunk_kernel<0, 0>;
+  static size_t allowed[3][64] = {};
+  int which = 0;
+  if (p == 64 && n == 128 && plan.gp == 64) {
+    kernel = ssd_bwd_chunk_kernel<64, 128>;
+    which = 1;
+  } else if (p == 64 && n == 64 && plan.gp == 64) {
+    kernel = ssd_bwd_chunk_kernel<64, 64>;
+    which = 2;
+  }
+  err = allow_smem(kernel, plan.smem, allowed[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_bwd_chunk_kernel<<<dim3(h, n_chunks, b), kThreads, chunk_bytes, st>>>(
+  kernel<<<dim3(h, n_chunks, b), kThreads, plan.smem, st>>>(
       xb, static_cast<const float*>(dt), static_cast<const float*>(A), bm, cm, dyb,
       static_cast<const float*>(states), static_cast<const float*>(dh_end),
-      static_cast<const float*>(cb), static_cast<const float*>(gm),
-      static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ddt), static_cast<float*>(dBp),
-      static_cast<float*>(dCp), static_cast<float*>(dAp), s, h, p, n, q, s_xb, s_xs, s_bb, s_bs,
-      s_cb, s_cs);
+      static_cast<const float*>(dh_out), static_cast<__nv_bfloat16*>(dx), static_cast<float*>(ddt),
+      static_cast<float*>(dBp), static_cast<float*>(dCp), static_cast<float*>(dAp),
+      n_chunks == 1 ? static_cast<float*>(dh0) : nullptr, s, h, p, n, q, plan, s_xb, s_xs, s_bb,
+      s_bs, s_cb, s_cs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

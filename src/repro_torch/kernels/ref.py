@@ -41,8 +41,9 @@ per-query-head f32 partials summed in head order), and
 ``ssd_scan_sliced_ref`` computes C.B^T once per (b, chunk) and the rest
 P-slice by P-slice, optionally with the chunk's running sum in the
 kernel's order (``warp_scan_cumsum``), and ``ssd_scan_bwd_split_ref`` is
-the SSD backward kernels' (a reverse pass for each chunk's end cotangent,
-a pass per (b, chunk, head) with per-head partials of dB, dC and dA, and
+the SSD backward kernels' (a reverse pass for each chunk's end cotangent
+but the last, a pass per (b, chunk, head) that forms its Gram blocks
+itself and, with one chunk, dh0, per-head partials of dB, dC and dA, and
 their sums in head and (b, chunk) order).
 """
 from __future__ import annotations
@@ -602,6 +603,22 @@ def ssd_scan_bwd_ref(
             dC[:, :S].to(Cm.dtype), dh)
 
 
+def gram_k16_alternating(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (B, i, K) . b (B, j, K)^T as the SSD backward's chunk pass sums a
+    Gram block (tests only): K in slices of 16, the even slices into one
+    running sum and the odd ones into another, in slice order, then the two
+    added."""
+    K = a.shape[-1]
+    even = odd = None
+    for k0 in range(0, K, 16):
+        part = torch.einsum("bik,bjk->bij", a[..., k0:k0 + 16], b[..., k0:k0 + 16])
+        if (k0 // 16) % 2 == 0:
+            even = part if even is None else even + part
+        else:
+            odd = part if odd is None else odd + part
+    return even if odd is None else even + odd
+
+
 def ssd_scan_bwd_split_ref(
     x: torch.Tensor,       # (B, S, H, P)
     dt: torch.Tensor,      # (B, S, H) f32
@@ -617,9 +634,13 @@ def ssd_scan_bwd_split_ref(
 ):
     """The SSD backward kernels' decomposition of ``ssd_scan_bwd_ref``
     (tests only), on the chunk start states the forward kernel keeps:
-      (a) the reverse pass: each chunk's end cotangent dh and dh0;
-      (b) per (b, chunk, h), over the chunk's q rows (no padding), with
-          V_ij = C_i . B_j exp(cum_i - cum_j) on the triangle:
+      (a) the reverse pass: each chunk's end cotangent dh (the last chunk's
+          is dh_out itself) and, with more than one chunk, dh0;
+      (b) per (b, chunk, h), over the chunk's q rows (no padding), with the
+          Gram blocks C B^T and dy x^T formed in the pass
+          (``gram_k16_alternating``; the column pass's transposes are the
+          same sums) and V_ij = (C B^T)_ij exp(cum_i - cum_j) on the
+          triangle:
             Y = exp(cum) C h^T + (V dt_j) x     (the forward's f32 y)
             U = V^T dy,  T = B dh^T,  dx = dt U + d_end T
             a = dy . Y,  u = x . U,  s = x . T  (row by row over P)
@@ -628,6 +649,7 @@ def ssd_scan_bwd_split_ref(
             ddt = u + exp(cum_q - cum) s + A dda, dA's part sum dda dt;
             dS = (dy x^T) exp(cum_i - cum_j) dt_j on the triangle,
             the head's dC = exp(cum) dy h + dS B, dB = dS^T C + d_end x dh;
+          with one chunk also dh0 = exp(cum_q) dh_out + (dy exp(cum))^T C;
       (c) dB and dC summed over heads in head order, dA over (b, chunk) in
           that order.
     ``cumsum`` as in ``ssd_scan_sliced_ref`` (``warp_scan_cumsum``: the
@@ -642,7 +664,7 @@ def ssd_scan_bwd_split_ref(
     dev = x.device
     starts = list(range(0, S, Q))
     cums = [running(dtf[:, t0:t0 + Q] * Af) for t0 in starts]
-    # (a)
+    # (a); with one chunk (b) forms dh0 from the same sums
     dh = torch.zeros((Bsz, H, P, N), dtype=f32, device=dev) if dh_out is None else dh_out.to(f32)
     dh_end = [None] * len(starts)
     for c in reversed(range(len(starts))):
@@ -664,12 +686,14 @@ def ssd_scan_bwd_split_ref(
         h, dhc = states[:, c].to(f32), dh_end[c]
         tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=dev))
         Lmat = _causal_decay(cum, tri)
-        V = torch.einsum("bin,bjn->bij", Cq, Bq)[..., None] * Lmat
+        Ld = Lmat * dtq[:, None]  # the decay with dt_j, once for W and dS
+        CB = gram_k16_alternating(Cq, Bq)[..., None]
+        V = CB * Lmat
         ecum = torch.exp(cum)
         e_end = torch.exp(cum[:, -1:] - cum)
         d_end = e_end * dtq
         Y = (torch.einsum("bqn,bhpn->bqhp", Cq, h) * ecum[..., None]
-             + torch.einsum("bijh,bjhp->bihp", V * dtq[:, None], xq))
+             + torch.einsum("bijh,bjhp->bihp", CB * Ld, xq))
         U = torch.einsum("bijh,bihp->bjhp", V, dyq)
         T = torch.einsum("bjn,bhpn->bjhp", Bq, dhc)
         dx[:, sl] = dtq[..., None] * U + d_end[..., None] * T
@@ -679,7 +703,8 @@ def ssd_scan_bwd_split_ref(
         dda = _reverse_cumsum(dcum)
         ddt[:, sl] = u + e_end * s + Af * dda
         dAp[:, c] = (dda * dtq).sum(1)
-        dS = torch.einsum("bihp,bjhp->bijh", dyq, xq) * Lmat * dtq[:, None]
+        G = torch.stack([gram_k16_alternating(dyq[:, :, hh], xq[:, :, hh]) for hh in range(H)], -1)
+        dS = G * Ld
         dCp[:, :, sl] = (torch.einsum("bqhp,bhpn->bhqn", dyq * ecum[..., None], h)
                          + torch.einsum("bijh,bjn->bhin", dS, Bq))
         dBp[:, :, sl] = (torch.einsum("bijh,bin->bhjn", dS, Cq)

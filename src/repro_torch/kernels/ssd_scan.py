@@ -4,10 +4,12 @@
 C.B^T kernel into a scratch it allocates with ``torch.empty``, then the scan
 kernel; with ``return_states`` the scan also writes each chunk's start
 state (training keeps it for the backward; a serve's y and state keep their
-bits without it). ``ssd_scan_bwd`` launches the backward's five kernels
-(C.B^T, dy.x^T, the reverse pass, the chunk pass, the reduction) on the
-forward's chunk states. Both take CUDA tensors only; ``kernels/ops.py``
-routes CPU tensors to the plain versions in ``kernels/ref.py``. Each adds
+bits without it). ``ssd_scan_bwd`` launches the backward's kernels on the
+forward's chunk states: the reverse pass (with more than one chunk), the
+chunk pass (with one chunk it also writes dh0) and the reduction of the
+heads' f32 partials of dB and dC. Both take CUDA tensors only;
+``kernels/ops.py`` routes CPU tensors to the plain versions in
+``kernels/ref.py``. Each adds
 one to its count, ``LAUNCHES["ssd_scan"]`` or ``LAUNCHES["ssd_scan_bwd"]``,
 per call (all its kernels) and nowhere else.
 
@@ -38,7 +40,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p]         # stream
 )
 _BWD_ARGTYPES = (
-    [ctypes.c_void_p] * 20      # x, dt, A, Bm, Cm, dy, states, dh_out (or null); scratch cb, gm,
+    [ctypes.c_void_p] * 18      # x, dt, A, Bm, Cm, dy, states, dh_out (or null); scratch
                                 # dh_end, dBp, dCp, dAp; dx, ddt, dA, dB, dC, dh0
     + [ctypes.c_int] * 6        # B, S, H, P, N, chunk
     + [ctypes.c_longlong] * 6   # x, Bm, Cm strides as the forward's
@@ -190,10 +192,7 @@ def ssd_scan_bwd(
     _smem_check("ssd_scan_bwd", lib.ssd_scan_bwd_smem_bytes(Q, N, P), Q, P, N)
     _smem_check("ssd_scan_bwd", lib.ssd_scan_smem_bytes(Q, N), Q, P, N)
     dev, f32 = x.device, torch.float32
-    q16 = -(-Q // 16) * 16
-    cb = torch.empty((B, nc, q16, q16), dtype=f32, device=dev)
-    gm = torch.empty((B, nc, H, q16, q16), dtype=f32, device=dev)
-    dh_end = torch.empty((B, nc, H, P, N), dtype=f32, device=dev)
+    dh_end = torch.empty((B, nc - 1, H, P, N), dtype=f32, device=dev)  # the last chunk's is dh_out
     dBp = torch.empty((B, H, S, N), dtype=f32, device=dev)
     dCp = torch.empty((B, H, S, N), dtype=f32, device=dev)
     dAp = torch.empty((B, nc, H), dtype=f32, device=dev)
@@ -208,7 +207,7 @@ def ssd_scan_bwd(
         rc = lib.ssd_scan_bwd_bf16(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             dy.data_ptr(), states.data_ptr(), dh_out.data_ptr() if dh_out is not None else None,
-            cb.data_ptr(), gm.data_ptr(), dh_end.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
+            dh_end.data_ptr(), dBp.data_ptr(), dCp.data_ptr(),
             dAp.data_ptr(), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
             dC.data_ptr(), dh0.data_ptr(), B, S, H, P, N, chunk, *_strides(x, Bm, Cm), stream,
         )

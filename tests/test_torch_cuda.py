@@ -27,7 +27,8 @@ the plain backward (``ref.ssd_scan_bwd_ref``) within ``SSD_GRAD_TIGHT``
 to each other bit for bit; the forward's chunk states to the plain scan's
 within the f32 SSD tolerance, its y and state with and without them bit
 for bit; ``ops.ssd_scan`` on CUDA tensors that need a gradient runs the
-forward and backward kernels.
+forward and backward kernels; the backward takes every chunk size and
+width its earlier design took.
 """
 import numpy as np
 import pytest
@@ -580,8 +581,17 @@ def _ssd_grad_inputs(shape, dev, seed=11):
     return x, dt, A, Bm, Cm, h0, dy, dh
 
 
+# the last five: the chunk pass's edges. Q = 256 at P 64, N 128 (the state
+# in strips), the same with a ragged last chunk; zamba2-1.2b's training rows
+# (the N 64 instantiation, two blocks an SM); P and N of three 16-wide k
+# slices over a ragged second chunk (the generic instantiation, the Gram
+# blocks' alternating sums); N 256 at P 48 (strips, the P group narrowed, k
+# slabs of 8, two N groups)
 _SSD_GRAD_SHAPES = [(2, 64, 4, 16, 32, 16), (1, 199, 32, 64, 128, 256),
-                    (2, 300, 8, 64, 64, 128), (8, 128, 32, 64, 128, 256)]
+                    (2, 300, 8, 64, 64, 128), (8, 128, 32, 64, 128, 256),
+                    (1, 256, 4, 64, 128, 256), (2, 300, 4, 64, 128, 256),
+                    (8, 128, 64, 64, 64, 256), (1, 100, 5, 48, 48, 64),
+                    (1, 161, 2, 48, 256, 256)]
 
 
 @pytest.mark.cuda
@@ -608,6 +618,56 @@ def test_cuda_ssd_scan_bwd_matches_plain(shape):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _rel(g, w) <= SSD_GRAD_TIGHT, (name, _rel(g, w))
         assert torch.equal(g, a), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 4, 16, 32, 16), (8, 128, 32, 64, 128, 256),
+                                   (2, 300, 4, 64, 128, 256)])
+def test_cuda_ssd_scan_bwd_without_state_cotangent(shape):
+    """dh_out None (zeros): the last chunk's end cotangent is read as zeros,
+    in the resident tiles and in strips, with one chunk and with several."""
+    dev = _card()
+    chunk = shape[-1]
+    x, dt, A, Bm, Cm, h0, dy, _ = _ssd_grad_inputs(shape, dev, seed=13)
+    _, _, states = ssd_scan.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=chunk, return_states=True)
+    got = ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, None, chunk=chunk)
+    again = ssd_scan.ssd_scan_bwd(x, dt, A, Bm, Cm, states, dy, None, chunk=chunk)
+    want = ref.ssd_scan_bwd_ref(x, dt, A, Bm, Cm, h0, dy, None, chunk=chunk)
+    torch.cuda.synchronize()
+    for name, g, w, a in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want, again):
+        assert _rel(g, w) <= SSD_GRAD_TIGHT, (name, _rel(g, w))
+        assert torch.equal(g, a), name
+
+
+def _earlier_bwd_smem(q: int, n: int, p: int) -> int:
+    """Shared memory of the backward's chunk block in its earlier design (4
+    padded bf16 tiles and 10 rows of f32 per row of the chunk): the shapes
+    the wrapper took then."""
+    q16 = -(-q // 16) * 16
+    o = 0
+    for w in (p, p, n, n):
+        o = -(-(o + 2 * q16 * (w + 8)) // 16) * 16
+    o += 10 * 4 * q16
+    return o + 32 + 32
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_bwd_takes_every_shape_it_took():
+    """No (chunk, P, N) whose backward and forward blocks fit before is
+    refused now: the chunk pass stages the state in strips where it cannot
+    hold it whole (the kernels' library answers the sizes; no launch)."""
+    _card()
+    lib = ssd_scan._library()
+    refused = []
+    for p in range(16, 257, 16):
+        for n in range(16, ssd_scan.MAX_N + 1, 16):
+            for q in range(1, 1025):
+                if (_earlier_bwd_smem(q, n, p) > ssd_scan.SMEM_LIMIT
+                        or lib.ssd_scan_smem_bytes(q, n) > ssd_scan.SMEM_LIMIT):
+                    continue
+                if lib.ssd_scan_bwd_smem_bytes(q, n, p) > ssd_scan.SMEM_LIMIT:
+                    refused.append((q, p, n))
+    assert not refused, refused[:10]
 
 
 @pytest.mark.cuda

@@ -47,6 +47,9 @@ CASES = {
     "batch_2": (2, 40, 3, 16, 16, 16, True),
     "chunk_longer_than_s": (1, 10, 2, 16, 16, 32, True),
     "zero_start_and_no_state_cotangent": (2, 24, 2, 16, 16, 8, False),
+    # P and N of three 16-wide k slices: the chunk pass's Gram blocks sum two
+    # slices into one running sum and one into the other
+    "odd_k16_slices": (1, 20, 2, 48, 48, 20, True),
 }
 
 
@@ -135,6 +138,19 @@ def test_split_bwd_matches_closed_form(case, cumsum):
     for name, g, w in zip(NAMES, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert _rel(g, w) <= (DA_REL if name == "dA" else F32_REL), (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("K", [16, 48, 64, 128])
+def test_gram_k16_alternating_is_the_gram(K):
+    """The chunk pass's Gram sum order (even and odd 16-wide k slices in two
+    running sums) against one einsum in f64: within f32 rounding."""
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(rng.standard_normal((2, 24, K)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 20, K)).astype(np.float32))
+    got = ref.gram_k16_alternating(a, b)
+    want = torch.einsum("bik,bjk->bij", a.double(), b.double())
+    assert got.shape == (2, 24, 20) and got.dtype == torch.float32
+    assert _rel(got, want) <= F32_REL
 
 
 def test_chunk_states_are_the_scan_carried_state():
