@@ -59,7 +59,18 @@ Phases, each of which must pass for the script to exit 0:
                more widths (P 48: odd k slices; N 256: state strips):
                dx, ddt, dA, dB, dC and dh0 within SSD_GRAD_TIGHT of
                the plain backward, two calls bit for bit, an
-               exclusive-cumsum control outside the bound;
+               exclusive-cumsum control outside the bound; since serving
+               across a mesh, the attention kernel's shard form
+               (verify_attention_packed_shard: one sequence shard of the
+               cache at a pos_offset, f32 output and LSE) at SHARD_CASES:
+               granite-34b's 48 query heads on 1 KV head of 128 over a
+               2048-position shard (a verify wholly past it, the straddling
+               first verify against both shards, a shard that sees nothing,
+               the 2045-row prefill) and qwen2-1.5b's training rows over the
+               two halves of their sequence: the output within
+               KERNEL_TIGHT, the LSE within STATS_TIGHT, -inf and output 0
+               exactly where a row sees nothing; the library yardstick the
+               efficient SDPA kernel with an additive mask and its LSE;
   3. serve   - fleets of 6 devices through repro_torch.api.System's
                engine backend, each greedy one checked against the port's
                reference backend on the same bundle and prompts (the same
@@ -247,8 +258,27 @@ Phases, each of which must pass for the script to exit 0:
                (params and optimizer state) and the last losses bit-equal;
                each run's launches of the backward kernels (12 a step) and
                of the forward entries (8 causal, 12 non-causal a step);
+  mesh     - (after phase 9) serving across a device mesh: four ranks of
+               this script (--mesh-rank) on the card over gloo, a (2, 2)
+               mesh of data x model (launch.mesh.make_debug_mesh), each
+               holding only its pieces (sharding.policy): granite-34b at
+               full width cut to 16 of its 88 layers (its cache of 4096
+               positions sequence-sharded, 2048 a model rank; B 4, a
+               2046-token prompt, so the first verify's 5 rows straddle
+               the shards; 8 verify rounds through
+               verification.make_verify_step(ctx=)) and granite-moe-3b-
+               a800m's dropless twin at full width and depth (KV heads and
+               experts split, 20 a rank; prompt 200, 8 rounds), each held
+               to the same weights on one rank in this process: greedy
+               tokens and commits equal but at a near tie (gaps printed),
+               the prefill's logits printed against one rank's; the shard
+               form launched in every granite layer, the dense kernel on
+               the moe run's heads, nothing dropped; each rank's
+               parameters, cache piece, peak memory and seconds printed;
   12. sim fig4 - serving.simulator on the h100 profile in the setting of the
-               JAX package's benchmarks/wstgr.py --quick (a prediction);
+               JAX package's benchmarks/wstgr.py --quick (a prediction; its
+               12 simulations run in processes of their own from phase 2
+               on, beside the device phases);
   13. tune   - repro_torch.tuning.tune of examples/specs/fleet.json on the
                card with the h100 profile, its winner round-tripped through
                JSON and served, the attention kernels launched; then the
@@ -261,7 +291,9 @@ Phases, each of which must pass for the script to exit 0:
                --demo over two spawned workers (both with rounds in the
                last frame, nothing left after).
 ``python3 chip_smoke.py --worker --counts FILE --listen ADDR`` is the
-worker mode the remote phase starts (see worker_main).
+worker mode the remote phase starts (see worker_main), ``--mesh-rank R
+--mesh-dir DIR --mesh-port PORT`` a rank of the mesh phase
+(mesh_rank_main).
 The line before the last is a JSON object with one record per kernel entry;
 the last line is {"ok": true, "device": {...}}. A kernel's "ms" (and
 "library_ms", "plain_ms") is the mean of 50 back-to-back calls from Python,
@@ -342,6 +374,10 @@ REPLACES = {
     # the SSD scan's gradient (training): no Pallas kernel has one; JAX
     # autodiffs its XLA mirror mamba2.ssd_chunked
     "ssd_scan_bwd": "no Pallas counterpart: JAX autodiffs src/repro/models/mamba2.py:80",
+    # the shard form over one sequence shard of the cache: the JAX package
+    # runs this kernel's math in its XLA mirror with pos_offset= and
+    # return_stats=True inside sp_append_attend (collectives.py:76)
+    "verify_attention_packed_shard": "src/repro/kernels/verify_attn.py:184",
 }
 SOURCES = {
     "verify_attn": "src/repro_torch/kernels/csrc/verify_attn.cu",
@@ -1206,9 +1242,134 @@ def check_attention_bwd(records: dict) -> None:
             print("kernel attention forward", json.dumps(fline), flush=True)
 
 
+# the shard form's cases: (B, Sq, Hq, Hkv, D, S_loc, kv_valid, pos_offset,
+# layers). The mesh phase's granite-34b (48 query heads on 1 KV head of 128,
+# a cache of 4096 positions in shards of 2048, B 2 a rank, 16 layers): a
+# verify whose shard lies wholly in the past, the first verify's straddling
+# rows (positions 2045..2049) against shard 0 and shard 1, a shard that sees
+# nothing, and the prefill's 2045 rows against shard 0; then qwen2-1.5b's
+# training rows (B 8, 128 rows, 12 on 2 heads) over the two halves of their
+# sequence
+SHARD_CASES = [
+    (2, 5, 48, 1, 128, 2048, [4000, 3000], 0, 16),
+    (2, 5, 48, 1, 128, 2048, [2050, 2050], 0, 16),
+    (2, 5, 48, 1, 128, 2048, [2050, 2050], 2048, 16),
+    (2, 5, 48, 1, 128, 2048, [2000, 1500], 2048, 16),
+    (2, 2045, 48, 1, 128, 2048, [2045, 2045], 0, 16),
+    (8, 128, 12, 2, 128, 64, [128] * 8, 0, 0),
+    (8, 128, 12, 2, 128, 64, [128] * 8, 64, 0),
+]
+SHARD_MAIN = 1  # the mesh verify's straddling rows on shard 0: the record's time
+
+
+def _shard_bound(B, Sq, Hq, Hkv, D, skv, kvv, off) -> tuple:
+    """Least time for one shard-form call: the K/V rows of the shard that
+    some query sees (each once), q read, the f32 output and LSE written,
+    kv_valid read, at the HBM rate; or the two products over the positions
+    each query row sees in the shard at the bf16 peak; the larger."""
+    seen = [max(0, min(skv, int(n) - off)) for n in kvv]
+    nbytes = (sum(seen) * Hkv * D * 2 * 2 + B * Sq * Hq * D * (2 + 4) + B * Sq * Hq * 4
+              + B * 4)
+    flops = 0
+    for n in kvv:
+        for i in range(Sq):
+            flops += 2 * 2 * max(0, min(skv, int(n) - Sq + i + 1 - off)) * D * Hq
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _host_us(fn, iters: int = 50) -> float:
+    """The host's microseconds to issue one call (no synchronize inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def check_attention_shard(records: dict) -> None:
+    """The shard form (verify_attention_packed_shard) against its plain
+    version at SHARD_CASES: the f32 output within KERNEL_TIGHT, the LSE
+    within STATS_TIGHT of its largest finite element, -inf exactly where
+    the plain version's is (a row that sees nothing of the shard) with
+    output 0 there; a case whose every row sees nothing gives nothing else.
+    The library yardstick is the one PyTorch call that returns output and
+    LSE under an arbitrary mask: the efficient SDPA kernel with an additive
+    bias (heads repeated, rows gathered beforehand)."""
+    from repro_torch.kernels import ref, verify_attn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    name = "verify_attention_packed_shard"
+    for idx, (B, Sq, Hq, Hkv, D, skv, kvv, off, L) in enumerate(SHARD_CASES):
+        lead = (L,) if L else ()
+        k, v, q = rnd(*lead, B, skv, Hkv, D), rnd(*lead, B, skv, Hkv, D), rnd(B, Sq, Hq, D)
+        kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+        layer = L - 1 if L else None
+        kc, vc = (k[layer], v[layer]) if L else (k, v)
+        kern = lambda: verify_attn.verify_attention_packed_shard(  # noqa: E731
+            q, k, v, kv_valid, pos_offset=off, layer=layer)
+        plain = lambda: ref.verify_attention_shard_ref(q, kc, vc, kv_valid, off)  # noqa: E731
+        out, lse = kern()
+        want, want_lse = plain()
+        torch.cuda.synchronize()
+        empty = torch.isneginf(want_lse)
+        if not torch.equal(torch.isneginf(lse), empty) or bool(torch.isnan(lse).any()):
+            raise AssertionError(f"{name} case {idx}: -inf LSE rows differ from the plain version")
+        rows_empty = empty.transpose(1, 2)  # (B, Sq, Hq)
+        if bool(out[rows_empty].ne(0).any()):
+            raise AssertionError(f"{name} case {idx}: a row that sees nothing is not 0")
+        err = (out - want).abs().max().item()
+        finite = ~empty
+        lse_err = ((lse[finite] - want_lse[finite]).abs().max().item() if bool(finite.any())
+                   else 0.0)
+        lse_scale = want_lse[finite].abs().max().item() if bool(finite.any()) else 1.0
+        if not math.isfinite(err) or err > KERNEL_TIGHT or lse_err > STATS_TIGHT * lse_scale:
+            raise AssertionError(f"{name} case {idx}: max abs err {err} (bound {KERNEL_TIGHT}), "
+                                 f"LSE err {lse_err} (bound {STATS_TIGHT} x {lse_scale})")
+        bound_ms, bound_by = _shard_bound(B, Sq, Hq, Hkv, D, skv, kvv, off)
+        # the library yardstick: output and LSE of every head under a bias
+        # that is 0 where a position is visible and -inf elsewhere
+        qpos = kv_valid[:, None].long() - Sq + torch.arange(Sq, device=dev)[None] - off
+        vis = torch.arange(skv, device=dev)[None, None, :] <= qpos[:, :, None]
+        bias = torch.zeros(B, 1, Sq, skv, dtype=torch.bfloat16, device=dev).masked_fill(
+            ~vis[:, None], float("-inf")).expand(B, Hq, Sq, skv)
+        G = Hq // Hkv
+        qh = q.transpose(1, 2).contiguous()
+        kh = kc.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        vh = vc.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+        lib = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(  # noqa: E731
+            qh, kh, vh, bias, True)
+        try:
+            lib()
+            library_ms = _time_ms(lib, 10)
+        except RuntimeError as exc:  # the yardstick only; the port never calls it
+            print(f"kernel shard library call refused: {str(exc)[:200]}", flush=True)
+            library_ms = None
+        big = Sq * skv > 10**6
+        iters, calls = (10, 8) if big else (50, GRAPH_CALLS)
+        line = {"case": idx, "name": name, "shape": f"B={B} Sq={Sq} Hq={Hq} Hkv={Hkv} D={D} "
+                f"S_loc={skv} kv_valid={kvv} pos_offset={off} layers={L}",
+                "max_abs_err": err, "lse_max_abs_err": lse_err,
+                "empty_rows": int(rows_empty.sum()), "ms": _time_ms(kern, iters),
+                "graph_ms": _graph_ms([kern] * calls), "host_us": _host_us(kern, iters),
+                "plain_ms": _time_ms(plain, 3 if big else 10), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+        _record(records, name, idx, SHARD_MAIN, line)
+
+
 def check_kernels(records: dict) -> None:
     """Phase 2: every kernel against its plain version at the paths' shapes."""
     check_attention(records)
+    check_attention_shard(records)
     check_ssd(records)
     check_ssd_bwd(records)
     check_attention_bwd(records)
@@ -2595,28 +2756,56 @@ def calibrate_h100(bundle) -> dict:
     return out
 
 
-def sim_fig4() -> None:
+def _sim_fig4_run(job):
+    """One simulation of sim_fig4: (target, batch, mode) -> its result's
+    WSTGR and server busy share."""
+    from repro_torch.serving.devices import H100, RPI5
+    from repro_torch.serving.simulator import SimConfig, simulate
+
+    target_p, b, mode = job
+    res = simulate(SimConfig(mode=mode, spec_len=4, acceptance=0.90,
+                             device_rate=RPI5.rate("llama-3b-draft", 4), target_params=target_p,
+                             server_batch=b, batch_policy="deadline", n_devices=64 * b,
+                             sim_time=10.0), H100)
+    return res.wstgr, res.server_busy_frac
+
+
+SIM_FIG4_ROWS = [(target_p, tname, b) for target_p, tname in ((11e9, "11B"), (70e9, "70B"))
+                 for b in (2, 8, 32)]
+
+
+def start_sim_fig4():
+    """Start sim_fig4's 12 simulations (host Python, no device) in 12
+    processes, to run beside the device phases; ``sim_fig4`` reads them.
+    The longest (70B, batch 32, SLED) takes ~90 s of one core."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    jobs = [(target_p, b, mode) for target_p, _, b in SIM_FIG4_ROWS
+            for mode in ("sled", "centralized")]
+    pool = ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {job: pool.submit(_sim_fig4_run, job) for job in jobs}
+
+
+def sim_fig4(started) -> None:
     """The simulator on the H100 profile in the setting of the JAX package's
     benchmarks/wstgr.py run(quick=True) (paper Fig. 4): SLED against
     centralized, 11B and 70B, batch 2, 8 and 32, RPi 5 drafting with the
     int4 3B draft, acceptance 0.90, 64 x batch devices, 10 s. A prediction
-    of this card's profile, not a measurement; no bound."""
-    from repro_torch.serving.devices import H100, RPI5
-    from repro_torch.serving.simulator import SimConfig, simulate
-
-    for target_p, tname in ((11e9, "11B"), (70e9, "70B")):
-        for b in (2, 8, 32):
-            base = SimConfig(mode="sled", spec_len=4, acceptance=0.90,
-                             device_rate=RPI5.rate("llama-3b-draft", 4), target_params=target_p,
-                             server_batch=b, batch_policy="deadline", n_devices=64 * b,
-                             sim_time=10.0)
-            sled = simulate(base, H100)
-            cent = simulate(dataclasses.replace(base, mode="centralized"), H100)
-            print("sim fig4 (prediction, h100 profile) " + json.dumps({
-                "target": tname, "batch": b, "wstgr_sled": round(sled.wstgr, 1),
-                "wstgr_centralized": round(cent.wstgr, 1),
-                "ratio": round(sled.wstgr / max(cent.wstgr, 1e-9), 2),
-                "sled_busy": round(sled.server_busy_frac, 2)}), flush=True)
+    of this card's profile, not a measurement; no bound. ``started`` is
+    ``start_sim_fig4()``'s pool and futures; its processes end here."""
+    pool, futures = started
+    try:
+        results = {job: fut.result(timeout=600) for job, fut in futures.items()}
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for target_p, tname, b in SIM_FIG4_ROWS:
+        sled, sled_busy = results[(target_p, b, "sled")]
+        cent, _ = results[(target_p, b, "centralized")]
+        print("sim fig4 (prediction, h100 profile) " + json.dumps({
+            "target": tname, "batch": b, "wstgr_sled": round(sled, 1),
+            "wstgr_centralized": round(cent, 1), "ratio": round(sled / max(cent, 1e-9), 2),
+            "sled_busy": round(sled_busy, 2)}), flush=True)
 
 
 def tune_on_card(records: dict) -> None:
@@ -3427,6 +3616,294 @@ def train_whisper(records: dict) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# mesh phase: four ranks on the card over gloo (launch.mesh.make_debug_mesh(2, 2))
+MESH_SHAPE = (2, 2)
+MESH_TIMEOUT_S = 420.0
+MESH_K = 4
+# label: (arch, layers (0: all), batch, max_len, prompt, verify rounds, seed).
+# granite-34b at full width cut to 16 of its 88 layers: four ranks share the
+# card, ~3.3e9 parameters a rank at tp 2 (its 88 layers would need ~135 GB);
+# its 4096-position cache is sequence-sharded (one KV head), 2048 a model
+# rank, and the 2046-token prompt puts the first verify's 5 rows at
+# 2045..2049, across the boundary. granite-moe-3b-a800m at full width and
+# depth, its dropless twin: KV heads (8) and experts (40: 20 a rank) split.
+MESH_RUNS = {
+    "granite-34b": ("granite-34b", 16, 4, 4096, 2046, 8, 11),
+    "granite-moe": ("granite-moe-3b-a800m", 0, 4, 256, 200, 8, 12),
+}
+
+
+def _mesh_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if cfg.family == "moe":  # the dropless twin: no assignment is dropped at any batch
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    return cfg
+
+
+def _mesh_weights(cfg, seed: int, policy=None):
+    """The model's weights, each tensor drawn in full on the card from a
+    generator of its own (the init's distributions: N(0, 0.02), the output
+    projections N(0, 0.02 / sqrt(2 L)), norms 1) and, under a ``policy``,
+    cut to this rank's piece at once: the same weights on one rank and on
+    the mesh, and never a full model on a rank."""
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.policy import local_shard, port_param_specs
+
+    model = Transformer(cfg, device="meta")
+    specs = port_param_specs(policy, model) if policy is not None else {}
+    out_std = 0.02 / math.sqrt(2 * cfg.num_layers)
+    with torch.no_grad():
+        for i, (name, p) in enumerate(list(model.named_parameters())):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "scale":
+                full = torch.ones(p.shape, dtype=p.dtype, device="cuda")
+            else:
+                gen = torch.Generator(device="cuda").manual_seed(seed * 100_003 + i)
+                std = out_std if leaf in ("wo", "wd") else 0.02
+                full = (torch.randn(p.shape, generator=gen, device="cuda") * std).to(p.dtype)
+            if any(specs.get(name, ())):
+                full = local_shard(full, specs[name], policy.mesh)
+            model.set_weight(name, full)
+    return model
+
+
+def _mesh_reference(label: str, work: Path) -> dict:
+    """One rank: the run's prefill and verify rounds on the full model. Round
+    r's drafts are the greedy tokens for its first r % 3 positions and a
+    wrong one after, so every row accepts r % 3 drafts and the rows keep one
+    length (the sequence-sharded cache's padded-batch contract). Saves the
+    prompts, each round's batch and results and the logits' top-2 gaps."""
+    from repro_torch.core import verification
+    from repro_torch.kernels import verify_attn
+    from repro_torch.models.model_zoo import build_model
+
+    arch, layers, B, max_len, prompt_len, rounds, seed = MESH_RUNS[label]
+    cfg = _mesh_cfg(arch, layers)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = _mesh_weights(cfg, seed)
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, prompt_len)).astype(np.int32))
+    cache = model.make_cache(B, max_len, device="cuda")
+    logits, cache, prev = verification.make_prefill_step(model)(params, cache, prompts.cuda())
+    step = verification.make_verify_step(model)
+    rec = {"prompts": prompts, "prefill": logits.cpu(), "rounds": []}
+    for r in range(rounds):
+        accept = r % 3
+        drafts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, MESH_K)).astype(np.int32))
+        drafts = drafts.cuda()
+        for i in range(accept + 1):
+            h, _ = model.decode_forward(params, cache, torch.cat([prev[:, None], drafts], 1))
+            top = model.lm_head(params, h)[:, i].argmax(-1).to(torch.int32)
+            drafts[:, i] = top if i < accept else (top + 1) % cfg.vocab_size
+        batch = verification.make_verify_batch(prev, drafts, torch.full(
+            (B,), MESH_K, dtype=torch.int32, device="cuda"))
+        h, _ = model.decode_forward(params, cache, batch["tokens_in"])
+        top2 = model.lm_head(params, h).topk(2, dim=-1).values
+        res, cache = step(params, cache, batch)
+        if not bool((res.n_commit == accept + 1).all()):
+            raise AssertionError(f"mesh {label} reference round {r}: commits "
+                                 f"{res.n_commit.tolist()}, want {accept + 1}")
+        rec["rounds"].append({"batch": {k: v.cpu() if torch.is_tensor(v) else v
+                                        for k, v in batch.items()},
+                              "out_tokens": res.out_tokens.cpu(), "n_commit": res.n_commit.cpu(),
+                              "gap": (top2[..., 0] - top2[..., 1]).cpu()})
+        prev = res.out_tokens[torch.arange(B, device="cuda"), res.n_commit - 1]
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    torch.save(rec, work / f"{label}.ref.pt")
+    print(f"mesh {label} reference: {cfg.num_layers} layers, "
+          f"{sum(p.numel() for p in params.parameters())} parameters on one rank, "
+          f"{rec['seconds']:.2f} s", flush=True)
+    del params, cache
+    verify_attn.release_scratch()  # the 2045-row prefill's splits: 12 GiB
+    return rec
+
+
+def _mesh_rank_run(label: str, mesh, work: Path) -> dict:
+    """One rank's part of a run: its pieces of the weights and the cache,
+    the prefill and the reference's rounds on its rows through the mesh
+    steps, each result against the reference's. A token that differs only
+    where the reference's top-2 gap is under LOGIT_TOL is a near tie; where
+    it changes a row's commit count the rows' lengths part and nothing
+    more is compared."""
+    import torch.distributed as dist
+
+    from repro_torch.core import verification
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build_model
+    from repro_torch.sharding.policy import make_policy
+
+    arch, layers, B, max_len, _, _, seed = MESH_RUNS[label]
+    cfg = _mesh_cfg(arch, layers)
+    policy = make_policy(cfg, mesh)
+    ctx = policy.ctx
+    model = build_model(cfg)
+    ref_rec = torch.load(work / f"{label}.ref.pt", weights_only=False)
+    t0 = time.perf_counter()
+    params = _mesh_weights(cfg, seed, policy)
+    cache = policy.shard_cache(model.make_cache(B, max_len, device=mesh.device))
+    rows = policy.shard_batch({"r": torch.arange(B)})["r"]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    dist.barrier()
+    _reset_launches()
+    L.reset_moe_tally()
+    t0 = time.perf_counter()
+    logits, cache, prev = verification.make_prefill_step(model, ctx=ctx)(
+        params, cache, ref_rec["prompts"][rows].to(mesh.device))
+    step = verification.make_verify_step(model, ctx=ctx)
+    out = {"label": label, "rank": mesh.rank, "coords": mesh.coords,
+           "seq_shard_kv": ctx.seq_shard_kv, "cache_shape": list(cache["k"].shape),
+           "params": sum(p.numel() for p in params.parameters()),
+           "prefill_max_abs": (logits.cpu() - ref_rec["prefill"][rows]).abs().max().item(),
+           "rounds": 0, "ties": [], "mismatch": []}
+    for r, want in enumerate(ref_rec["rounds"]):
+        batch = policy.shard_batch({k: v.to(mesh.device) if torch.is_tensor(v) else v
+                                    for k, v in want["batch"].items()})
+        res, cache = step(params, cache, batch)
+        got_t, got_n = res.out_tokens.cpu(), res.n_commit.cpu()
+        want_t, want_n, gap = want["out_tokens"][rows], want["n_commit"][rows], want["gap"][rows]
+        out["rounds"] += 1
+        if not torch.equal(got_n, want_n):
+            out["lengths_part"] = r
+        for b in range(len(rows)):
+            if torch.equal(got_t[b], want_t[b]):
+                continue
+            i = int((got_t[b] != want_t[b]).nonzero()[0])
+            entry = {"round": r, "row": int(rows[b]), "pos": i, "gap": float(gap[b, i]),
+                     "got": got_t[b].tolist(), "want": want_t[b].tolist()}
+            (out["ties"] if entry["gap"] < LOGIT_TOL else out["mismatch"]).append(entry)
+        if "lengths_part" in out:
+            break
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["init_seconds"] = init_s
+    out["launches"] = {k: v for k, v in _launches().items() if v}
+    out["moe_tally"] = L.moe_tally(mesh.device).tolist() if cfg.family == "moe" else None
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, cache
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """``--mesh-rank R --mesh-dir DIR --mesh-port PORT``: rank R of the mesh
+    phase (four ranks, gloo on localhost), every run of MESH_RUNS, its
+    results to DIR/rank<R>.json."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    rank, work = int(args["--mesh-rank"]), Path(args["--mesh-dir"])
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    M.init_process_group(rank, world, f"tcp://127.0.0.1:{args['--mesh-port']}",
+                         timeout_s=MESH_TIMEOUT_S)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.make_debug_mesh(*MESH_SHAPE)
+    results = [_mesh_rank_run(label, mesh, work) for label in MESH_RUNS]
+    (work / f"rank{rank}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_phase(records: dict) -> None:
+    """The mesh phase: each run's reference on one rank in this process,
+    then four ranks on the card (this script with --mesh-rank, gloo, a
+    (2, 2) mesh of data x model), each holding only its pieces, held to the
+    reference: greedy tokens and commits equal but at a near tie (gaps
+    printed), the prefill's logits printed against one rank's. Prints each
+    rank's parameters, peak memory, seconds and launches; granite-34b must
+    launch the shard form (every layer, prefill and rounds), granite-moe
+    the dense kernel on its heads."""
+    import shutil
+    import socket
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    procs = []
+    try:
+        for label in MESH_RUNS:
+            _mesh_reference(label, work)
+            _free_card(f"the mesh reference of {label}")
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        world = MESH_SHAPE[0] * MESH_SHAPE[1]
+        t0 = time.perf_counter()
+        for r in range(world):
+            log = open(work / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
+                 "--mesh-dir", str(work), "--mesh-port", str(port)],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        for p, _ in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+        wall = time.perf_counter() - t0
+        failed = [r for r, (p, _) in enumerate(procs) if p.poll() != 0]
+        if failed:
+            for r in failed:
+                print(f"mesh rank {r} log:\n{(work / f'rank{r}.log').read_text()[-4000:]}",
+                      flush=True)
+            raise AssertionError(f"mesh ranks {failed} failed or timed out")
+        results = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+        print(f"mesh: {world} ranks on {torch.cuda.get_device_name(0)}, {wall:.2f} s from spawn "
+              f"to the last exit", flush=True)
+        shard_launches = 0
+        for i, label in enumerate(MESH_RUNS):
+            for res in (rk[i] for rk in results):
+                print(f"mesh {label} rank {res['rank']} {res['coords']}: "
+                      f"{res['params']} parameters, cache piece {res['cache_shape']}, peak "
+                      f"{res['peak_gib']:.2f} GiB, init {res['init_seconds']:.2f} s, run "
+                      f"{res['seconds']:.2f} s, {res['rounds']} rounds (lengths part at round "
+                      f"{res.get('lengths_part')}), prefill logits max abs "
+                      f"{res['prefill_max_abs']:.3e} from one rank's, launches "
+                      f"{res['launches']}, moe tally {res['moe_tally']}", flush=True)
+                for tie in res["ties"]:
+                    print(f"mesh {label} near tie: {json.dumps(tie)}", flush=True)
+                if res["mismatch"]:
+                    raise AssertionError(f"mesh {label} rank {res['rank']}: tokens differ from "
+                                         f"one rank's beyond a near tie: {res['mismatch']}")
+                launches = res["launches"]
+                if label == "granite-34b":
+                    if not res["seq_shard_kv"] or not launches.get(
+                            "verify_attention_packed_shard"):
+                        raise AssertionError(f"mesh {label}: the shard form was not launched")
+                    shard_launches += launches["verify_attention_packed_shard"]
+                elif not launches.get("verify_attention_packed") or res["seq_shard_kv"]:
+                    raise AssertionError(f"mesh {label}: the dense kernel was not launched "
+                                         "on the rank's heads")
+                if res["moe_tally"] is not None and res["moe_tally"][1]:
+                    raise AssertionError(f"mesh {label}: the dropless twin dropped "
+                                         f"{res['moe_tally'][1]} assignments")
+        records["verify_attention_packed_shard"]["launches"] = shard_launches
+        records["verify_attention_packed_shard"]["launches_by_path"] = {"mesh": shard_launches}
+        records["verify_attention_packed"].setdefault("launches_by_path", {})["mesh"] = sum(
+            rk[i]["launches"].get("verify_attention_packed", 0)
+            for rk in results for i in range(len(MESH_RUNS)))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def build_kernels() -> None:
     """Phase 1: build every kernel of the paths from the checkout's sources,
     one nvcc per source, all started together."""
@@ -3492,6 +3969,8 @@ def main() -> int:
     # train qwen2 runs last in this process for the same reason (it leaves
     # ~38 GB reserved, which the spawned workers of the serve phases need)
     _free_card("the kernels' inputs")
+    # the simulator's rows run on the host's cores beside the device phases
+    sims = start_sim_fig4()
     _phase("train whisper", lambda: train_whisper(records))
     prompts = np.random.default_rng(2).integers(0, 151936, size=(6, 200)).astype(np.int32)
 
@@ -3640,7 +4119,10 @@ def main() -> int:
     _phase("checkpoint", lambda: checkpoint_phase(wh[1]))
     del wh
     _free_card("whisper-tiny")
-    _phase("sim fig4", sim_fig4)
+    # serving across a device mesh: four ranks on the card
+    _phase("mesh", lambda: mesh_phase(records))
+    _free_card("the mesh phase")
+    _phase("sim fig4", lambda: sim_fig4(sims))
     _phase("tune", lambda: tune_on_card(records))
     _phase("cli", cli_on_card)
     _free_card("the serve phases")
@@ -3659,4 +4141,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(worker_main(sys.argv[1:]) if "--worker" in sys.argv[1:] else main())
+    if "--worker" in sys.argv[1:]:
+        sys.exit(worker_main(sys.argv[1:]))
+    sys.exit(mesh_rank_main(sys.argv[1:]) if "--mesh-rank" in sys.argv[1:] else main())

@@ -31,7 +31,7 @@ kept as bf16), the form ``repro_torch.checkpoint`` saves and restores, and
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -203,6 +203,40 @@ def _assign_leaf(model: CausalLM, name: str, value: torch.Tensor, cast: bool = F
         param.copy_(value)
     else:
         model.set_weight(name, value.clone())
+
+
+def param_paths(model: CausalLM) -> List[Tuple[str, Tuple[str, ...], Optional[int]]]:
+    """(port parameter name, JAX path, layer) for every parameter of
+    ``model``: ``layer`` is the block's index under a stacked (L, ...) JAX
+    leaf, None for an unstacked one (the order of ``params_tree``)."""
+    cfg = model.cfg
+    family = _family(cfg)
+    out: List[Tuple[str, Tuple[str, ...], Optional[int]]] = [("embed", ("embed",), None)]
+
+    def block(prefix, blk, names, root):
+        for name, path in names.items():
+            if _dotted(blk, name) is not None:
+                out.append((f"{prefix}.{name}", root + path, None))
+
+    def stack(prefix, blocks, names, root):
+        for li in range(len(blocks)):
+            for name, path in names.items():
+                if _dotted(blocks[li], name) is not None:
+                    out.append((f"{prefix}.{li}.{name}", root + path, li))
+
+    block("final_norm", model.final_norm, _NORM_PARAMS, ("final_norm",))
+    stack("layers", model.layers, _layer_params(cfg), (_STACK_KEY[family],))
+    if family == "hybrid":
+        block("shared", model.shared, _SHARED_PARAMS, ("shared_attn",))
+    if model.lm_head_w is not None:
+        out.append(("lm_head_w", ("lm_head",), None))
+    if getattr(model, "pos_embed", None) is not None:
+        out.append(("pos_embed", ("pos_embed",), None))
+    if getattr(model, "enc", None) is not None:
+        out.append(("enc.pos_embed", ("enc", "pos_embed"), None))
+        stack("enc.layers", model.enc.layers, _LAYER_PARAMS["dense"], ("enc", "layers"))
+        block("enc.final_norm", model.enc.final_norm, _NORM_PARAMS, ("enc", "final_norm"))
+    return out
 
 
 def _put(tree: Dict[str, Any], path, value) -> None:

@@ -19,6 +19,13 @@ rows into a dense sub-cache, runs the dense forward and commit there, and
 writes the rows back (``paged_attention=False``, and the ssm and hybrid
 families, whose recurrent state is not position-indexed). Each pool step
 carries the mode it runs as ``.paged_attention``.
+
+Under a mesh (``ctx``, ``sharding.policy.Policy.ctx``), the dense-cache
+steps ``make_verify_step`` and ``make_prefill_step`` run in every rank on
+its pieces (``policy.shard_params``, ``policy.shard_cache``,
+``policy.shard_batch``) and return its rows: the decode cell's batched
+verification on a mesh (the dense and moe families). The pool steps stay
+single-rank, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import torch
 
 from repro_torch.core.speculative import VerifyResult, speculative_verify
 from repro_torch.models.kvcache import gather_slots, scatter_slots, supports_paged_attention
+from repro_torch.models.layers import NO_MESH, MeshContext
 from repro_torch.runtime import VERIFY_STREAM, seeded_generator
 
 
@@ -54,11 +62,14 @@ def make_verify_batch(prev_token: torch.Tensor, draft_tokens: torch.Tensor,
     return batch
 
 
-def _verify(model, params, h, batch, *, greedy: bool) -> VerifyResult:
+def _verify(model, params, h, batch, *, greedy: bool, ctx: MeshContext = NO_MESH
+            ) -> VerifyResult:
     """Logits of the fed positions, then the acceptance rule; a sampling
     round draws at temperature 1 (a ServeSpec sets none) from a generator on
     the logits' device seeded from the batch's seed."""
-    logits = model.lm_head(params, h)  # (B, K+1, V) f32
+    # (B, K+1, V) f32; the mesh's ctx only under a mesh: the model's head
+    # keeps the JAX interface, lm_head(params, h)
+    logits = model.lm_head(params, h, ctx) if ctx.sharded else model.lm_head(params, h)
     gen = None if greedy else seeded_generator(logits.device, batch["seed"], VERIFY_STREAM)
     return speculative_verify(
         batch["draft_tokens"], logits, gen, lengths=batch["lengths"],
@@ -67,12 +78,15 @@ def _verify(model, params, h, batch, *, greedy: bool) -> VerifyResult:
     )
 
 
-def make_verify_step(model, *, greedy: bool = True, attn_chunk: int = 1024):
-    """Dense-cache step: ``verify_step(params, cache, batch) -> (VerifyResult, cache)``."""
+def make_verify_step(model, *, ctx: MeshContext = NO_MESH, greedy: bool = True,
+                     attn_chunk: int = 1024):
+    """Dense-cache step: ``verify_step(params, cache, batch) -> (VerifyResult, cache)``
+    (under a mesh: this rank's pieces and rows)."""
 
     def verify_step(params, cache, batch) -> Tuple[VerifyResult, Any]:
-        h, ck_cache = model.decode_forward(params, cache, batch["tokens_in"], attn_chunk=attn_chunk)
-        res = _verify(model, params, h, batch, greedy=greedy)
+        h, ck_cache = model.decode_forward(params, cache, batch["tokens_in"], attn_chunk=attn_chunk,
+                                           ctx=ctx)
+        res = _verify(model, params, h, batch, greedy=greedy, ctx=ctx)
         return res, model.commit(ck_cache, res.n_commit)
 
     return verify_step
@@ -148,7 +162,8 @@ def make_force_extend_step(model, *, attn_chunk: int = 1024, paged_attention: bo
     return step
 
 
-def make_prefill_step(model, *, attn_chunk: int = 1024, with_frontend: bool = False):
+def make_prefill_step(model, *, ctx: MeshContext = NO_MESH, attn_chunk: int = 1024,
+                      with_frontend: bool = False):
     """``prefill_step(params, cache, tokens, stub=None) -> (logits, cache,
     last_token)``.
 
@@ -157,7 +172,8 @@ def make_prefill_step(model, *, attn_chunk: int = 1024, with_frontend: bool = Fa
     the last" invariant, so the first verify round can feed it. With
     ``with_frontend``, ``stub`` is the model's stub frontend
     (``model_zoo.frontend_stub``): an encdec model's encoder frames, or a
-    vlm model's patch embeddings, which precede its prompt."""
+    vlm model's patch embeddings, which precede its prompt. Under a mesh,
+    this rank's pieces and rows."""
 
     def prefill_step(params, cache, tokens, stub=None):
         kw = {}
@@ -165,7 +181,8 @@ def make_prefill_step(model, *, attn_chunk: int = 1024, with_frontend: bool = Fa
             kw["enc_frames"] = stub
         if with_frontend and model.cfg.family == "vlm":
             kw["embeds_prefix"] = stub
-        logits, cache = model.prefill(params, tokens[:, :-1], cache, attn_chunk=attn_chunk, **kw)
+        logits, cache = model.prefill(params, tokens[:, :-1], cache, attn_chunk=attn_chunk,
+                                      ctx=ctx, **kw)
         return logits, cache, tokens[:, -1]
 
     return prefill_step

@@ -73,6 +73,15 @@
 //     caller asks for it (training's forward, whose backward needs it), the
 //     same block also writes each row's log-sum-exp m + log l, 0 for a row
 //     that sees no position; a serve asks for none and its out is unchanged.
+//   - The shard form (verify_attn_bf16_shard; the JAX package's
+//     flash_attention(pos_offset=, return_stats=True) inside
+//     sp_append_attend): the cache is one sequence shard whose position 0 is
+//     the global position pos_offset, so every limit above moves down by
+//     pos_offset and kv_valid may pass Skv. The output is the merge's f32
+//     acc / max(l, 1e-30), normalised over the shard and never rounded to
+//     bf16, and the LSE of a row that sees nothing in the shard is -inf, so
+//     that the cross-shard combine weighs it 0. The splits, the merge and
+//     every FMA chain are the other forms'.
 //   - Forward progress: a block waits only for blocks of lower split index,
 //     and blocks take their index from a device counter in the order they
 //     start, so every block waited for is already running.
@@ -320,6 +329,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    const int* __restrict__ kv_valid,
                    const int* __restrict__ slots,
                    __nv_bfloat16* __restrict__ out,
+                   float* __restrict__ out_f32,   // the shard form's output, else null
                    float* __restrict__ lse,       // (B, Hq, Sq) or null
                    float* __restrict__ part_acc,  // [tile, split][thread][kRows][kDC]
                    float* __restrict__ part_ml,   // [tile, split][row] (m, l)
@@ -327,7 +337,7 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
                    int* __restrict__ sync,        // block counter, then [tile][split] flags
                    int n_split, int n_tiles, int sq, int hq, int hkv, int skv,
                    long long s_row, long long s_seq, long long s_head,
-                   long long sc_row, float scale, int causal) {
+                   long long sc_row, float scale, int causal, int pos_offset) {
   using PV = PvLayout<D>;
   constexpr int D2 = D / 2;
   constexpr int DC = PV::kDC;  // output columns per thread in P.V
@@ -353,8 +363,14 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int valid = kv_valid[b];
   const long long row = slots != nullptr ? static_cast<long long>(slots[b])
                                          : static_cast<long long>(b);
-  // the last position query i sees: its own (causal) or the row's last
-  auto limit = [&](int i) { return causal ? valid - sq + i : valid - 1; };
+  // the last position query i sees: its own (causal) or the row's last,
+  // counted from the shard's first position (pos_offset 0 but in the shard
+  // form)
+  auto limit = [&](int i) { return (causal ? valid - sq + i : valid - 1) - pos_offset; };
+  const bool shard = out_f32 != nullptr;
+  // the LSE of a row that sees no position: 0 (training), -inf (the shard
+  // form: no weight in the combine)
+  const float lse_empty = shard ? -__int_as_float(0x7f800000) : 0.f;
   // the tile's last row sets how far its blocks must read
   const int kv_end = max(0, min(skv, limit((r0 + rn - 1) / group) + 1));
   const int n_live = (kv_end + kSplit - 1) / kSplit;
@@ -370,12 +386,16 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const int pr = r0 + r;
     return (static_cast<long long>(b) * hq + h * group + pr % group) * sq + pr / group;
   };
-  if (n_live == 0) {  // no row of the tile sees a position: zeros (and LSE 0)
+  if (n_live == 0) {  // no row of the tile sees a position: zeros (and the empty LSE)
     if (split == 0) {
       for (int idx = tid; idx < rn * D2; idx += kThreads) {
-        reinterpret_cast<uint32_t*>(out + row_of(idx / D2))[idx % D2] = 0u;
+        if (shard) {
+          reinterpret_cast<float2*>(out_f32 + row_of(idx / D2))[idx % D2] = make_float2(0.f, 0.f);
+        } else {
+          reinterpret_cast<uint32_t*>(out + row_of(idx / D2))[idx % D2] = 0u;
+        }
       }
-      if (lse != nullptr && tid < rn) lse[lse_of(tid)] = 0.f;
+      if (lse != nullptr && tid < rn) lse[lse_of(tid)] = lse_empty;
     }
     return;
   }
@@ -571,13 +591,24 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = rp + RG * vv;
     if (r >= rn) continue;
     const float den = fmaxf(lt[vv], 1e-30f);
-    uint32_t* dst = reinterpret_cast<uint32_t*>(out + row_of(r) + cp * DC);
+    if (shard) {
+      float4* dst = reinterpret_cast<float4*>(out_f32 + row_of(r) + cp * DC);
 #pragma unroll
-    for (int e = 0; e < DC; e += 2) dst[e / 2] = mma::pack_bf16(o[vv][e] / den, o[vv][e + 1] / den);
-    // the row's log-sum-exp from the merge's max and sum (0 where the row
-    // sees no position), for the backward
+      for (int e = 0; e < DC; e += 4) {
+        dst[e / 4] = make_float4(o[vv][e] / den, o[vv][e + 1] / den, o[vv][e + 2] / den,
+                                 o[vv][e + 3] / den);
+      }
+    } else {
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out + row_of(r) + cp * DC);
+#pragma unroll
+      for (int e = 0; e < DC; e += 2) {
+        dst[e / 2] = mma::pack_bf16(o[vv][e] / den, o[vv][e + 1] / den);
+      }
+    }
+    // the row's log-sum-exp from the merge's max and sum (the empty LSE where
+    // the row sees no position), for the backward and the shards' combine
     if (lse != nullptr && cp == 0) {
-      lse[lse_of(r)] = lt[vv] > 0.f ? m_prev[vv] + logf(lt[vv]) : 0.f;
+      lse[lse_of(r)] = lt[vv] > 0.f ? m_prev[vv] + logf(lt[vv]) : lse_empty;
     }
   }
 }
@@ -585,10 +616,10 @@ verify_attn_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D, typename KV>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* kv_valid, const void* slots, void* out,
-           void* lse, void* part, void* sync, int b, int sq, int hq, int hkv, int skv,
-           long long layer, long long s_layer, long long s_row, long long s_seq, long long s_head,
-           long long sc_layer, long long sc_row, float scale, int causal,
-           cudaStream_t stream) {
+           void* out_f32, void* lse, void* part, void* sync, int b, int sq, int hq, int hkv,
+           int skv, long long layer, long long s_layer, long long s_row, long long s_seq,
+           long long s_head, long long sc_layer, long long sc_row, float scale, int causal,
+           int pos_offset, cudaStream_t stream) {
   const int n_tiles = (sq * (hq / hkv) + kTileRows - 1) / kTileRows;
   const int n_split = (skv + kSplit - 1) / kSplit;
   const long long n_part = static_cast<long long>(b) * hkv * n_tiles * n_split;
@@ -618,37 +649,38 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
                               stream>>>(
       static_cast<const __nv_bfloat16*>(q), kl, vl, ksl, vsl,
       static_cast<const int*>(kv_valid), static_cast<const int*>(slots),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), part_acc, part_ml, part_lm,
-      static_cast<int*>(sync),
-      n_split, n_tiles, sq, hq, hkv, skv, s_row, s_seq, s_head, sc_row, scale, causal);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(out_f32), static_cast<float*>(lse),
+      part_acc, part_ml, part_lm, static_cast<int*>(sync),
+      n_split, n_tiles, sq, hq, hkv, skv, s_row, s_seq, s_head, sc_row, scale, causal,
+      pos_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename KV>
 int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const void* kv_valid, const void* slots, void* out,
-             void* lse, void* part, void* sync, int b, int sq, int hq, int hkv, int d, int skv,
-             long long layer, long long s_layer, long long s_row, long long s_seq,
-             long long s_head, long long sc_layer, long long sc_row, float scale, int causal,
-             void* stream) {
+             void* out_f32, void* lse, void* part, void* sync, int b, int sq, int hq, int hkv,
+             int d, int skv, long long layer, long long s_layer, long long s_row,
+             long long s_seq, long long s_head, long long sc_layer, long long sc_row,
+             float scale, int causal, int pos_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16:
-      return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
-                            sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, causal, st);
+      return launch<16, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, out_f32, lse, part,
+                            sync, b, sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head,
+                            sc_layer, sc_row, scale, causal, pos_offset, st);
     case 64:
-      return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
-                            sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, causal, st);
+      return launch<64, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, out_f32, lse, part,
+                            sync, b, sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head,
+                            sc_layer, sc_row, scale, causal, pos_offset, st);
     case 96:
-      return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
-                            sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                            sc_row, scale, causal, st);
+      return launch<96, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, out_f32, lse, part,
+                            sync, b, sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head,
+                            sc_layer, sc_row, scale, causal, pos_offset, st);
     case 128:
-      return launch<128, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, lse, part, sync, b,
-                             sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                             sc_row, scale, causal, st);
+      return launch<128, KV>(q, k, v, k_scale, v_scale, kv_valid, slots, out, out_f32, lse, part,
+                             sync, b, sq, hq, hkv, skv, layer, s_layer, s_row, s_seq, s_head,
+                             sc_layer, sc_row, scale, causal, pos_offset, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -682,9 +714,29 @@ extern "C" int verify_attn_bf16(const void* q, const void* k, const void* v,
                                 long long layer, long long s_layer, long long s_row,
                                 long long s_seq, long long s_head, float scale, int causal,
                                 void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, slots, out, lse, part,
-                                 sync, b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq,
-                                 s_head, 0, 0, scale, causal, stream);
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, slots, out, nullptr, lse,
+                                 part, sync, b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq,
+                                 s_head, 0, 0, scale, causal, 0, stream);
+}
+
+// The shard form over a dense bf16 cache that is one sequence shard: its
+// position 0 is the global position pos_offset (>= 0). out_f32 receives
+// the shard's normalised (B, Sq, Hq, D) f32 output and lse each query
+// row's (B, Hq, Sq) f32 log-sum-exp over the shard, -inf (with output 0)
+// for a row that sees no position of it. Both are required.
+extern "C" int verify_attn_bf16_shard(const void* q, const void* k, const void* v,
+                                      const void* kv_valid, void* out_f32, void* lse,
+                                      void* part, void* sync,
+                                      int b, int sq, int hq, int hkv, int d, int skv,
+                                      long long layer, long long s_layer, long long s_row,
+                                      long long s_seq, long long s_head, int pos_offset,
+                                      float scale, int causal, void* stream) {
+  if (out_f32 == nullptr || lse == nullptr || pos_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch<__nv_bfloat16>(q, k, v, nullptr, nullptr, kv_valid, nullptr, nullptr, out_f32,
+                                 lse, part, sync, b, sq, hq, hkv, d, skv, layer, s_layer, s_row,
+                                 s_seq, s_head, 0, 0, scale, causal, pos_offset, stream);
 }
 
 // int8 K/V with (L, rows, Hkv) f32 scale leaves: sc_layer / sc_row are their
@@ -698,7 +750,7 @@ extern "C" int verify_attn_int8(const void* q, const void* k, const void* v,
                                 long long s_seq, long long s_head, long long sc_layer,
                                 long long sc_row, float scale, int causal, void* stream) {
   if (k_scale == nullptr || v_scale == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<int8_t>(q, k, v, k_scale, v_scale, kv_valid, slots, out, nullptr, part, sync,
-                          b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head, sc_layer,
-                          sc_row, scale, causal, stream);
+  return dispatch<int8_t>(q, k, v, k_scale, v_scale, kv_valid, slots, out, nullptr, nullptr, part,
+                          sync, b, sq, hq, hkv, d, skv, layer, s_layer, s_row, s_seq, s_head,
+                          sc_layer, sc_row, scale, causal, 0, stream);
 }

@@ -11,6 +11,10 @@ An int8 cache comes with its scale leaves in the cache's own layout,
 them by the same (layer, row) addressing as the K/V rows, the plain
 version selects the rows it needs first.
 
+``verify_attention_shard`` is the shard form over one sequence shard of
+the cache (``distributed/collectives.py``): the shard's f32 output and
+each row's LSE over it, for the combine across shards.
+
 ``causal=False`` (the encdec family's encoder and cross-attention) lets
 every query row see every position below its ``kv_valid``; the kernel
 takes it as a flag and counts such launches under their own names.
@@ -61,6 +65,30 @@ def verify_attention(
     return ref.verify_attention_ref(q, _layer(k, layer), _layer(v, layer), kv_valid,
                                     block_k=block_k, k_scale=_layer(k_scale, layer),
                                     v_scale=_layer(v_scale, layer), causal=causal)
+
+
+def verify_attention_shard(
+    q: torch.Tensor,         # (B, Sq, Hq, D) bf16
+    k: torch.Tensor,         # (B, S_loc, Hkv, D) bf16 shard, or (L, B, S_loc, Hkv, D) with layer
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,) int32, global
+    *,
+    pos_offset: int,
+    layer: Optional[int] = None,
+    block_k: int = 64,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention over one sequence shard of a dense bf16 cache whose first
+    position is the global position ``pos_offset``: (out (B, Sq, Hq, D)
+    f32 normalised over the shard, lse (B, Hq, Sq) f32, -inf for a row
+    that sees nothing there). On a CUDA tensor the shard form of the
+    kernel runs (or raises); never the plain version."""
+    if q.is_cuda:
+        return verify_attn.verify_attention_packed_shard(q.contiguous(), k, v, kv_valid,
+                                                         pos_offset=pos_offset, layer=layer,
+                                                         causal=causal)
+    return ref.verify_attention_shard_ref(q, _layer(k, layer), _layer(v, layer), kv_valid,
+                                          pos_offset, block_k=block_k, causal=causal)
 
 
 class _Attention(torch.autograd.Function):

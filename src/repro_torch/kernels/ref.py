@@ -91,6 +91,46 @@ def verify_attention_ref(
     and sees positions j <= kv_valid - Sq + i with j < Skv; with
     ``causal=False`` every query sees every j < kv_valid. An int8 cache
     takes its per-(row, head) dequant scales."""
+    B, Sq, Hq, D = q.shape
+    acc, _, l = _online_softmax(q, k, v, kv_valid, 0, scale=scale, block_k=block_k,
+                                k_scale=k_scale, v_scale=v_scale, causal=causal)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def verify_attention_shard_ref(
+    q: torch.Tensor,         # (B, Sq, Hq, D) bf16
+    k: torch.Tensor,         # (B, S_loc, Hkv, D): one sequence shard of the cache
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,) global valid entries incl. the Sq new rows
+    pos_offset: int,         # the global position of k[:, 0]
+    *,
+    scale: Optional[float] = None,
+    block_k: int = 64,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shard form of ``verify_attention_ref`` (the CUDA kernel's
+    ``verify_attention_packed_shard``; the JAX package's
+    ``flash_attention(pos_offset=, return_stats=True)``): local position j is
+    the global position ``pos_offset + j``, visible to query i of row b iff
+    it is at most ``kv_valid[b] - Sq + i`` (``causal``) and below
+    ``kv_valid[b]``. Returns (out, lse): (B, Sq, Hq, D) f32 normalised over
+    the shard, acc / max(l, 1e-30), and (B, Hq, Sq) f32 m + log(l), -inf
+    with out 0 for a row that sees no position of the shard."""
+    B, Sq, Hq, D = q.shape
+    acc, m, l = _online_softmax(q, k, v, kv_valid, int(pos_offset), scale=scale,
+                                block_k=block_k, causal=causal)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Sq, Hq, D)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
+                      torch.full_like(l, -math.inf))
+    return out, lse.reshape(B, Sq, Hq).transpose(1, 2).contiguous()
+
+
+def _online_softmax(q, k, v, kv_valid, pos_offset: int, *, scale, block_k, k_scale=None,
+                    v_scale=None, causal=True):
+    """(acc (B, Sq, Hkv, G, D), m, l (B, Sq, Hkv, G)) f32 of the online
+    softmax over ``block_k`` chunks of k/v, whose position 0 is the global
+    position ``pos_offset``."""
     if k.dtype == torch.int8 and (k_scale is None or v_scale is None):
         raise ValueError("an int8 cache needs k_scale and v_scale")
     B, Sq, Hq, D = q.shape
@@ -100,8 +140,9 @@ def verify_attention_ref(
         scale = 1.0 / math.sqrt(D)
     dev = q.device
     qg = q.reshape(B, Sq, Hkv, G, D).float()
-    q_pos = query_limits(kv_valid, Sq, causal, dev)
-    kv_end = min(Skv, int(kv_valid.max()))  # chunks past every row's limit add nothing
+    q_pos = query_limits(kv_valid, Sq, causal, dev) - pos_offset  # local limits
+    # chunks past every row's limit add nothing
+    kv_end = max(0, min(Skv, int(kv_valid.max()) - pos_offset))
     m = torch.full((B, Sq, Hkv, G), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Sq, Hkv, G), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Sq, Hkv, G, D), dtype=torch.float32, device=dev)
@@ -127,8 +168,7 @@ def verify_attention_ref(
             "bshgc,bchd->bshgd", p.to(vb.dtype).float(), vb.float()
         )
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+    return acc, m, l
 
 
 def verify_attention_split_ref(

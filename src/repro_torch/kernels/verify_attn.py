@@ -22,6 +22,15 @@ kernels take. Its ``out`` is the same bits as without it; the flag is
 refused with a ``layer``, an int8 cache and on the paged entry, which
 training does not run.
 
+``verify_attention_packed_shard`` is the shard form over one sequence
+shard of a dense bf16 cache (``distributed/collectives.py``'s
+``sp_append_attend``; the JAX package's ``flash_attention(pos_offset=,
+return_stats=True)``): the shard's position 0 is the global position
+``pos_offset``, and it returns the shard's f32 output, normalised over the
+shard and not rounded, with each row's log-sum-exp over the shard, -inf
+(and output 0) for a row that sees none of it. It counts under
+``verify_attention_packed_shard``.
+
 The cache may be handed over as the model's stacked buffer
 (L, rows, Skv, Hkv, D) with a ``layer`` index, and an int8 cache's scales as
 the stacked (L, rows, Hkv) leaves: the kernel addresses the layer and row
@@ -33,7 +42,7 @@ device and grown as a call needs: an f32 buffer for the splits' partials
 and the zeroed int32 block counter and flags the splits signal each other
 with. The kernel returns every counter and flag it raises to zero, so the
 calls on one stream share the scratch; calls on two streams at once would
-not.
+not. ``release_scratch`` drops it.
 """
 from __future__ import annotations
 
@@ -47,8 +56,9 @@ import torch
 from repro_torch.kernels import build
 
 LAUNCHES = {
-    f"verify_attention_{entry}{kv}{mask}": 0
-    for entry in ("packed", "paged") for kv in ("", "_int8") for mask in ("", "_noncausal")
+    **{f"verify_attention_{entry}{kv}{mask}": 0
+       for entry in ("packed", "paged") for kv in ("", "_int8") for mask in ("", "_noncausal")},
+    "verify_attention_packed_shard": 0, "verify_attention_packed_shard_noncausal": 0,
 }
 HEAD_DIMS = (16, 64, 96, 128)  # 16: the reduced configs; the rest: the published ones
 
@@ -59,6 +69,12 @@ _ARGTYPES = {
         + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
     ),
+    "verify_attn_bf16_shard": (
+        [ctypes.c_void_p] * 8       # q, k, v, kv_valid, out_f32, lse, part, sync
+        + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
+        + [ctypes.c_longlong] * 5   # layer, s_layer, s_row, s_seq, s_head
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # pos_offset, scale,
+    ),                                                                  # causal, stream
     "verify_attn_int8": (
         [ctypes.c_void_p] * 10      # q, k, v, k_scale, v_scale, kv_valid, slots, out, part, sync
         + [ctypes.c_int] * 6        # B, Sq, Hq, Hkv, D, Skv
@@ -77,6 +93,12 @@ _SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def release_scratch() -> None:
+    """Drop every device's scratch (it keeps the largest call's size: a
+    prefill of 2045 rows at G 48 over 4096 positions holds 12 GiB)."""
+    _SCRATCH.clear()
 
 
 def _function(symbol: str):
@@ -235,6 +257,53 @@ def verify_attention_packed(
         raise ValueError(f"cache has {k.shape[-4]} rows for a batch of {q.shape[0]}")
     return _launch("verify_attention_packed", q, k, v, kv_valid, None, layer, scale,
                    k_scale, v_scale, causal, return_lse)
+
+
+def verify_attention_packed_shard(
+    q: torch.Tensor,         # (B, Sq, Hq, D) bf16
+    k: torch.Tensor,         # (B, S_loc, Hkv, D) bf16, or (L, B, S_loc, Hkv, D) with layer
+    v: torch.Tensor,
+    kv_valid: torch.Tensor,  # (B,) int32, global: may pass S_loc
+    *,
+    pos_offset: int,         # the global position of k[..., 0, :, :]
+    layer: Optional[int] = None,
+    scale: Optional[float] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The shard form: query i of row b sits at the global position
+    ``kv_valid[b] - Sq + i`` and sees local position j iff ``pos_offset + j``
+    is at most that (``causal``) and below ``kv_valid[b]``. Returns (out,
+    lse): the (B, Sq, Hq, D) f32 output normalised over the shard, and each
+    row's (B, Hq, Sq) f32 log-sum-exp over it, -inf (out 0) for a row that
+    sees no position of the shard."""
+    if k.shape[-4] != q.shape[0]:
+        raise ValueError(f"cache has {k.shape[-4]} rows for a batch of {q.shape[0]}")
+    if k.dtype != torch.bfloat16:
+        raise ValueError(f"the shard form reads a bfloat16 cache, got {k.dtype}")
+    if int(pos_offset) < 0:
+        raise ValueError(f"pos_offset must be >= 0, got {pos_offset}")
+    _check(q, k, v, kv_valid, None, None, None)
+    li, s_layer = _cache_view(k, layer)
+    B, Sq, Hq, D = q.shape
+    s_row, s_seq, s_head = k.stride()[-4:-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    dims = (B, Sq, Hq, k.shape[-2], D, k.shape[-3])
+    with torch.cuda.device(q.device):
+        scratch = _scratch(q.device, dims)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _function("verify_attn_bf16_shard")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), *scratch, *dims, li, s_layer, s_row, s_seq, s_head,
+            int(pos_offset), float(scale), int(causal), stream,
+        )
+    name = "verify_attention_packed_shard" + ("" if causal else "_noncausal")
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return out, lse
 
 
 def verify_attention_paged(

@@ -145,8 +145,9 @@ def _run_cached(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: tor
 
 
 def prefill(cfg, params: Hybrid, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], *,
-            attn_chunk: int = 1024, **_):
+            attn_chunk: int = 1024, ctx: L.MeshContext = L.NO_MESH, **_):
     """Fill the cache from a prompt; returns (last-position logits, cache)."""
+    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
     x, ssm, conv = _run_cached(cfg, params, cache, tokens, attn_chunk, decode=False)
     new_cache = {"ssm": ssm, "conv": conv, "k": cache["k"], "v": cache["v"],
                  "length": cache["length"] + tokens.shape[1]}
@@ -154,10 +155,11 @@ def prefill(cfg, params: Hybrid, tokens: torch.Tensor, cache: Dict[str, torch.Te
 
 
 def decode_forward(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
-                   attn_chunk: int = 1024, slots: Optional[torch.Tensor] = None, **_):
+                   attn_chunk: int = 1024, slots: Optional[torch.Tensor] = None, ctx: L.MeshContext = L.NO_MESH, **_):
     """Verify-style decode of K tokens: (hidden (B, K, d), cache with the
     K/V rows written and ``ssm_ckpt``/``conv_ckpt`` checkpoints); commit
     with ``select_checkpoint``."""
+    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
     if slots is not None:
         raise NotImplementedError(
             "slot-indexed paged attention is not supported for the 'hybrid' "

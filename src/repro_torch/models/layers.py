@@ -37,20 +37,100 @@ The moe family's ``moe_block`` is the JAX package's capacity-based dispatch
 without a mesh: each expert takes at most ``moe_capacity(T, cfg)`` of the
 call's T tokens, the first in the flattened batch winning, and drops the
 rest, so a row's output depends on the other rows of its call, as in JAX.
+
+Under a mesh (``MeshContext``, from ``sharding.policy.Policy.ctx``) each
+rank runs its own rows with its pieces of the weights (the policy's specs,
+``sharding.policy.shard_params``), and the layers combine over the model
+axis with ``all_reduce`` (``distributed/collectives.py``): the embedding
+vocabulary-parallel (each rank looks up its range, zeros elsewhere, then a
+sum), attention on the rank's heads, or, with ``seq_shard_kv``, on every
+head over the rank's sequence shard of the cache (``sp_append_attend``;
+the sharded projections' outputs gathered first), ``wo`` and the MLP's
+``wd`` row-parallel (f32 partial products summed, rounded once), and
+``moe_block`` expert-parallel or tensor-parallel inside each expert as the
+JAX branch is. Which pieces a rank holds is read off the weights' shapes.
+Without a mesh (``NO_MESH``) every path is the single-device one.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops
 
 KV_SCALE = 0.05  # static scale for a caller that passes none
 KV_SCALE_EPS = 1e-6  # floor for amax / 127, so an all-zero row stays invertible
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshContext:
+    """How a layer shards itself under a mesh (the JAX ``MeshContext``).
+
+    ``mesh=None`` means single-device math. ``batch_axes`` are the mesh
+    axes carrying the batch, ``model_axis`` carries tensor and expert
+    parallelism, ``seq_shard_kv`` switches attention caches to sequence
+    shards over the model axis (the flash-decoding combine of
+    ``distributed/collectives.py``). ``fsdp`` marks a train-mode layout,
+    which the serving path does not run."""
+
+    mesh: Any = None
+    batch_axes: Tuple[str, ...] = ()
+    model_axis: Optional[str] = None
+    fsdp: bool = False
+    seq_shard_kv: bool = False
+
+    @property
+    def tp(self) -> int:
+        if self.mesh is None or self.model_axis is None:
+            return 1
+        return self.mesh.shape[self.model_axis]
+
+    @property
+    def n_batch_shards(self) -> int:
+        n = 1
+        for a in self.batch_axes:
+            n *= self.mesh.shape[a] if self.mesh is not None else 1
+        return n
+
+    def bspec(self, batch_size: int):
+        """Batch-dim axes, or None when the batch can't shard evenly."""
+        if self.batch_axes and batch_size % self.n_batch_shards == 0:
+            return self.batch_axes
+        return None
+
+    @property
+    def sharded(self) -> bool:
+        """Whether a layer must combine across the model axis."""
+        return self.mesh is not None and (self.tp > 1 or self.seq_shard_kv)
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's coordinate on the model axis (0 without a mesh)."""
+        if self.mesh is None or self.model_axis is None:
+            return 0
+        return self.mesh.coords[self.model_axis]
+
+    @property
+    def model_group(self):
+        return self.mesh.group(self.model_axis)
+
+
+NO_MESH = MeshContext()
+
+
+def refuse_mesh(cfg, ctx: MeshContext, roadmap: str) -> None:
+    """Raise for a family that this port does not run under a sharded mesh
+    (``roadmap`` names the ROADMAP.md item that will), rather than run it
+    unsharded in silence."""
+    if ctx.sharded:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run under a mesh with tp "
+            f"{ctx.tp} / seq_shard_kv {ctx.seq_shard_kv} yet ({roadmap})")
 
 
 def _bc(scale: torch.Tensor) -> torch.Tensor:
@@ -104,8 +184,32 @@ def apply_norm(x: torch.Tensor, norm: "RMSNorm", kind: str) -> torch.Tensor:
     return layernorm(x, norm.scale, norm.bias)
 
 
-def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed[tokens]
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, ctx: MeshContext = NO_MESH,
+                 vocab_size: int = 0) -> torch.Tensor:
+    """Rows ``tokens`` of the table. Under a mesh whose rank holds a
+    vocabulary range of a ``vocab_size`` table, the range's rows (zeros for
+    other tokens) summed over the model axis: exact, one nonzero term."""
+    if ctx.tp == 1 or embed.shape[0] == vocab_size or not vocab_size:
+        return embed[tokens]
+    v_loc = embed.shape[0]
+    rel = tokens.long() - ctx.model_rank * v_loc
+    ok = (rel >= 0) & (rel < v_loc)
+    rows = embed[rel.clamp(0, v_loc - 1)]
+    rows = torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return C.all_reduce(rows, ctx).to(embed.dtype)
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """``h @ w`` for a weight whose input rows are split over the model
+    axis (``h`` the matching columns): each rank's f32 partial product,
+    summed over the axis and rounded to bf16 once."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if h2.is_cuda:
+        part = torch.mm(h2, w, out_dtype=torch.float32)
+    else:  # the CPU build has no bf16 x bf16 -> f32 product: widen (exactly)
+        part = h2.float() @ w.float()
+    return C.all_reduce(part, ctx).to(h.dtype).reshape(*lead, w.shape[1])
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -255,7 +359,12 @@ class Attention(nn.Module):
         slots: Optional[torch.Tensor] = None,
         k_scale: Optional[torch.Tensor] = None,  # int8 cache: (L, rows, Hkv), in place
         v_scale: Optional[torch.Tensor] = None,
+        ctx: MeshContext = NO_MESH,
+        start: Optional[int] = None,  # seq_shard_kv: every row's insert position
     ) -> torch.Tensor:
+        if ctx.sharded:
+            return self._forward_mesh(x, positions, cache_k, cache_v, kv_valid, write,
+                                      layer=layer, chunk=chunk, ctx=ctx, start=start)
         cfg = self.cfg
         B, S, _ = x.shape
         hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -274,6 +383,58 @@ class Attention(nn.Module):
         out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots,
                               k_scale=k_scale, v_scale=v_scale)
         return out.reshape(B, S, hq * hd) @ self.wo
+
+    def _forward_mesh(self, x, positions, cache_k, cache_v, kv_valid, write, *, layer, chunk,
+                      ctx, start):
+        """The layer on this rank's pieces. With ``seq_shard_kv`` every
+        query and KV head runs against this rank's sequence shard of the
+        cache (a sharded projection's output gathered first: the JAX
+        package's q is replicated over the model axis there), and ``wo``
+        takes this rank's head columns. Otherwise the rank's query heads
+        and KV heads (the policy shards both or neither) run against the
+        rank's KV heads of the cache. ``wo`` is row-parallel where its
+        rows are split."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        hd = cfg.head_dim
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if self.bq is not None:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        if ctx.seq_shard_kv:
+            if q.shape[-1] != cfg.num_heads * hd:
+                q = C.gather_columns(q, ctx)
+            if k.shape[-1] != cfg.num_kv_heads * hd:
+                k, v = C.gather_columns(k, ctx), C.gather_columns(v, ctx)
+        elif (q.shape[-1] == cfg.num_heads * hd) != (k.shape[-1] == cfg.num_kv_heads * hd):
+            raise NotImplementedError(
+                f"{cfg.name}: query heads and KV heads sharded unlike (a train-mode layout; "
+                "ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
+        q = q.reshape(B, S, -1, hd)
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
+        if cfg.use_rope:
+            q = rope(q, positions, cfg.rope_theta)
+            k = rope(k, positions, cfg.rope_theta)
+        if ctx.seq_shard_kv:
+            out, _, _ = C.sp_append_attend(q, cache_k, cache_v, k, v, kv_valid - S, start, ctx,
+                                           chunk=chunk, layer=layer)
+            out = out.reshape(B, S, -1)
+            n = self.wo.shape[0]
+            if n != out.shape[-1]:  # this rank's columns of the heads
+                out = out[..., ctx.model_rank * n:(ctx.model_rank + 1) * n]
+        else:
+            if cache_k.dtype == torch.int8:
+                raise NotImplementedError("an int8 cache under a mesh (ROADMAP.md Queue A)")
+            kf, vf = k.reshape(B * S, *k.shape[2:]), v.reshape(B * S, *v.shape[2:])
+            if write.src is not None:
+                kf, vf = kf[write.src], vf[write.src]
+            cache_k[layer].index_put_((write.rows, write.pos), kf)
+            cache_v[layer].index_put_((write.rows, write.pos), vf)
+            out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk)
+            out = out.reshape(B, S, -1)
+        if self.wo.shape[0] != cfg.num_heads * hd:
+            return row_parallel(out, self.wo, ctx)
+        return out @ self.wo
 
     def _query(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -378,8 +539,8 @@ class MLP(nn.Module):
             self.wi = _weight(d, f, device=device)
         self.wd = _weight(f, d, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return mlp_block(x, self)
+    def forward(self, x: torch.Tensor, ctx: MeshContext = NO_MESH) -> torch.Tensor:
+        return mlp_block(x, self, ctx)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -399,10 +560,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1 + t))
 
 
-def mlp_block(x: torch.Tensor, p: MLP) -> torch.Tensor:
-    if p.wi is not None:
-        return gelu(x @ p.wi) @ p.wd
-    return (silu(x @ p.wg) * (x @ p.wu)) @ p.wd
+def mlp_block(x: torch.Tensor, p: MLP, ctx: MeshContext = NO_MESH) -> torch.Tensor:
+    """The MLP; under a mesh with a model axis ``wg``/``wu``/``wi`` are
+    column pieces (the policy always splits d_ff) and ``wd`` row-parallel."""
+    h = gelu(x @ p.wi) if p.wi is not None else silu(x @ p.wg) * (x @ p.wu)
+    if ctx.tp > 1:
+        return row_parallel(h, p.wd, ctx)
+    return h @ p.wd
 
 
 def init_attention_(attn: Attention, cfg, gen: torch.Generator) -> None:
@@ -493,16 +657,19 @@ def _expert_products(a: torch.Tensor, w: torch.Tensor, widen: bool = False) -> t
 
 
 def _moe_local(x_flat: torch.Tensor, p: MoE, cfg, capacity: int,
-               widen: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The JAX ``_moe_local`` over every expert: (out (T, d), aux loss, the
-    call's int64 (assignments, dropped)).
+               widen: bool = False, e_start: int = 0,
+               e_local: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The JAX ``_moe_local``: (out (T, d), aux loss, the call's int64
+    (assignments, dropped)) over the experts ``[e_start, e_start +
+    e_local)`` that ``p``'s tables hold (``e_local`` 0: every expert).
 
     Assignment (t, k) takes slot ``pos`` of its expert, the count of the
     expert's earlier assignments in row-major (t, k) order, and is dropped
     when ``pos >= capacity``: it writes nothing into the (E, capacity, d)
-    slab (here: a sink row past the slab) and adds nothing to ``out``.
-    No op here reads a device value back to the host, so a call on the
-    card never waits for it."""
+    slab (here: a sink row past the slab) and adds nothing to ``out``. The
+    router and the aux loss see every expert; an assignment to an expert
+    outside the range is neither kept nor counted. No op here reads a
+    device value back to the host, so a call on the card never waits."""
     T, d = x_flat.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     dev = x_flat.device
@@ -518,9 +685,20 @@ def _moe_local(x_flat: torch.Tensor, p: MoE, cfg, capacity: int,
     ce = onehot.sum(0).float() / (T * K)
     aux = E * torch.sum(gates.mean(dim=0) * ce)
 
+    if e_local and e_local != E:  # expert-parallel: this rank's range only
+        expert = expert - e_start
+        local = (expert >= 0) & (expert < e_local)
+        onehot = onehot[:, e_start:e_start + e_local]
+        E = e_local
+    else:
+        local = None
     pos = ((onehot.cumsum(0) - onehot) * onehot).sum(-1)
     keep = pos < capacity
-    counts = torch.stack([torch.full_like(pos[0], T * K), (~keep).sum()])
+    if local is None:
+        counts = torch.stack([torch.full_like(pos[0], T * K), (~keep).sum()])
+    else:
+        keep = keep & local
+        counts = torch.stack([local.sum(), (local & ~keep).sum()])
 
     dest = torch.where(keep, expert * capacity + pos, E * capacity)
     token = torch.arange(T * K, device=dev) // K
@@ -543,13 +721,31 @@ def _moe_local(x_flat: torch.Tensor, p: MoE, cfg, capacity: int,
     return out.to(x_flat.dtype), aux, counts
 
 
-def moe_block(x: torch.Tensor, p: MoE, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block(x: torch.Tensor, p: MoE, cfg, ctx: MeshContext = NO_MESH
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> ((B, S, d), aux loss), every B * S token of the call
     competing for ``moe_capacity(B * S, cfg)`` slots per expert (the JAX
-    ``moe_block`` without a mesh); the call's counts go to ``moe_tally``."""
-    out, aux, counts = moe_block_train(x, p, cfg, widen=False)
+    ``moe_block`` without a mesh); the call's counts go to ``moe_tally``.
+
+    Under a mesh (the JAX branch): x is this rank's rows, whose B * S
+    tokens set the capacity; the rank holds experts ``[r E/tp, (r+1)
+    E/tp)`` (EP, E % tp == 0) or a d_ff slice of every expert (f-TP); the
+    partial outputs (bf16, as JAX's) and ``aux / tp`` are summed over the
+    model axis, then aux is divided by the batch shards. The tally counts
+    this rank's assignments."""
+    if ctx.mesh is None:
+        out, aux, counts = moe_block_train(x, p, cfg, widen=False)
+        moe_tally(x.device).add_(counts)
+        return out, aux
+    B, S, d = x.shape
+    E, tp = cfg.num_experts, ctx.tp
+    e_local = p.wg.shape[0] if p.wg.shape[0] != E else 0  # EP: this rank's experts
+    out, aux, counts = _moe_local(x.reshape(B * S, d), p, cfg, moe_capacity(B * S, cfg),
+                                  e_start=ctx.model_rank * e_local, e_local=e_local)
     moe_tally(x.device).add_(counts)
-    return out, aux
+    out = C.all_reduce(out, ctx).to(x.dtype)
+    aux = C.all_reduce(aux / tp, ctx)
+    return out.reshape(B, S, d), aux / ctx.n_batch_shards
 
 
 def moe_block_train(x: torch.Tensor, p: MoE, cfg, widen: bool = True

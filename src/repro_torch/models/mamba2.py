@@ -241,9 +241,10 @@ def make_cache(cfg, batch: int, max_len: int = 0, *, device, kv_dtype: str = "bf
     }
 
 
-def prefill(cfg, params: Mamba2, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], **_):
+def prefill(cfg, params: Mamba2, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], ctx: L.MeshContext = L.NO_MESH, **_):
     """Run the prompt through every layer's scan; returns (last-position
     logits, cache with the final states)."""
+    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
     x = L.embed_lookup(params.embed, tokens)
     hs, convs = [], []
     for li, lp in enumerate(params.layers):
@@ -258,13 +259,14 @@ def prefill(cfg, params: Mamba2, tokens: torch.Tensor, cache: Dict[str, torch.Te
 
 
 def decode_forward(cfg, params: Mamba2, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
-                   slots: Optional[torch.Tensor] = None, **_):
+                   slots: Optional[torch.Tensor] = None, ctx: L.MeshContext = L.NO_MESH, **_):
     """Verify-style decode of K tokens with per-position state checkpoints.
 
     Returns (hidden (B, K, d), cache with ``ssm_ckpt`` (L, B, K, H, P, N)
     and ``conv_ckpt`` (L, B, K, cw-1, C)); commit with ``select_checkpoint``.
     A pool cannot be addressed in place (``slots``): the recurrent state is
     not position-indexed, so the engine gathers rows first."""
+    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
     if slots is not None:
         raise ValueError("the ssm family has no slot-indexed forward: gather the pool rows "
                          "(kvcache.gather_slots) and run the dense forward")

@@ -23,6 +23,17 @@ cache leaves ``cross_k``/``cross_v`` (L, B, F, Hkv, D), bf16 whatever the
 self-attention cache's dtype; ``decode_forward`` reads them, densely or
 through ``slots`` from a PagedKVCache pool, non-causally over all F frames.
 
+Under a mesh (``ctx``, a ``layers.MeshContext``; the dense and moe
+families) ``decode_forward``, ``prefill`` and ``lm_head`` run on this
+rank's rows, weight pieces and cache piece (``sharding.policy``): the
+layers combine over the model axis (``layers``), and the logits are
+vocabulary-parallel, each rank's columns written into a zero f32 buffer
+that an ``all_reduce`` fills (adding zeros is exact: the logits equal a
+gather bit for bit, and ``argmax`` keeps its first-index ties). A
+sequence-sharded cache takes every row's fresh rows at row 0's length, the
+JAX package's padded-batch contract (``distributed/collectives.py``). The
+other families raise under a sharded mesh.
+
 Training runs ``forward``, the cache-free form of the JAX package's
 ``forward``: every block's self-attention over its fresh K/V (causal),
 the encdec decoder's cross-attention over K/V projected afresh from the
@@ -39,6 +50,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.models import layers as L
 from repro_torch.models.kvcache import init_kv_cache
 
@@ -164,13 +176,17 @@ def init_params(cfg, generator: torch.Generator, *, max_pos: int = 0) -> Transfo
     return model
 
 
-def lm_head(params: CausalLM, h: torch.Tensor) -> torch.Tensor:
+def lm_head(params: CausalLM, h: torch.Tensor, ctx: L.MeshContext = L.NO_MESH) -> torch.Tensor:
     """f32 logits of bf16 hidden states, as the JAX path's einsum with
     ``preferred_element_type=f32``: both operands are widened exactly and the
     products sum in f32. At vocab 151936 a bf16 output (8-bit mantissa)
     would round neighbouring logits together and decide greedy ties by
-    rounding, so nothing here is kept in bf16."""
-    return h.float() @ params.head_f32()
+    rounding, so nothing here is kept in bf16. Under a mesh whose rank
+    holds a vocabulary range, the ranks' columns side by side."""
+    head = params.head_f32()
+    if ctx.tp > 1 and head.shape[1] != params.cfg.vocab_size:
+        return C.gather_columns(h.float() @ head, ctx)
+    return h.float() @ head
 
 
 KV_DTYPES = {"bf16": torch.bfloat16, "int8": torch.int8}
@@ -211,6 +227,7 @@ def decode_forward(
     attn_chunk: int = 1024,
     slots: Optional[torch.Tensor] = None,  # (B,) cache is a PagedKVCache pool
     embeds: Optional[torch.Tensor] = None,  # (B, S_new, d): replaces the token embedding
+    ctx: L.MeshContext = L.NO_MESH,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Run S_new tokens against the cache starting at ``cache['length']``.
 
@@ -231,12 +248,25 @@ def decode_forward(
 
     An encdec cache's ``cross_k``/``cross_v`` leaves feed every layer's
     cross-attention (rows b, or pool rows ``slots``), over all their frames.
+
+    Under a mesh ``params``, ``cache`` and ``tokens`` are this rank's pieces
+    and rows; a sequence-sharded cache takes the fresh rows at
+    ``length[0]`` for every row (one host read per forward).
     """
-    x = L.embed_lookup(params.embed, tokens) if embeds is None else embeds.to(torch.bfloat16)
+    start = None
+    if ctx.sharded:
+        _check_mesh(cfg, ctx, slots, embeds)
+        if ctx.seq_shard_kv:
+            start = int(cache["length"][0])
+    x = (L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size) if embeds is None
+         else embeds.to(torch.bfloat16))
     B, S, _ = x.shape
     ck, cv = cache["k"], cache["v"]
     s_max = ck.shape[2]
-    if slots is None:
+    if start is not None:
+        cache_len = cache["length"]
+        write = None
+    elif slots is None:
         cache_len = cache["length"]
         write = L.CacheWrite.dense(cache_len, S, s_max)
     else:
@@ -250,8 +280,21 @@ def decode_forward(
     for li, blk in enumerate(params.layers):
         x = block_forward(cfg, blk, x, positions, ck, cv, kv_valid, write, layer=li,
                           chunk=attn_chunk, slots=slots, k_scale=cache.get("k_scale"),
-                          v_scale=cache.get("v_scale"), cross=cross)
+                          v_scale=cache.get("v_scale"), cross=cross, ctx=ctx, start=start)
     return L.apply_norm(x, params.final_norm, cfg.norm), cache
+
+
+def _check_mesh(cfg, ctx: L.MeshContext, slots, embeds) -> None:
+    """What a sharded mesh serves: the dense and moe families' token
+    prefill and verify over a dense cache."""
+    if cfg.family not in ("dense", "moe") or embeds is not None:
+        L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid, then encdec and vlm")
+    if ctx.fsdp:
+        raise NotImplementedError(f"{cfg.name}: a train-mode (FSDP) layout does not serve "
+                                  "(ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
+    if slots is not None:
+        raise NotImplementedError("slot-pool caches are not served under a mesh: the paged "
+                                  "engine, System and the cluster stay single-rank")
 
 
 def learned_positions(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -266,29 +309,31 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
                   slots: Optional[torch.Tensor] = None,
                   k_scale: Optional[torch.Tensor] = None,
                   v_scale: Optional[torch.Tensor] = None,
-                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                  cross: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  ctx: L.MeshContext = L.NO_MESH, start: Optional[int] = None) -> torch.Tensor:
     """One pre-norm block against layer ``layer`` of the stacked cache: the
     dense, moe and encdec families' decoder layers (``cross``: the stacked
     cross leaves), and the hybrid family's shared block at each of its
     applications."""
     h = L.apply_norm(x, blk.ln1, cfg.norm)
     a = blk.attn(h, positions, ck, cv, kv_valid, write, layer=layer, chunk=chunk, slots=slots,
-                 k_scale=k_scale, v_scale=v_scale)
+                 k_scale=k_scale, v_scale=v_scale, ctx=ctx, start=start)
     if cross is not None:  # x + a in f32 for ln_x, as for ln2 below
         x_mid = x.float() + a.float()
         h = L.apply_norm(x_mid, blk.ln_x, cfg.norm).to(x.dtype)
         x = x_mid.to(x.dtype)
         a = blk.xattn.cross(h, cross[0], cross[1], layer=layer, chunk=chunk, slots=slots)
-    return _mlp_residual(cfg, blk, x, a)
+    return _mlp_residual(cfg, blk, x, a, ctx)
 
 
-def _mlp_residual(cfg, blk: Block, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def _mlp_residual(cfg, blk: Block, x: torch.Tensor, a: torch.Tensor,
+                  ctx: L.MeshContext = L.NO_MESH) -> torch.Tensor:
     # the JAX path's compiled block keeps x + a in f32 for the second norm
     # and rounds it to bf16 only for the MLP residual; mirroring that keeps
     # the CPU path bit-exact with it
     x_mid = x.float() + a.float()
     h = L.apply_norm(x_mid, blk.ln2, cfg.norm).to(x.dtype)
-    m = L.moe_block(h, blk.moe, cfg)[0] if cfg.family == "moe" else blk.mlp(h)
+    m = L.moe_block(h, blk.moe, cfg, ctx)[0] if cfg.family == "moe" else blk.mlp(h, ctx)
     return x_mid.to(x.dtype) + m
 
 
@@ -413,12 +458,16 @@ def prefill(
     attn_chunk: int = 1024,
     embeds_prefix: Optional[torch.Tensor] = None,  # (B, P, d) vlm patch embeddings
     enc_frames: Optional[torch.Tensor] = None,  # (B, F, d) encdec stub frames
+    ctx: L.MeshContext = L.NO_MESH,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Fill the cache from a prompt; returns (last-position logits, cache).
     An ``embeds_prefix`` goes before the prompt's token embeddings, so the
     cache's ``length`` grows by P + S_prompt. An encdec model encodes
     ``enc_frames`` and stores each layer's cross K/V as the cache's
-    ``cross_k``/``cross_v`` (shaped by the frames, as in JAX)."""
+    ``cross_k``/``cross_v`` (shaped by the frames, as in JAX). Under a
+    mesh, this rank's rows and pieces (the dense and moe families)."""
+    if ctx.sharded and cfg.family not in ("dense", "moe"):
+        L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid, then encdec and vlm")
     if cfg.is_encdec:
         if enc_frames is None:
             raise ValueError(f"{cfg.name}: an encdec prefill needs enc_frames, the encoder's "
@@ -430,6 +479,7 @@ def prefill(
     if embeds_prefix is not None:
         tok = L.embed_lookup(params.embed, tokens)
         embeds = torch.cat([embeds_prefix.to(tok.dtype), tok], dim=1)
-    h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk, embeds=embeds)
+    h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk, embeds=embeds,
+                              ctx=ctx)
     cache = {**cache, "length": cache["length"] + h.shape[1]}
-    return lm_head(params, h[:, -1:, :])[:, 0], cache
+    return lm_head(params, h[:, -1:, :], ctx)[:, 0], cache

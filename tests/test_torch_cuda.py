@@ -20,7 +20,11 @@ runs the kernels, forward and backward. The forward's LSE
 (``return_lse=True``) and ``attn_bwd.delta`` are held to
 ``ref.attention_lse_ref`` and ``ref.attention_bwd_delta_ref`` within
 ``STATS_TIGHT`` (1e-4 of the largest element, chip_smoke.py's bound), the
-forward's output with the LSE to the output without it bit for bit.
+forward's output with the LSE to the output without it bit for bit. The
+shard form (``verify_attention_packed_shard``, one sequence shard of the
+cache at ``pos_offset``) is held to ``ref.verify_attention_shard_ref``: its
+f32 output within ``ATTN_TIGHT``, its LSE within ``STATS_TIGHT``, -inf
+exactly where a row sees nothing of the shard.
 The SSD scan's backward kernels (``ssd_scan.ssd_scan_bwd``) are held to
 the plain backward (``ref.ssd_scan_bwd_ref``) within ``SSD_GRAD_TIGHT``
 (1e-2 of each output's largest element, chip_smoke.py's bound), two calls
@@ -691,3 +695,63 @@ def test_cuda_ops_ssd_scan_backward_runs_the_kernels():
         assert _rel(g, w) <= SSD_GRAD_TIGHT, (name, _rel(g, w))
     y3, _ = ops.ssd_scan(x, dt, A, Bm, Cm, h0, chunk=16)
     assert y3.grad_fn is None and ssd_scan.LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+
+
+# the shard form's cases: (B, Sq, Hq, Hkv, D, S_loc, kv_valid, pos_offset);
+# granite-34b's G = 48 at D 128 and a reduced D 16
+_SHARD_CASES = [
+    (2, 5, 48, 1, 128, 256, [1000, 700], 0),      # a shard wholly in the past
+    (2, 5, 48, 1, 128, 256, [258, 258], 0),       # straddling rows, the first shard
+    (2, 5, 48, 1, 128, 256, [258, 258], 256),     # the same rows, the second shard
+    (2, 5, 48, 1, 128, 256, [200, 100], 256),     # a shard that sees nothing
+    (3, 40, 4, 2, 16, 64, [100, 70, 64], 32),     # D 16, rows seeing part of it
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_SHARD_CASES)))
+@pytest.mark.parametrize("layered", [False, True])
+def test_cuda_shard_form_matches_plain_version(case, layered):
+    """``verify_attention_packed_shard`` against ``ref.verify_attention_shard_ref``:
+    the f32 output within ``ATTN_TIGHT``, the LSE within ``STATS_TIGHT`` of
+    its largest finite element, -inf (output 0) exactly where the plain
+    version's LSE is; ``ops.verify_attention_shard`` on CUDA tensors runs the
+    kernel (its launch counted)."""
+    dev = _card()
+    B, Sq, Hq, Hkv, D, skv, kvv, off = _SHARD_CASES[case]
+    rng = np.random.default_rng(29 + case)
+    lead = (3,) if layered else ()
+    q = _bf16(rng.standard_normal((B, Sq, Hq, D)), dev)
+    k = _bf16(rng.standard_normal((*lead, B, skv, Hkv, D)), dev)
+    v = _bf16(rng.standard_normal((*lead, B, skv, Hkv, D)), dev)
+    kv_valid = torch.tensor(kvv, dtype=torch.int32, device=dev)
+    layer = 1 if layered else None
+    before = verify_attn.LAUNCHES["verify_attention_packed_shard"]
+    out, lse = ops.verify_attention_shard(q, k, v, kv_valid, pos_offset=off, layer=layer)
+    assert verify_attn.LAUNCHES["verify_attention_packed_shard"] == before + 1
+    kc, vc = (k[1], v[1]) if layered else (k, v)
+    want, want_lse = ref.verify_attention_shard_ref(q, kc, vc, kv_valid, off)
+    empty = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert out.dtype == torch.float32 and bool((out[empty.transpose(1, 2)] == 0).all())
+    assert (out - want).abs().max().item() <= ATTN_TIGHT
+    if bool((~empty).any()):
+        scale = want_lse[~empty].abs().max().item()
+        assert (lse[~empty] - want_lse[~empty]).abs().max().item() <= STATS_TIGHT * scale
+
+
+@pytest.mark.cuda
+def test_cuda_shard_form_leaves_the_serve_and_training_forms_bit_for_bit():
+    """pos_offset 0 over a whole cache: the shard form's output is the serve
+    form's before its bf16 rounding, and the training form's LSE where rows
+    see something (the serve and training forms keep their own bits)."""
+    dev = _card()
+    rng = np.random.default_rng(31)
+    q = _bf16(rng.standard_normal((2, 5, 12, 128)), dev)
+    k = _bf16(rng.standard_normal((2, 200, 2, 128)), dev)
+    v = _bf16(rng.standard_normal((2, 200, 2, 128)), dev)
+    kv_valid = torch.tensor([200, 77], dtype=torch.int32, device=dev)
+    out, lse = verify_attn.verify_attention_packed_shard(q, k, v, kv_valid, pos_offset=0)
+    serve, train_lse = verify_attn.verify_attention_packed(q, k, v, kv_valid, return_lse=True)
+    assert torch.equal(out.to(torch.bfloat16), serve)
+    assert torch.equal(lse, train_lse)

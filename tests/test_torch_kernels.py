@@ -162,6 +162,8 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                          k_scale=ks, v_scale=ks)
     ops.verify_attention(_torch(q, "bf16"), _torch(k, "bf16"), _torch(v, "bf16"),
                          torch.from_numpy(kvv), causal=False)
+    ops.verify_attention_shard(_torch(q, "bf16"), _torch(k, "bf16"), _torch(v, "bf16"),
+                               torch.from_numpy(kvv), pos_offset=0)
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, (1, 16, 2, 8, 8, 8))
     leaves = [torch.from_numpy(a).requires_grad_() for a in (x, dt, A, Bm, Cm, h0)]
     y, h = ops.ssd_scan(*leaves, chunk=8)
@@ -169,7 +171,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert set(verify_attn.LAUNCHES) == {
         f"verify_attention_{entry}{kv}{mask}" for entry in ("packed", "paged")
         for kv in ("", "_int8") for mask in ("", "_noncausal")
-    }
+    } | {"verify_attention_packed_shard", "verify_attention_packed_shard_noncausal"}
     assert not any(verify_attn.LAUNCHES.values())
     assert ssd_scan.LAUNCHES == {"ssd_scan": 0, "ssd_scan_bwd": 0}
 
@@ -182,6 +184,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         verify_attn.verify_attention_paged(args[0], args[1], args[2],
                                            torch.zeros(1, dtype=torch.int32), args[3])
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        verify_attn.verify_attention_packed_shard(*args, pos_offset=0)
     x, dt, A, Bm, Cm, h0 = _ssd_inputs(1, (1, 16, 2, 8, 8, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):
         ssd_scan.ssd_scan(*(_torch(a, "bf16") for a in (x,)),

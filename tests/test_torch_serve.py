@@ -314,6 +314,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.configs.zamba2_1_2b, repro_torch.configs.whisper_tiny\n"
         "import repro_torch.checkpoint, repro_torch.kernels.attn_bwd\n"
         "import repro_torch.training.train_step, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.sharding.policy\n"
+        "import repro_torch.distributed.collectives\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
