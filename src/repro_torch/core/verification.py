@@ -24,8 +24,9 @@ Under a mesh (``ctx``, ``sharding.policy.Policy.ctx``), the dense-cache
 steps ``make_verify_step`` and ``make_prefill_step`` run in every rank on
 its pieces (``policy.shard_params``, ``policy.shard_cache``,
 ``policy.shard_batch``) and return its rows: the decode cell's batched
-verification on a mesh (the dense and moe families). The pool steps stay
-single-rank, as in the JAX package.
+verification on a mesh, every family (an ssm or hybrid commit selects
+the rank's piece of the state checkpoints, its heads). The pool steps
+stay single-rank, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -173,7 +174,8 @@ def make_prefill_step(model, *, ctx: MeshContext = NO_MESH, attn_chunk: int = 10
     ``with_frontend``, ``stub`` is the model's stub frontend
     (``model_zoo.frontend_stub``): an encdec model's encoder frames, or a
     vlm model's patch embeddings, which precede its prompt. Under a mesh,
-    this rank's pieces and rows."""
+    this rank's pieces and rows: ``tokens`` and ``stub`` are its rows
+    (``policy.shard_batch``)."""
 
     def prefill_step(params, cache, tokens, stub=None):
         kw = {}

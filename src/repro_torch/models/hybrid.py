@@ -28,6 +28,13 @@ The cache is ``ssm`` (L, B, H, P, N) f32, ``conv`` (L, B, cw-1, C) bf16,
 leaf but ``length`` carries the batch on axis 1, so the pool's
 gather/scatter and a migrated row move it leaf by leaf. A draft of fewer
 layers than ``attn_every`` has ``n_apps`` 0 and empty K/V leaves.
+
+Under a mesh (``ctx``) each rank runs its rows: the embedding and head
+vocabulary-parallel where the vocabulary splits, every SSD layer on the
+rank's heads as ``models/mamba2.py`` runs it, and the shared block's
+attention and MLP in their tensor-parallel forms (``transformer.
+block_forward``), its K/V leaves split by KV head (or by sequence where
+the KV heads do not split: every row's fresh rows at row 0's length).
 """
 from __future__ import annotations
 
@@ -116,50 +123,55 @@ def forward(cfg, params: Hybrid, tokens: torch.Tensor, *, remat: bool = False,
 
 
 def _run_cached(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor,
-                attn_chunk: int, decode: bool):
+                attn_chunk: int, decode: bool, ctx: L.MeshContext):
     """Every layer in order over ``tokens``, the shared block after each
     group. Prefill returns each SSD layer's final state (the conv window in
     bf16); decode its per-position checkpoints. The fresh K/V rows go into
     the cache's buffers in place."""
-    x = L.embed_lookup(params.embed, tokens)
+    x = L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size)
     S = tokens.shape[1]
-    cache_len = cache["length"]
+    cache_len, write, start = (T.cache_append(cache, S, ctx) if n_apps(cfg)
+                               else (cache["length"], None, None))
     positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
     ck, cv = cache["k"], cache["v"]
     kv_valid = cache_len + S
-    write = L.CacheWrite.dense(cache_len, S, ck.shape[2]) if n_apps(cfg) else None
     states, convs = [], []
     for li, lp in enumerate(params.layers):
         h0, c0 = cache["ssm"][li], cache["conv"][li]
         if decode:
-            x, h, c = M2.ssd_layer_decode(cfg, lp, x, h0, c0)
+            x, h, c = M2.ssd_layer_decode(cfg, lp, x, h0, c0, ctx)
         else:
-            x, (h, c) = M2.ssd_layer_forward(cfg, lp, x, h0=h0, conv0=c0, return_state=True)
+            x, (h, c) = M2.ssd_layer_forward(cfg, lp, x, h0=h0, conv0=c0, return_state=True,
+                                             ctx=ctx)
             c = c.to(torch.bfloat16)
         states.append(h)
         convs.append(c)
         if (li + 1) % cfg.attn_every == 0:  # the end of a group: the shared block
             x = T.block_forward(cfg, params.shared, x, positions, ck, cv, kv_valid, write,
-                                layer=(li + 1) // cfg.attn_every - 1, chunk=attn_chunk)
+                                layer=(li + 1) // cfg.attn_every - 1, chunk=attn_chunk, ctx=ctx,
+                                start=start)
     return L.apply_norm(x, params.final_norm, cfg.norm), torch.stack(states), torch.stack(convs)
 
 
 def prefill(cfg, params: Hybrid, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], *,
             attn_chunk: int = 1024, ctx: L.MeshContext = L.NO_MESH, **_):
-    """Fill the cache from a prompt; returns (last-position logits, cache)."""
-    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
-    x, ssm, conv = _run_cached(cfg, params, cache, tokens, attn_chunk, decode=False)
+    """Fill the cache from a prompt; returns (last-position logits, cache).
+    Under a mesh, this rank's rows, pieces and heads."""
+    L.check_mesh(cfg, ctx)
+    x, ssm, conv = _run_cached(cfg, params, cache, tokens, attn_chunk, False, ctx)
     new_cache = {"ssm": ssm, "conv": conv, "k": cache["k"], "v": cache["v"],
                  "length": cache["length"] + tokens.shape[1]}
-    return lm_head(params, x[:, -1:])[:, 0], new_cache
+    return lm_head(params, x[:, -1:], ctx)[:, 0], new_cache
 
 
 def decode_forward(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
-                   attn_chunk: int = 1024, slots: Optional[torch.Tensor] = None, ctx: L.MeshContext = L.NO_MESH, **_):
+                   attn_chunk: int = 1024, slots: Optional[torch.Tensor] = None,
+                   ctx: L.MeshContext = L.NO_MESH, **_):
     """Verify-style decode of K tokens: (hidden (B, K, d), cache with the
     K/V rows written and ``ssm_ckpt``/``conv_ckpt`` checkpoints); commit
-    with ``select_checkpoint``."""
-    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
+    with ``select_checkpoint``. Under a mesh, this rank's rows, pieces and
+    heads."""
+    L.check_mesh(cfg, ctx, slots)
     if slots is not None:
         raise NotImplementedError(
             "slot-indexed paged attention is not supported for the 'hybrid' "
@@ -169,7 +181,7 @@ def decode_forward(cfg, params: Hybrid, cache: Dict[str, torch.Tensor], tokens: 
             "(paged_attention=False, or gate on "
             "models.kvcache.supports_paged_attention(cfg))."
         )
-    x, ssm_ck, conv_ck = _run_cached(cfg, params, cache, tokens, attn_chunk, decode=True)
+    x, ssm_ck, conv_ck = _run_cached(cfg, params, cache, tokens, attn_chunk, True, ctx)
     return x, {**cache, "ssm_ckpt": ssm_ck, "conv_ckpt": conv_ck}
 
 

@@ -48,7 +48,10 @@ head over the rank's sequence shard of the cache (``sp_append_attend``;
 the sharded projections' outputs gathered first), ``wo`` and the MLP's
 ``wd`` row-parallel (f32 partial products summed, rounded once), and
 ``moe_block`` expert-parallel or tensor-parallel inside each expert as the
-JAX branch is. Which pieces a rank holds is read off the weights' shapes.
+JAX branch is. The encdec family's encoder attention and cross-attention
+take the same forms: the rank's heads, or every head where the KV heads
+do not split (the cross leaves then whole on every rank). Which pieces a
+rank holds is read off the weights' and the cache's shapes.
 Without a mesh (``NO_MESH``) every path is the single-device one.
 """
 from __future__ import annotations
@@ -123,14 +126,18 @@ class MeshContext:
 NO_MESH = MeshContext()
 
 
-def refuse_mesh(cfg, ctx: MeshContext, roadmap: str) -> None:
-    """Raise for a family that this port does not run under a sharded mesh
-    (``roadmap`` names the ROADMAP.md item that will), rather than run it
-    unsharded in silence."""
-    if ctx.sharded:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run under a mesh with tp "
-            f"{ctx.tp} / seq_shard_kv {ctx.seq_shard_kv} yet ({roadmap})")
+def check_mesh(cfg, ctx: MeshContext, slots=None) -> None:
+    """What a sharded mesh serves: every family's prefill and verify over a
+    dense cache in the serve layout. A slot pool or a train-mode (FSDP)
+    layout raises rather than run unsharded in silence."""
+    if not ctx.sharded:
+        return
+    if ctx.fsdp:
+        raise NotImplementedError(f"{cfg.name}: a train-mode (FSDP) layout does not serve "
+                                  "(ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
+    if slots is not None:
+        raise NotImplementedError("slot-pool caches are not served under a mesh: the paged "
+                                  "engine, System and the cluster stay single-rank")
 
 
 def _bc(scale: torch.Tensor) -> torch.Tensor:
@@ -365,9 +372,8 @@ class Attention(nn.Module):
         if ctx.sharded:
             return self._forward_mesh(x, positions, cache_k, cache_v, kv_valid, write,
                                       layer=layer, chunk=chunk, ctx=ctx, start=start)
-        cfg = self.cfg
         B, S, _ = x.shape
-        hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        hkv, hd = self.cfg.num_kv_heads, self.cfg.head_dim
         q, k, v = self._qkv(x, positions)
         # the cache is updated in place (JAX returned a new buffer): only the
         # B * S fresh rows are written, and stale rows past a row's committed
@@ -382,125 +388,140 @@ class Attention(nn.Module):
         cache_v[layer].index_put_((write.rows, write.pos), vf)
         out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk, slots=slots,
                               k_scale=k_scale, v_scale=v_scale)
-        return out.reshape(B, S, hq * hd) @ self.wo
+        return self._out(out)
 
     def _forward_mesh(self, x, positions, cache_k, cache_v, kv_valid, write, *, layer, chunk,
                       ctx, start):
-        """The layer on this rank's pieces. With ``seq_shard_kv`` every
-        query and KV head runs against this rank's sequence shard of the
-        cache (a sharded projection's output gathered first: the JAX
-        package's q is replicated over the model axis there), and ``wo``
-        takes this rank's head columns. Otherwise the rank's query heads
-        and KV heads (the policy shards both or neither) run against the
-        rank's KV heads of the cache. ``wo`` is row-parallel where its
-        rows are split."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        hd = cfg.head_dim
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if self.bq is not None:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        if ctx.seq_shard_kv:
-            if q.shape[-1] != cfg.num_heads * hd:
-                q = C.gather_columns(q, ctx)
-            if k.shape[-1] != cfg.num_kv_heads * hd:
-                k, v = C.gather_columns(k, ctx), C.gather_columns(v, ctx)
-        elif (q.shape[-1] == cfg.num_heads * hd) != (k.shape[-1] == cfg.num_kv_heads * hd):
-            raise NotImplementedError(
-                f"{cfg.name}: query heads and KV heads sharded unlike (a train-mode layout; "
-                "ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
-        q = q.reshape(B, S, -1, hd)
-        k = k.reshape(B, S, -1, hd)
-        v = v.reshape(B, S, -1, hd)
-        if cfg.use_rope:
-            q = rope(q, positions, cfg.rope_theta)
-            k = rope(k, positions, cfg.rope_theta)
+        """The layer on this rank's pieces (``_qkv``): with ``seq_shard_kv``
+        every query and KV head against this rank's sequence shard of the
+        cache, otherwise the rank's query heads against its KV heads of the
+        cache; then ``_out``."""
+        S = x.shape[1]
+        q, k, v = self._qkv(x, positions, ctx)
         if ctx.seq_shard_kv:
             out, _, _ = C.sp_append_attend(q, cache_k, cache_v, k, v, kv_valid - S, start, ctx,
                                            chunk=chunk, layer=layer)
-            out = out.reshape(B, S, -1)
-            n = self.wo.shape[0]
-            if n != out.shape[-1]:  # this rank's columns of the heads
-                out = out[..., ctx.model_rank * n:(ctx.model_rank + 1) * n]
         else:
             if cache_k.dtype == torch.int8:
                 raise NotImplementedError("an int8 cache under a mesh (ROADMAP.md Queue A)")
-            kf, vf = k.reshape(B * S, *k.shape[2:]), v.reshape(B * S, *v.shape[2:])
+            kf, vf = k.reshape(-1, *k.shape[2:]), v.reshape(-1, *v.shape[2:])
             if write.src is not None:
                 kf, vf = kf[write.src], vf[write.src]
             cache_k[layer].index_put_((write.rows, write.pos), kf)
             cache_v[layer].index_put_((write.rows, write.pos), vf)
             out = flash_attention(q, cache_k, cache_v, kv_valid, layer=layer, chunk=chunk)
-            out = out.reshape(B, S, -1)
-        if self.wo.shape[0] != cfg.num_heads * hd:
-            return row_parallel(out, self.wo, ctx)
-        return out @ self.wo
+        return self._out(out, ctx)
 
-    def _query(self, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
+    def _query(self, x: torch.Tensor, ctx: MeshContext = NO_MESH,
+               whole: bool = False) -> torch.Tensor:
+        """q (B, S, heads, D) = x wq + bq on this rank's columns of ``wq``
+        (every head on one device), or with ``whole`` every head (a sharded
+        projection's columns gathered)."""
         q = x @ self.wq
         if self.bq is not None:
             q = q + self.bq
-        return q.reshape(x.shape[0], x.shape[1], cfg.num_heads, cfg.head_dim)
+        if whole:
+            q = self._whole(q, self.cfg.num_heads, ctx)
+        return q.reshape(x.shape[0], x.shape[1], -1, self.cfg.head_dim)
 
-    def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
-        """q (B, S, Hq, D), k and v (B, S, Hkv, D) of x, biased and, with
-        RoPE, rotated at ``positions``."""
+    def _qkv(self, x: torch.Tensor, positions: torch.Tensor, ctx: MeshContext = NO_MESH):
+        """q, k, v (B, S, heads, D) of x on this rank's pieces of the
+        projections (all of them on one device), biased and, with RoPE,
+        rotated at ``positions``: the rank's heads (the policy shards query
+        and KV heads both or neither), or with ``seq_shard_kv`` every head
+        (the JAX package's q is replicated over the model axis there)."""
         cfg = self.cfg
         B, S, _ = x.shape
-        q = self._query(x)
-        k = x @ self.wk
-        v = x @ self.wv
+        q = self._query(x, ctx, whole=ctx.seq_shard_kv)
+        k, v = x @ self.wk, x @ self.wv
         if self.bk is not None:
-            k = k + self.bk
-            v = v + self.bv
-        k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+            k, v = k + self.bk, v + self.bv
+        if ctx.seq_shard_kv:
+            k, v = self._whole(k, cfg.num_kv_heads, ctx), self._whole(v, cfg.num_kv_heads, ctx)
+        elif (q.shape[2] == cfg.num_heads) != (k.shape[-1] == cfg.num_kv_heads * cfg.head_dim):
+            raise NotImplementedError(
+                f"{cfg.name}: query heads and KV heads sharded unlike (a train-mode layout; "
+                "ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
+        k, v = k.reshape(B, S, -1, cfg.head_dim), v.reshape(B, S, -1, cfg.head_dim)
         if cfg.use_rope:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
         return q, k, v
 
+    def _whole(self, t: torch.Tensor, heads: int, ctx: MeshContext) -> torch.Tensor:
+        """Every one of ``heads`` heads' columns of a projection's output,
+        gathered over the model axis where this rank holds a piece of them."""
+        if t.shape[-1] != heads * self.cfg.head_dim:
+            return C.gather_columns(t, ctx)
+        return t
+
+    def _out(self, out: torch.Tensor, ctx: MeshContext = NO_MESH) -> torch.Tensor:
+        """``wo`` of an attention output (B, S, heads, D) on this rank: its
+        head columns (sliced out where it attended every head) times its
+        rows of ``wo``, row-parallel where the rows are split (on one
+        device, ``out @ wo``)."""
+        B, S = out.shape[:2]
+        out = out.reshape(B, S, -1)
+        n = self.wo.shape[0]
+        if n != out.shape[-1]:
+            out = out[..., ctx.model_rank * n:(ctx.model_rank + 1) * n]
+        if n != self.cfg.num_heads * self.cfg.head_dim:
+            return row_parallel(out, self.wo, ctx)
+        return out @ self.wo
+
+    def cross_kv(self, enc_out: torch.Tensor,
+                 ctx: MeshContext = NO_MESH) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K and V (B, F, heads, D) of the encoder output (B, F, d), without
+        ``bk``/``bv`` as the JAX package projects them: under a mesh this
+        rank's KV heads where they split over the model axis (the policy's
+        ``cross_k`` layout), else every head (a sharded projection's
+        columns gathered)."""
+        B, F, _ = enc_out.shape
+        hkv = self.cfg.num_kv_heads
+        k, v = enc_out @ self.wk, enc_out @ self.wv
+        if hkv % ctx.tp:
+            k, v = self._whole(k, hkv, ctx), self._whole(v, hkv, ctx)
+        return k.reshape(B, F, -1, self.cfg.head_dim), v.reshape(B, F, -1, self.cfg.head_dim)
+
     def fresh(self, x: torch.Tensor, positions: torch.Tensor, *, chunk: int,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True, ctx: MeshContext = NO_MESH) -> torch.Tensor:
         """The cache-free form over the fresh K/V of all S rows of x: causal
         (the training forward's self-attention, row i seeing rows <= i) or
         not (the encdec family's encoder, every row seeing all of them).
         It has a gradient: on the card the forward and backward kernels
-        (``ops.attention``)."""
+        (``ops.attention``). Under a mesh (the encoder of a serve) the
+        rank's heads, or every head where the KV heads do not split."""
         B, S, _ = x.shape
-        q, k, v = self._qkv(x, positions)
+        q, k, v = self._qkv(x, positions, ctx)
         kv_valid = torch.full((B,), S, dtype=torch.int32, device=x.device)
-        out = ops.attention(q, k, v, kv_valid, causal=causal, block_k=chunk)
-        return out.reshape(B, S, -1) @ self.wo
+        return self._out(ops.attention(q, k, v, kv_valid, causal=causal, block_k=chunk), ctx)
 
     def cross_fresh(self, x: torch.Tensor, enc_out: torch.Tensor, *, chunk: int) -> torch.Tensor:
         """The training form of cross-attention: K/V projected afresh from
-        the encoder output (B, F, d) without ``bk``/``bv`` (as the JAX
-        ``forward`` projects them), non-causal over all F frames, with a
-        gradient into the encoder."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        F = enc_out.shape[1]
-        q = self._query(x)
-        k = (enc_out @ self.wk).reshape(B, F, cfg.num_kv_heads, cfg.head_dim)
-        v = (enc_out @ self.wv).reshape(B, F, cfg.num_kv_heads, cfg.head_dim)
-        kv_valid = torch.full((B,), F, dtype=torch.int32, device=x.device)
-        out = ops.attention(q, k, v, kv_valid, causal=False, block_k=chunk)
-        return out.reshape(B, S, -1) @ self.wo
+        the encoder output (B, F, d) (``cross_kv``), non-causal over all F
+        frames, with a gradient into the encoder."""
+        B = x.shape[0]
+        k, v = self.cross_kv(enc_out)
+        kv_valid = torch.full((B,), enc_out.shape[1], dtype=torch.int32, device=x.device)
+        return self._out(ops.attention(self._query(x), k, v, kv_valid, causal=False,
+                                       block_k=chunk))
 
     def cross(self, x: torch.Tensor, cross_k: torch.Tensor, cross_v: torch.Tensor, *,
-              layer: int, chunk: int, slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+              layer: int, chunk: int, slots: Optional[torch.Tensor] = None,
+              ctx: MeshContext = NO_MESH) -> torch.Tensor:
         """The decoder's cross-attention: q = x wq + bq (no RoPE), K/V layer
         ``layer`` of the stacked cross leaves (L, rows, F, Hkv, D), rows b or
         pool rows ``slots``, non-causal over all F frames. The leaves were
-        projected without ``bk``/``bv``, as in JAX."""
-        B, S, _ = x.shape
-        q = self._query(x)
+        projected without ``bk``/``bv``, as in JAX. Under a mesh the leaves
+        hold this rank's KV heads (its query heads attend them) or, where
+        the KV heads do not split, every head (every query head attends,
+        a sharded q gathered first)."""
+        B = x.shape[0]
+        q = self._query(x, ctx, whole=cross_k.shape[3] == self.cfg.num_kv_heads)
         kv_valid = torch.full((B,), cross_k.shape[2], dtype=torch.int32, device=x.device)
         out = flash_attention(q, cross_k, cross_v, kv_valid, layer=layer, chunk=chunk,
                               slots=slots, causal=False)
-        return out.reshape(B, S, -1) @ self.wo
+        return self._out(out, ctx)
 
     @staticmethod
     def _quantize_append(k, v, cache_len, k_scale, v_scale, layer, slots):

@@ -15,6 +15,17 @@ and ``select_checkpoint`` commits the one at the acceptance boundary. The
 checkpoints are stored in bf16 and widened back to f32 on commit, as the
 JAX package does: a committed state after a verify is bf16-rounded.
 
+Under a mesh (``ctx``, ``sharding.policy``: the SSD weights replicated,
+the embedding and head vocabulary-parallel where the vocabulary splits,
+the ``ssm`` state split by head over the model axis where the heads
+split) every rank runs its rows: the norm, ``in_proj`` and the causal
+conv in full (the ``conv`` window whole on each rank), the scan or the
+recurrence over its heads ``[r H/tp, (r+1) H/tp)`` from its piece of the
+state, then y's head columns gathered exactly (``gather_columns``) for
+``+ D x``, the gated norm over all of ``d_inner`` and ``out_proj``, as one
+rank runs them. Only the scan sees fewer heads; where the heads do not
+split every rank runs them all.
+
 The weights live in a ``Mamba2`` module whose per-layer names match the JAX
 package's ``init_ssd_layer`` (``norm, in_proj, conv_w, conv_b, A_log, D,
 dt_bias, gnorm, out_proj``), in its layouts. Each op rounds where the JAX
@@ -32,6 +43,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import CausalLM, lm_head  # noqa: F401 - the family's head
@@ -124,37 +136,68 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None) -> Tuple[torch.Tensor, to
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, h0, chunk=chunk)
 
 
+def ssd_heads(cfg, ctx: L.MeshContext) -> Optional[slice]:
+    """This rank's SSD heads under a mesh whose model axis splits them (the
+    policy's ``ssm`` layout); None: every head."""
+    H, tp = cfg.ssm_heads, ctx.tp
+    if not ctx.sharded or H % tp:
+        return None
+    r = ctx.model_rank
+    return slice(r * H // tp, (r + 1) * H // tp)
+
+
+def _gather_heads(y: torch.Tensor, heads: Optional[slice], ctx: L.MeshContext) -> torch.Tensor:
+    """(B, S, H_local, P) per-head outputs -> every head's, in head order."""
+    if heads is None:
+        return y
+    B, S, _, P = y.shape
+    return C.gather_columns(y.reshape(B, S, -1), ctx).reshape(B, S, -1, P)
+
+
 def ssd_layer_forward(cfg, lp: SSDLayer, x: torch.Tensor, *, chunk: Optional[int] = None,
                       h0: Optional[torch.Tensor] = None, conv0: Optional[torch.Tensor] = None,
-                      return_state: bool = False):
+                      return_state: bool = False, ctx: L.MeshContext = L.NO_MESH):
     """Full-sequence SSD block, x: (B, S, d) -> (B, S, d); the scan is the
-    Hopper kernel on CUDA and ``ssd_chunked`` on the CPU."""
+    Hopper kernel on CUDA and ``ssd_chunked`` on the CPU. Under a mesh the
+    scan runs over this rank's heads (``ssd_heads``) from ``h0``, its piece
+    of the state, and returns the final state of those heads."""
     B, S, _ = x.shape
     cw = cfg.conv_width
     z, x_ssm, Bm, Cm, dt, A, full = _ssm_inputs(cfg, lp, x, conv0)
     # A is bf16 where the weights were quantized (A_log is bf16 then); the
     # JAX scan widens it in ``dt * A`` and the kernel takes it in f32: the
     # same values
-    y, h = ops.ssd_scan(x_ssm, dt, A.float(), Bm, Cm, h0, chunk=chunk or cfg.ssm_chunk)
-    y = y.float() + lp.D[None, None, :, None] * x_ssm.float()
+    xs, dts, As = x_ssm, dt, A.float()
+    heads = ssd_heads(cfg, ctx)
+    if heads is not None:  # the kernel takes dt contiguous, x with its heads adjacent
+        xs, dts, As = x_ssm[:, :, heads], dt[..., heads].contiguous(), As[heads]
+    y, h = ops.ssd_scan(xs, dts, As, Bm, Cm, h0, chunk=chunk or cfg.ssm_chunk)
+    y = _gather_heads(y, heads, ctx).float() + lp.D[None, None, :, None] * x_ssm.float()
     out = x + _gated_out(lp, y.reshape(B, S, cfg.d_inner), z)
     if return_state:
         return out, (h, full[:, -(cw - 1):])
     return out
 
 
-def ssd_layer_decode(cfg, lp: SSDLayer, x: torch.Tensor, h0: torch.Tensor, conv0: torch.Tensor):
+def ssd_layer_decode(cfg, lp: SSDLayer, x: torch.Tensor, h0: torch.Tensor, conv0: torch.Tensor,
+                     ctx: L.MeshContext = L.NO_MESH):
     """Sequential decode over K tokens, emitting per-position checkpoints.
 
     Returns (out (B, K, d), h_ckpts (B, K, H, P, N) bf16, conv_ckpts
-    (B, K, cw-1, C)); ``h_ckpts[:, i]`` is the state after token i."""
+    (B, K, cw-1, C)); ``h_ckpts[:, i]`` is the state after token i. Under
+    a mesh the recurrence runs over this rank's heads from ``h0``, its
+    piece of the state: the checkpoints are (B, K, H/tp, P, N)."""
     B, K, _ = x.shape
     cw = cfg.conv_width
     z, x_ssm, Bm, Cm, dt, A, full = _ssm_inputs(cfg, lp, x, conv0)
     # the cw-1 conv inputs ending at each position
     idx = torch.arange(K, device=x.device)[:, None] + torch.arange(1, cw, device=x.device)[None]
     conv_ckpts = full[:, idx]
-    xs, Bf, Cf = x_ssm.float(), Bm.float(), Cm.float()
+    xs_all = x_ssm.float()
+    xs, Bf, Cf = xs_all, Bm.float(), Cm.float()
+    heads = ssd_heads(cfg, ctx)
+    if heads is not None:
+        xs, dt, A = xs[:, :, heads], dt[..., heads], A[heads]
     h = h0.float()
     ys, hs = [], []
     for t in range(K):
@@ -163,9 +206,12 @@ def ssd_layer_decode(cfg, lp: SSDLayer, x: torch.Tensor, h0: torch.Tensor, conv0
         # dt * B first, then * x: the pairing of the JAX path's einsum
         update = (dtt[..., None] * Bf[:, t, None, :])[:, :, None, :] * xs[:, t, ..., None]
         h = decay[..., None, None] * h + update
-        ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], h))
+        # C . h over N as a product and a sum over the last dim, whose order
+        # is set by N alone: a batched einsum's kernel depends on the shape,
+        # so a mesh rank's heads would not keep one rank's bits
+        ys.append((h * Cf[:, t, None, None, :]).sum(-1))
         hs.append(h.to(torch.bfloat16))
-    y = torch.stack(ys, dim=1) + lp.D[None, None, :, None] * xs
+    y = _gather_heads(torch.stack(ys, dim=1), heads, ctx) + lp.D[None, None, :, None] * xs_all
     out = x + _gated_out(lp, y.reshape(B, K, cfg.d_inner), z)
     return out, torch.stack(hs, dim=1), conv_ckpts
 
@@ -241,21 +287,23 @@ def make_cache(cfg, batch: int, max_len: int = 0, *, device, kv_dtype: str = "bf
     }
 
 
-def prefill(cfg, params: Mamba2, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], ctx: L.MeshContext = L.NO_MESH, **_):
+def prefill(cfg, params: Mamba2, tokens: torch.Tensor, cache: Dict[str, torch.Tensor],
+            ctx: L.MeshContext = L.NO_MESH, **_):
     """Run the prompt through every layer's scan; returns (last-position
-    logits, cache with the final states)."""
-    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
-    x = L.embed_lookup(params.embed, tokens)
+    logits, cache with the final states). Under a mesh, this rank's rows,
+    pieces and heads."""
+    L.check_mesh(cfg, ctx)
+    x = L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size)
     hs, convs = [], []
     for li, lp in enumerate(params.layers):
         x, (h, conv) = ssd_layer_forward(cfg, lp, x, h0=cache["ssm"][li], conv0=cache["conv"][li],
-                                         return_state=True)
+                                         return_state=True, ctx=ctx)
         hs.append(h)
         convs.append(conv.to(torch.bfloat16))
     last = L.apply_norm(x[:, -1:], params.final_norm, cfg.norm)
     new_cache = {"ssm": torch.stack(hs), "conv": torch.stack(convs),
                  "length": cache["length"] + tokens.shape[1]}
-    return lm_head(params, last)[:, 0], new_cache
+    return lm_head(params, last, ctx)[:, 0], new_cache
 
 
 def decode_forward(cfg, params: Mamba2, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, *,
@@ -265,15 +313,16 @@ def decode_forward(cfg, params: Mamba2, cache: Dict[str, torch.Tensor], tokens: 
     Returns (hidden (B, K, d), cache with ``ssm_ckpt`` (L, B, K, H, P, N)
     and ``conv_ckpt`` (L, B, K, cw-1, C)); commit with ``select_checkpoint``.
     A pool cannot be addressed in place (``slots``): the recurrent state is
-    not position-indexed, so the engine gathers rows first."""
-    L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid under a mesh")
+    not position-indexed, so the engine gathers rows first. Under a mesh,
+    this rank's rows, pieces and heads."""
+    L.check_mesh(cfg, ctx, slots)
     if slots is not None:
         raise ValueError("the ssm family has no slot-indexed forward: gather the pool rows "
                          "(kvcache.gather_slots) and run the dense forward")
-    x = L.embed_lookup(params.embed, tokens)
+    x = L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size)
     h_cks, c_cks = [], []
     for li, lp in enumerate(params.layers):
-        x, h_ck, c_ck = ssd_layer_decode(cfg, lp, x, cache["ssm"][li], cache["conv"][li])
+        x, h_ck, c_ck = ssd_layer_decode(cfg, lp, x, cache["ssm"][li], cache["conv"][li], ctx)
         h_cks.append(h_ck)
         c_cks.append(c_ck)
     x = L.apply_norm(x, params.final_norm, cfg.norm)

@@ -23,16 +23,19 @@ cache leaves ``cross_k``/``cross_v`` (L, B, F, Hkv, D), bf16 whatever the
 self-attention cache's dtype; ``decode_forward`` reads them, densely or
 through ``slots`` from a PagedKVCache pool, non-causally over all F frames.
 
-Under a mesh (``ctx``, a ``layers.MeshContext``; the dense and moe
-families) ``decode_forward``, ``prefill`` and ``lm_head`` run on this
-rank's rows, weight pieces and cache piece (``sharding.policy``): the
-layers combine over the model axis (``layers``), and the logits are
-vocabulary-parallel, each rank's columns written into a zero f32 buffer
-that an ``all_reduce`` fills (adding zeros is exact: the logits equal a
-gather bit for bit, and ``argmax`` keeps its first-index ties). A
-sequence-sharded cache takes every row's fresh rows at row 0's length, the
-JAX package's padded-batch contract (``distributed/collectives.py``). The
-other families raise under a sharded mesh.
+Under a mesh (``ctx``, a ``layers.MeshContext``) ``decode_forward``,
+``prefill``, ``encode`` and ``lm_head`` run on this rank's rows, weight
+pieces and cache piece (``sharding.policy``): the layers combine over the
+model axis (``layers``), and the logits are vocabulary-parallel, each
+rank's columns written into a zero f32 buffer that an ``all_reduce`` fills
+(adding zeros is exact: the logits equal a gather bit for bit, and
+``argmax`` keeps its first-index ties). A sequence-sharded cache takes
+every row's fresh rows at row 0's length, the JAX package's padded-batch
+contract (``distributed/collectives.py``). The vlm prefix and the encdec
+frames are this rank's rows; the encoder runs on the rank's heads and its
+cross K/V leaves hold the rank's KV heads (every head where they do not
+split). A slot pool and a train-mode layout raise under a sharded mesh
+(``layers.check_mesh``).
 
 Training runs ``forward``, the cache-free form of the JAX package's
 ``forward``: every block's self-attention over its fresh K/V (causal),
@@ -253,25 +256,12 @@ def decode_forward(
     and rows; a sequence-sharded cache takes the fresh rows at
     ``length[0]`` for every row (one host read per forward).
     """
-    start = None
-    if ctx.sharded:
-        _check_mesh(cfg, ctx, slots, embeds)
-        if ctx.seq_shard_kv:
-            start = int(cache["length"][0])
+    L.check_mesh(cfg, ctx, slots)
     x = (L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size) if embeds is None
          else embeds.to(torch.bfloat16))
-    B, S, _ = x.shape
+    S = x.shape[1]
     ck, cv = cache["k"], cache["v"]
-    s_max = ck.shape[2]
-    if start is not None:
-        cache_len = cache["length"]
-        write = None
-    elif slots is None:
-        cache_len = cache["length"]
-        write = L.CacheWrite.dense(cache_len, S, s_max)
-    else:
-        cache_len = cache["length"][slots.long()]
-        write = L.CacheWrite.slots(cache_len, slots, S, s_max)
+    cache_len, write, start = cache_append(cache, S, ctx, slots)
     positions = cache_len[:, None] + torch.arange(S, dtype=torch.int32, device=x.device)[None]
     if params.pos_embed is not None:
         x = x + learned_positions(params.pos_embed, positions)
@@ -284,17 +274,21 @@ def decode_forward(
     return L.apply_norm(x, params.final_norm, cfg.norm), cache
 
 
-def _check_mesh(cfg, ctx: L.MeshContext, slots, embeds) -> None:
-    """What a sharded mesh serves: the dense and moe families' token
-    prefill and verify over a dense cache."""
-    if cfg.family not in ("dense", "moe") or embeds is not None:
-        L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid, then encdec and vlm")
-    if ctx.fsdp:
-        raise NotImplementedError(f"{cfg.name}: a train-mode (FSDP) layout does not serve "
-                                  "(ROADMAP.md Queue A: train-mode FSDP/ZeRO execution)")
-    if slots is not None:
-        raise NotImplementedError("slot-pool caches are not served under a mesh: the paged "
-                                  "engine, System and the cluster stay single-rank")
+def cache_append(cache: Dict[str, torch.Tensor], S: int, ctx: L.MeshContext,
+                 slots: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[L.CacheWrite], Optional[int]]:
+    """Where a forward's S fresh K/V rows go in ``cache``'s ``k``/``v``:
+    (each row's length, its ``CacheWrite``, None), or for a
+    sequence-sharded cache under a mesh (length, None, ``length[0]``):
+    every row's fresh rows at row 0's length, the JAX package's
+    padded-batch contract (one host read)."""
+    if ctx.sharded and ctx.seq_shard_kv:
+        return cache["length"], None, int(cache["length"][0])
+    s_max = cache["k"].shape[2]
+    if slots is None:
+        return cache["length"], L.CacheWrite.dense(cache["length"], S, s_max), None
+    cache_len = cache["length"][slots.long()]
+    return cache_len, L.CacheWrite.slots(cache_len, slots, S, s_max), None
 
 
 def learned_positions(table: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -322,7 +316,8 @@ def block_forward(cfg, blk: Block, x: torch.Tensor, positions: torch.Tensor,
         x_mid = x.float() + a.float()
         h = L.apply_norm(x_mid, blk.ln_x, cfg.norm).to(x.dtype)
         x = x_mid.to(x.dtype)
-        a = blk.xattn.cross(h, cross[0], cross[1], layer=layer, chunk=chunk, slots=slots)
+        a = blk.xattn.cross(h, cross[0], cross[1], layer=layer, chunk=chunk, slots=slots,
+                            ctx=ctx)
     return _mlp_residual(cfg, blk, x, a, ctx)
 
 
@@ -337,19 +332,21 @@ def _mlp_residual(cfg, blk: Block, x: torch.Tensor, a: torch.Tensor,
     return x_mid.to(x.dtype) + m
 
 
-def encode(cfg, params: Transformer, frames: torch.Tensor, *,
-           attn_chunk: int = 1024) -> torch.Tensor:
+def encode(cfg, params: Transformer, frames: torch.Tensor, *, attn_chunk: int = 1024,
+           ctx: L.MeshContext = L.NO_MESH) -> torch.Tensor:
     """The encdec family's bidirectional encoder over stub frame embeddings
     (B, F, d), F <= encoder_seq: frames cast to bf16 plus the first F rows
     of ``enc.pos_embed``, each block's self-attention non-causal over all F
-    frames, then the encoder's final norm."""
+    frames, then the encoder's final norm. Under a mesh, this rank's rows
+    of the frames, attention and the MLP on its pieces."""
     enc = params.enc
     B, F, _ = frames.shape
     x = frames.to(torch.bfloat16) + enc.pos_embed[None, :F]
     positions = torch.arange(F, dtype=torch.int32, device=x.device)[None].expand(B, F)
     for blk in enc.layers:
         h = L.apply_norm(x, blk.ln1, cfg.norm)
-        x = _mlp_residual(cfg, blk, x, blk.attn.fresh(h, positions, chunk=attn_chunk, causal=False))
+        a = blk.attn.fresh(h, positions, chunk=attn_chunk, causal=False, ctx=ctx)
+        x = _mlp_residual(cfg, blk, x, a, ctx)
     return L.apply_norm(x, enc.final_norm, cfg.norm)
 
 
@@ -438,15 +435,16 @@ def train_lm_head(params: CausalLM, h: torch.Tensor) -> torch.Tensor:
     return h.float() @ w.float()
 
 
-def cross_kv(cfg, params: Transformer, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def cross_kv(cfg, params: Transformer, enc_out: torch.Tensor,
+             ctx: L.MeshContext = L.NO_MESH) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every decoder layer's cross K and V of the shared encoder output,
     stacked (L, B, F, Hkv, D): ``enc_out @ xattn.wk`` (and ``wv``), without
-    the biases, as the JAX ``_map_layers_xkv`` projects them."""
-    B, F, _ = enc_out.shape
-    shape = (B, F, cfg.num_kv_heads, cfg.head_dim)
-    ks = [(enc_out @ blk.xattn.wk).reshape(shape) for blk in params.layers]
-    vs = [(enc_out @ blk.xattn.wv).reshape(shape) for blk in params.layers]
-    return torch.stack(ks), torch.stack(vs)
+    the biases, as the JAX ``_map_layers_xkv`` projects them. Under a mesh
+    this rank's KV heads where they split over the model axis (the
+    policy's ``cross_k`` layout), else every head (a sharded projection's
+    columns gathered)."""
+    kvs = [blk.xattn.cross_kv(enc_out, ctx) for blk in params.layers]
+    return torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
 
 
 def prefill(
@@ -465,19 +463,19 @@ def prefill(
     cache's ``length`` grows by P + S_prompt. An encdec model encodes
     ``enc_frames`` and stores each layer's cross K/V as the cache's
     ``cross_k``/``cross_v`` (shaped by the frames, as in JAX). Under a
-    mesh, this rank's rows and pieces (the dense and moe families)."""
-    if ctx.sharded and cfg.family not in ("dense", "moe"):
-        L.refuse_mesh(cfg, ctx, "ROADMAP.md Queue A: ssm and hybrid, then encdec and vlm")
+    mesh, this rank's rows (of the tokens, the prefix and the frames) and
+    pieces."""
+    L.check_mesh(cfg, ctx)
     if cfg.is_encdec:
         if enc_frames is None:
             raise ValueError(f"{cfg.name}: an encdec prefill needs enc_frames, the encoder's "
                              "(B, F, d) frame embeddings (model_zoo.frontend_stub)")
-        enc_out = encode(cfg, params, enc_frames, attn_chunk=attn_chunk)
-        cks, cvs = cross_kv(cfg, params, enc_out)
+        enc_out = encode(cfg, params, enc_frames, attn_chunk=attn_chunk, ctx=ctx)
+        cks, cvs = cross_kv(cfg, params, enc_out, ctx)
         cache = {**cache, "cross_k": cks, "cross_v": cvs}
     embeds = None
     if embeds_prefix is not None:
-        tok = L.embed_lookup(params.embed, tokens)
+        tok = L.embed_lookup(params.embed, tokens, ctx, cfg.vocab_size)
         embeds = torch.cat([embeds_prefix.to(tok.dtype), tok], dim=1)
     h, cache = decode_forward(cfg, params, cache, tokens, attn_chunk=attn_chunk, embeds=embeds,
                               ctx=ctx)

@@ -20,7 +20,10 @@ Decisions (as in JAX):
     over ``model`` when V % tp == 0;
   * moe: expert-parallel when E % tp == 0, else each expert's d_ff
     (f-TP), the router replicated;
-  * ssm: the mamba weights replicated, the batch over ``data``;
+  * ssm: the mamba weights replicated, the batch over ``data``; the
+    ``ssm`` state split by SSD head over ``model`` where the heads divide
+    it (each rank scans its heads), the ``conv`` window whole;
+  * encdec: the cross K/V leaves split by KV head where the heads divide;
   * train mode: FSDP adds ``data`` on the largest remaining divisible dim of
     every leaf of at least 2M elements.
 
@@ -230,7 +233,15 @@ class Policy:
     # -- this rank's pieces --------------------------------------------------
 
     def shard_cache(self, cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's piece of every leaf of a full cache."""
+        """This rank's piece of every leaf of a full cache (``ssm`` by SSD
+        head, ``k``/``v`` and ``cross_k``/``cross_v`` by KV head or
+        sequence, every leaf by batch row). A verify's state checkpoints
+        (``ssm_ckpt``, ``conv_ckpt``: (L, B, K, ...)) are not cut here:
+        ``cache_spec_for`` would put the model axis on their K axis, as
+        JAX's does."""
+        ckpts = [k for k in cache if k.endswith("_ckpt")]
+        if ckpts:
+            raise ValueError(f"shard the committed cache, not the checkpoints {ckpts}")
         specs = self.cache_specs(cache)
         return {k: local_shard(v, specs[k], self.mesh) for k, v in cache.items()}
 
@@ -294,7 +305,6 @@ def shard_module(model, policy: Policy):
     """Replace every parameter of a full port model (on this rank's device)
     by this rank's piece of it, in place; returns the model. The full
     tensors are freed as their pieces replace them."""
-    _check_family(policy)
     with torch.no_grad():
         for name, spec in port_param_specs(policy, model).items():
             if any(spec):
@@ -308,13 +318,5 @@ def shard_params(tree: Dict[str, Any], policy: Policy, *, device="cuda"):
     -> the port's model on ``device`` holding this rank's pieces only. The
     full leaves stay on the host; only the pieces reach the device."""
     device = resolve_device(device)
-    _check_family(policy)
     model = shard_module(bridge.params_from_jax(policy.cfg, tree, device="cpu"), policy)
     return model.to(device)
-
-
-def _check_family(policy: Policy) -> None:
-    if policy.cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{policy.cfg.name}: the {policy.cfg.family} family is not served under a mesh yet "
-            "(ROADMAP.md Queue A: ssm and hybrid, then encdec and vlm)")

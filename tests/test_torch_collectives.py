@@ -63,13 +63,14 @@ V, CHUNK, MAX_LEN, PROMPT, K = 256, 16, 64, 30, 4
 # ---------------------------------------------------------------- the ranks
 
 
-def _rank_main(rank, world, port, work):
+def _rank_main(rank, world, port, work, runners=None):
     from repro_torch.launch import mesh as M
 
     M.init_process_group(rank, world, f"tcp://127.0.0.1:{port}", timeout_s=RANK_TIMEOUT_S)
     job = torch.load(work / "job.pt", weights_only=False)
     mesh = M.make_debug_mesh(*job["mesh"], device="cpu", timeout_s=RANK_TIMEOUT_S)
-    out = {name: _RUNNERS[case["kind"]](mesh, case) for name, case in job["cases"].items()}
+    runners = runners or _RUNNERS
+    out = {name: runners[case["kind"]](mesh, case) for name, case in job["cases"].items()}
     torch.save(out, work / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -152,15 +153,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _start(job: dict, world: int, work: Path):
+def _start(job: dict, world: int, work: Path, runners=None):
     """Start ``job`` on ``world`` ranks: processes forked from a server that
-    has imported torch (spawned ranks would each import it again)."""
+    has imported torch (spawned ranks would each import it again). A case
+    runs ``runners[case["kind"]]`` (default: this file's)."""
     work.mkdir(parents=True, exist_ok=True)
     torch.save(job, work / "job.pt")
     port = _free_port()
     mp = multiprocessing.get_context("forkserver")
     mp.set_forkserver_preload(["torch", "numpy"])
-    procs = [mp.Process(target=_rank_main, args=(r, world, port, work)) for r in range(world)]
+    procs = [mp.Process(target=_rank_main, args=(r, world, port, work, runners))
+             for r in range(world)]
     for p in procs:
         p.start()
     return procs, work, time.monotonic() + RANK_TIMEOUT_S

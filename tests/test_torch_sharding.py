@@ -176,33 +176,6 @@ def test_production_mesh_needs_its_ranks():
         make_debug_mesh(2, 2, device="cpu")
 
 
-_REFUSED = {"mamba2-370m": "ssm", "zamba2-1.2b": "hybrid", "whisper-tiny": "encdec",
-            "llava-next-mistral-7b": "vlm"}
-
-
-@pytest.mark.parametrize("arch", list(_REFUSED))
-@pytest.mark.parametrize("entry", ["prefill", "decode_forward"])
-def test_families_without_a_mesh_form_refuse_a_sharded_ctx(arch, entry):
-    """An ssm, hybrid, encdec or vlm model under a ctx with tp > 1 raises,
-    naming the ROADMAP.md item, before it runs anything."""
-    import dataclasses as dc
-
-    from repro_torch.models.layers import MeshContext
-
-    cfg = dc.replace(get_config(arch).reduced(), vocab_size=64)
-    model = build_model(cfg)
-    params = bridge._MODELS[cfg.family](cfg, device="cpu")
-    ctx = MeshContext(mesh=Mesh.from_shape({"data": 1, "model": 2}), batch_axes=("data",),
-                      model_axis="model")
-    cache = model.make_cache(2, 32, device="cpu", attn_chunk=16)
-    tokens = torch.zeros((2, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        if entry == "prefill":
-            model.prefill(params, tokens, cache, attn_chunk=16, ctx=ctx)
-        else:
-            model.decode_forward(params, cache, tokens, attn_chunk=16, ctx=ctx)
-
-
 def test_the_serving_steps_refuse_what_they_do_not_shard():
     """A slot pool, a train-mode (FSDP) layout and an int8 sequence-sharded
     cache raise under a mesh instead of running unsharded."""
